@@ -1,0 +1,84 @@
+"""Public wrappers around the port's kernels.
+
+Answers to ``repro/kernels/ops.py``.  The reference padded and bucketed
+its inputs for reasons the port does not share:
+
+- the TILE padding of L existed for the TPU's BlockSpecs; the CUDA kernel
+  masks its own ragged edge, so L is taken as it is;
+- the power-of-two bucketing of G and C existed to bound XLA recompiles;
+  PyTorch runs eagerly and the kernel takes any (G, C), so it is gone.
+  ``bucket_size`` stays as the shared next-power-of-two helper.
+
+There is no kernel mode: every wrapper dispatches by the device of its
+tensors (CPU: plain version; CUDA: the hand-written kernel or an error).
+Only the tree-aggregation kernels are ported so far; the quantize,
+broadcast-apply, fused-update and policy-update kernels are not.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import tree_aggregate as _ta
+from ..pytree import ravel, unravel_like
+
+
+def bucket_size(n: int) -> int:
+    """Next power of two >= n (>= 1)."""
+    return 1 << (max(1, int(n)) - 1).bit_length()
+
+
+def tree_aggregate_groups(grads: torch.Tensor, weights) -> torch.Tensor:
+    """(G, C, L) x (G, C) -> (G, L) f32: one tree level as G groups.
+
+    Ragged groups carry zero weights (and zero rows) in their padding slots.
+    """
+    w = torch.as_tensor(weights, dtype=torch.float32, device=grads.device)
+    return _ta.tree_aggregate_groups(grads.contiguous(), w.contiguous())
+
+
+def tree_aggregate(grads: torch.Tensor, weights) -> torch.Tensor:
+    """(C, L) x (C,) -> (L,) f32 weighted sum: the G = 1 case of the kernel."""
+    w = torch.as_tensor(weights, dtype=torch.float32, device=grads.device)
+    return tree_aggregate_groups(grads[None], w[None])[0]
+
+
+def _stack_pytrees(updates: list) -> torch.Tensor:
+    """(C, L) f32 stack of flattened update pytrees (sorted-key leaf order)."""
+    return torch.stack([ravel(u) for u in updates])
+
+
+def tree_aggregate_pytree(updates: list, weights):
+    """Aggregate a list of model-update pytrees with the kernel."""
+    return unravel_like(tree_aggregate(_stack_pytrees(updates), weights), updates[0])
+
+
+def buffered_aggregate(updates: list, weights, staleness, *, alpha: float = 0.5):
+    """Staleness-weighted buffered aggregate (async FedBuff apply).
+
+    The K buffered deltas form ONE (1, K, L) group through
+    ``tree_aggregate_groups`` with the discount ``w_i / (1+s_i)^alpha``
+    folded into its weights; the sum is normalised by the combined weight,
+    so a full uniform-staleness buffer at alpha = 0 is the synchronous
+    FedAvg mean.  Returns (aggregate pytree, combined weights (K,) f32).
+    """
+    stacked = _stack_pytrees(updates)[None]  # (1, K, L)
+    w = _ta.staleness_weights(weights, staleness, alpha, device=stacked.device)
+    agg = tree_aggregate_groups(stacked, w[None])[0] / torch.clamp(w.sum(), min=1e-12)
+    return unravel_like(agg, updates[0]), w
+
+
+def jain_fairness(x) -> float:
+    """Jain's fairness index ``(sum x)^2 / (n * sum x^2)`` in (0, 1].
+
+    1.0 means a perfectly even split, ``1/n`` that one party holds
+    everything; an empty or all-zero vector scores 1.0.
+    """
+    v = np.asarray(x, np.float64)
+    if v.size == 0:
+        return 1.0
+    q = float(np.sum(v * v))
+    if q <= 0.0:
+        return 1.0
+    s = float(np.sum(v))
+    return (s * s) / (v.size * q)

@@ -1,0 +1,87 @@
+"""The port imports neither JAX nor the JAX package, and its entry points
+refuse to run on a card that is not there."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None      # any import of jax now raises ImportError
+sys.modules["repro"] = None    # and so does any import of the JAX package
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(
+    m for m, mod in sys.modules.items()
+    if mod is not None and (m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def _run(code, tmp_path, *args):
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.run(
+        [sys.executable, "-c", code, *args], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+
+
+def test_every_module_imports_without_jax_or_repro(tmp_path):
+    res = _run(PROBE, tmp_path)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 14  # every module of the slice
+
+
+def test_chip_smoke_imports_no_jax():
+    """Every import statement of chip_smoke.py, at any depth."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names.add((node.module or "").split(".")[0])
+    assert "repro_torch" in names
+    assert not names & {"jax", "jaxlib", "repro"}, names
+
+
+def test_make_app_without_device_needs_a_card():
+    """``device=None`` means the card: with none present it raises rather
+    than carrying on on the CPU."""
+    from repro_torch.core.api import TotoroSystem
+    from repro_torch.fl import rounds
+
+    if torch.cuda.is_available():
+        assert rounds.resolve_device(None).type == "cuda"
+        return
+    sys_ = TotoroSystem(zone_bits=2, suffix_bits=20)
+    for i in range(8):
+        sys_.Join("n", i, site=i % 4)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        rounds.make_app(sys_, "a", workers=[], data_by_worker={})
+    assert not sys_.apps  # refused before the tree was created
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        rounds.resolve_device("cuda:0")
+    assert rounds.resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: chip_smoke.py would run for real")
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
