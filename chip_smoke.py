@@ -9,15 +9,16 @@ the CPU):
 1. device: the card's name, the device count, and
    ``nvidia-smi --query-gpu=name,power.limit``;
 2. build: every CUDA kernel of the port, from ``src/repro_torch/kernels/csrc``,
-   one nvcc per source, all started together;
+   one nvcc per source;
 3. kernels against their plain versions on the card, at ragged shapes,
-   at quickstart tree levels and at the kernel bench's C=16, L=131072;
+   C=1, G=1 and at the kernel bench's C=16, L=131072 in bf16 and f32;
 4. the main path at full width: the README quickstart (400-node overlay,
    16 workers, 4,000 samples, MLP 32-64-8, 8 rounds, kill the master,
    1 more round) and 2 rounds of a CNN app (16x16x1, channels 16/32),
    with every launch counter set to 0 just before and read just after;
-   then the same seeds on the CPU through the plain versions, compared
-   with the card's run;
+   then the kernel against its plain version at every tree-level
+   (G, C, L) the main path ran, and the same seeds on the CPU through
+   the plain versions, compared with the card's run;
 5. times: each kernel's device time (a CUDA graph of calls between CUDA
    events) beside its byte bound, its plain version and one PyTorch call
    computing the same function, at every tree-level shape of the main
@@ -308,7 +309,8 @@ def main() -> int:
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
     sources = sorted(f[:-3] for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
-    _build.build(sources)
+    for name in sources:
+        _build.load(name)
     log(f"[2 build] {sources} in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
@@ -321,8 +323,6 @@ def main() -> int:
         (3, 5, 333, f32), (3, 5, 333, bf16),      # ragged groups, L % 1024 != 0
         (1, 1, 1, f32), (4, 1, 1029, bf16),       # C = 1
         (1, 7, 4097, f32),                         # G = 1
-        (3, 3, 6792, f32), (1, 12, 6792, f32),    # quickstart MLP tree levels
-        (4, 4, 8848, f32),                         # CNN level
         (1, 16, 131072, bf16), (1, 16, 131072, f32),  # kernel bench shape
     ]
     max_err = check_tree_aggregate(torch, ta, ref, shapes)
@@ -353,6 +353,11 @@ def main() -> int:
         raise SystemExit(f"expected {n_levels} kernel launches on the main path, saw {launches}")
     if not gpu["losses"][-1] < gpu["losses"][0] or not gpu["cnn_losses"][-1] < gpu["cnn_losses"][0]:
         raise SystemExit("loss did not fall")
+    level_shapes = sorted({lv[:3] for lv in gpu["levels"]})
+    level_err = check_tree_aggregate(torch, ta, ref, [(*s, f32) for s in level_shapes])
+    max_err = max(max_err, level_err)
+    log(f"[4 main path] tree_aggregate_groups max_abs_err={level_err:.3e} over "
+        f"{len(level_shapes)} main-path level shapes")
     cpu = drive_main_path("cpu")
     errs = {
         "quickstart_loss": compare("quickstart loss", gpu["losses"], cpu["losses"], PATH_TOL),
@@ -367,7 +372,6 @@ def main() -> int:
     log(f"[4 main path] card vs CPU max abs diff {json.dumps(errs)} ({PATH_TOL})")
 
     # -- 5. times -------------------------------------------------------------
-    level_shapes = sorted({lv[:3] for lv in gpu["levels"]})
     rows = [time_tree_aggregate(torch, ta, ref, g, c, l, f32) for g, c, l in level_shapes]
     main_row = max(rows, key=lambda r: r["bytes"])  # the main path's largest level
     rows += [  # the kernel bench's shape, then a streaming size far past L2

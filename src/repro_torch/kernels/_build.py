@@ -52,51 +52,27 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
-    """Start nvcc for ``name`` unless its library is already built."""
-    out = _lib_path(name)
-    if out.exists():
-        return None
+def _compile(name: str, out: Path) -> None:
+    """Run nvcc on ``csrc/<name>.cu`` into ``out``; raise if it fails."""
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return out, tmp, proc
-
-
-def _finish(name: str, started) -> None:
-    out, tmp, proc = started
-    log, _ = proc.communicate()
-    BUILD_LOG[name] = log
-    if proc.returncode != 0:
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_LOG[name] = res.stdout + res.stderr
+    if res.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu (rc {proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu (rc {res.returncode}):\n{BUILD_LOG[name]}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-
-
-def build(names: list[str]) -> None:
-    """Compile every named source, all nvcc processes started together."""
-    started = {}
-    try:
-        for n in names:
-            started[n] = _start(n)
-        for n, s in started.items():
-            if s is not None:
-                _finish(n, s)
-    finally:  # after a failure, stop the builds still running
-        for s in started.values():
-            if s is not None and s[2].poll() is None:
-                s[2].kill()
-                s[2].wait()
-                s[1].unlink(missing_ok=True)
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        out = _lib_path(name)
+        if not out.exists():
+            _compile(name, out)
+        lib = ctypes.CDLL(str(out))
         _LIBS[name] = lib
     return lib

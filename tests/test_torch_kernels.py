@@ -176,5 +176,6 @@ def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setattr(_build, "_lib_path", lambda name: _build.BUILD_DIR / "absent.so")
     monkeypatch.setattr(_build.Path, "is_file", lambda self: False)
+    monkeypatch.setattr(_build, "_LIBS", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.build(["tree_aggregate"])
+        _build.load("tree_aggregate")
