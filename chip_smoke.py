@@ -9,21 +9,36 @@ the CPU):
 1. device: the card's name, the device count, and
    ``nvidia-smi --query-gpu=name,power.limit``;
 2. build: every CUDA kernel of the port, from ``src/repro_torch/kernels/csrc``,
-   one nvcc per source;
-3. kernels against their plain versions on the card, at ragged shapes,
-   C=1, G=1 and at the kernel bench's C=16, L=131072 in bf16 and f32;
-4. the main path at full width: the README quickstart (400-node overlay,
-   16 workers, 4,000 samples, MLP 32-64-8, 8 rounds, kill the master,
-   1 more round) and 2 rounds of a CNN app (16x16x1, channels 16/32),
-   with every launch counter set to 0 just before and read just after;
-   then the kernel against its plain version at every tree-level
-   (G, C, L) the main path ran, and the same seeds on the CPU through
-   the plain versions, compared with the card's run;
+   one nvcc per source, all started together;
+3. kernels against their plain versions on the card: the tree aggregation
+   at ragged shapes, C=1, G=1 and the kernel bench's C=16, L=131072 in
+   bf16 and f32; QSGD quantize (levels 127, 3, 7; a row that reaches 128
+   and a zero row), dequantize and the broadcast chain apply (D = 1..3,
+   and D-deep = D single steps) bit-equal at R = 1, 27, 4096; the int8
+   aggregation bit-equal to the f32 path on the widened input;
+4. the main paths at full width, each with every launch counter set to 0
+   just before and read just after:
+   a. slice A: the README quickstart (400-node overlay, 16 workers, 4,000
+      samples, MLP 32-64-8, 8 rounds, kill the master, 1 more round) and
+      2 rounds of a CNN app (16x16x1, channels 16/32); the aggregation
+      kernel against its plain version at every tree-level (G, C, L) the
+      path ran; the same seeds on the CPU, compared with the card's run;
+   b. slice B: the quickstart app through ``run_async`` (12 applies,
+      K = 4, staleness alpha 0.5, heterogeneous compute, churn) with
+      QSGD-int8 commits under error feedback and delta-QSGD broadcasts
+      (levels 3, chain cap 3), then the same without compression; every
+      kernel call of the compressed card run is recorded and re-run
+      through the plain versions on the CPU (bit-equal); the same seeds
+      on the CPU: identical event and churn traces, fp-tight losses and
+      parameters uncompressed, first-apply commit lattices within +-1 and
+      losses within ASYNC_LOSS_ATOL compressed, beside how far the losses
+      move on the CPU when the start weights are perturbed by PERTURB;
 5. times: each kernel's device time (a CUDA graph of calls between CUDA
-   events) beside its byte bound, its plain version and one PyTorch call
-   computing the same function, at every tree-level shape of the main
-   path and at the bench shape; the round time on the host clock; and
-   the device's busy share of a steady round under torch.profiler.
+   events) beside its bound, its plain version and one PyTorch call
+   computing the same function where there is one, at the main paths'
+   shapes and at the kernel bench's; the round and apply times on the
+   host clock; and the device's busy share of a steady round and of
+   steady applies under torch.profiler.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, and
@@ -37,6 +52,8 @@ import os
 import subprocess
 import sys
 import time
+from contextlib import contextmanager, nullcontext
+from dataclasses import astuple
 
 import numpy as np
 
@@ -50,6 +67,15 @@ F32_FLOPS = 67e12
 TOL = {"rtol": 1e-5, "atol": 1e-5}  # the JAX package's own kernel tolerance
 # card vs CPU after 36 SGD steps: matmul and conv reduction orders differ
 PATH_TOL = {"rtol": 1e-4, "atol": 1e-5}
+# compressed async, card vs CPU: a ~1e-7 training difference can move
+# x/scale + u across an integer and flip a lattice point by one step (a
+# third of the row max at downlink levels 3), and the flip spreads to later
+# workers.  Phase 4b measures how far per-apply losses move when the CPU
+# run's start weights are perturbed by PERTURB relative (ten times and more
+# the card-vs-CPU weight drift of slice A); the tolerance sits well above it.
+ASYNC_LOSS_ATOL = 5e-3
+PERTURB = 1e-5
+ASYNC_APPLIES = 12
 
 KERNELS = [
     {
@@ -58,7 +84,33 @@ KERNELS = [
         "source": "src/repro_torch/kernels/csrc/tree_aggregate.cu",
         "replaces": "src/repro/kernels/tree_aggregate.py:119",
     },
+    {
+        "name": "tree_aggregate",  # the G = 1 case of the kernel above
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tree_aggregate.cu",
+        "replaces": "src/repro/kernels/tree_aggregate.py:61",
+    },
+    {
+        "name": "qsgd_quantize",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quantize.cu",
+        "replaces": "src/repro/kernels/quantize.py:40",
+    },
+    {
+        "name": "qsgd_dequantize",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quantize.cu",
+        "replaces": "src/repro/kernels/quantize.py:70",
+    },
+    {
+        "name": "apply_quantized_broadcast",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/broadcast.cu",
+        "replaces": "src/repro/kernels/broadcast.py:36",
+    },
 ]
+COUNTED = ("tree_aggregate_groups", "qsgd_quantize", "qsgd_dequantize",
+           "apply_quantized_broadcast")
 
 
 def log(*a):
@@ -104,24 +156,127 @@ def check_tree_aggregate(torch, ta, ref, shapes) -> float:
     return worst
 
 
+def counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from repro_torch.kernels import broadcast as bc
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import tree_aggregate as ta
+
+    return {"tree_aggregate_groups": ta.launches, "qsgd_quantize": qz.launches["qsgd_quantize"],
+            "qsgd_dequantize": qz.launches["qsgd_dequantize"],
+            "apply_quantized_broadcast": bc.launches}
+
+
+def set_counts(c: dict) -> None:
+    from repro_torch.kernels import broadcast as bc
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import tree_aggregate as ta
+
+    ta.launches = c["tree_aggregate_groups"]
+    qz.launches["qsgd_quantize"] = c["qsgd_quantize"]
+    qz.launches["qsgd_dequantize"] = c["qsgd_dequantize"]
+    bc.launches = c["apply_quantized_broadcast"]
+
+
+@contextmanager
+def uncounted():
+    """Launches made to check or time a kernel are not main-path launches."""
+    saved = counts()
+    try:
+        yield
+    finally:
+        set_counts(saved)
+
+
+def qsgd_rows(torch, R: int, seed: int):
+    """(R, 256) rows at mixed magnitudes and their uniforms; row 0 is built
+    so that floor(x/scale + u) reaches 128 at levels 127, the last row is
+    all zeros."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(R, 256, device="cuda", generator=gen)
+    x *= torch.rand(R, 1, device="cuda", generator=gen) * 10 + 1e-4
+    u = torch.rand(R, 256, device="cuda", generator=gen)
+    x[0] = torch.linspace(-0.1, 0.1, 256, device="cuda")
+    x[0, 0] = 0.16625983
+    u[0, 0] = 1.0 - 2.0**-24
+    if R > 1:
+        x[-1] = 0.0
+    return x, u
+
+
+def check_compression_kernels(torch, qz, bc, ta, ref) -> dict:
+    """QSGD quantize, dequantize and the chain apply bit-equal to their plain
+    versions; the int8 aggregation bit-equal to the f32 path on q.float()
+    and within TOL of its plain version.  Returns max |err| per kernel."""
+    errs = {"qsgd_quantize": 0.0, "qsgd_dequantize": 0.0,
+            "apply_quantized_broadcast": 0.0, "tree_aggregate_groups_int8": 0.0}
+
+    def note(name, ok, err, what):
+        errs[name] = max(errs[name], err)
+        log(f"  {name} {what}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name} disagrees with its plain version at {what}")
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for R in (1, 27, 4096):
+        for levels in (127, 3, 7):
+            x, u = qsgd_rows(torch, R, seed=R * 131 + levels)
+            q, s = qz.qsgd_quantize(x, u, levels=levels)
+            torch.cuda.synchronize()
+            rq, rs = ref.quantize_ref(x, u, levels=levels)
+            err = max(float((q.int() - rq.int()).abs().max()), float((s - rs).abs().max()))
+            raw = float(torch.floor(x[0, 0] / s[0, 0] + u[0, 0]))
+            ok = torch.equal(q, rq) and torch.equal(s, rs)
+            if levels == 127:  # the row that overflows a wrapping cast saturates
+                ok = ok and raw == 128.0 and int(q[0, 0]) == 127
+            note("qsgd_quantize", ok, err,
+                 f"R={R} levels={levels} bit-equal (row 0: floor={raw:.0f} -> q={int(q[0, 0])}; "
+                 f"last row scale={float(s[-1, 0]):.3e})")
+        q = torch.randint(-128, 128, (R, 256), device="cuda", generator=gen, dtype=torch.int8)
+        s = torch.rand(R, 1, device="cuda", generator=gen) * 0.1
+        out = qz.qsgd_dequantize(q, s)
+        torch.cuda.synchronize()
+        want = ref.dequantize_ref(q, s)
+        note("qsgd_dequantize", torch.equal(out, want), float((out - want).abs().max()),
+             f"R={R} bit-equal")
+        for D in (1, 2, 3):
+            w = torch.randn(R, 256, device="cuda", generator=gen)
+            qc = torch.randint(-127, 128, (D, R, 256), device="cuda", generator=gen, dtype=torch.int8)
+            sc = torch.rand(D, R, 1, device="cuda", generator=gen) * 0.05
+            out = bc.apply_quantized_broadcast(w, qc, sc)
+            step = w
+            for d in range(D):
+                step = bc.apply_quantized_broadcast(step, qc[d : d + 1], sc[d : d + 1])
+            torch.cuda.synchronize()
+            want = ref.apply_quantized_ref(w, qc, sc)
+            note("apply_quantized_broadcast", torch.equal(out, want) and torch.equal(out, step),
+                 float((out - want).abs().max()), f"R={R} D={D} bit-equal, = {D} single steps")
+    for G, C, L in ((27, 4, 256), (27, 3, 256), (4096, 4, 256), (3, 5, 333), (1, 16, 131072)):
+        q = torch.randint(-128, 128, (G, C, L), device="cuda", generator=gen, dtype=torch.int8)
+        w = torch.rand(G, C, device="cuda", generator=gen) * 1e-2
+        out = ta.tree_aggregate_groups(q, w)
+        f32 = ta.tree_aggregate_groups(q.float(), w)
+        torch.cuda.synchronize()
+        want = ref.tree_aggregate_groups_ref(q, w)
+        err = (out - want).abs()
+        ok = torch.equal(out, f32) and bool((err <= TOL["atol"] + TOL["rtol"] * want.abs()).all())
+        note("tree_aggregate_groups_int8", ok, float(err.max()),
+             f"G={G} C={C} L={L} = f32 path on q.float(), plain within {TOL}")
+    return errs
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the main paths
 
 
-def drive_main_path(device: str) -> dict:
-    """The README quickstart, then 2 rounds of a CNN app, on ``device``."""
-    import torch
-
+def quickstart(device: str):
+    """The README quickstart's system and MLP app on ``device``.  Returns
+    (system, app, nodes, rng, x, y); ``rng``'s later draws pick the CNN
+    app's workers."""
     from repro_torch import data
-    from repro_torch.convert import params_to_numpy
     from repro_torch.core.api import TotoroSystem
     from repro_torch.fl import rounds
 
-    def sync():
-        if device == "cuda":
-            torch.cuda.synchronize()
-
-    rec = {"losses": [], "cnn_losses": [], "levels": [], "round_ms": [], "accs": []}
     system = TotoroSystem(zone_bits=2, suffix_bits=24, seed=0)
     rng = np.random.default_rng(0)
     nodes = [
@@ -136,6 +291,23 @@ def drive_main_path(device: str) -> dict:
         data_by_worker={w: (x[parts[i]], y[parts[i]]) for i, w in enumerate(workers)},
         dim=32, num_classes=8, local_steps=4, lr=0.2, mu=0.01, device=device,
     )
+    return system, app, nodes, rng, x, y
+
+
+def drive_main_path(device: str) -> dict:
+    """The README quickstart, then 2 rounds of a CNN app, on ``device``."""
+    import torch
+
+    from repro_torch import data
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.fl import rounds
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    rec = {"losses": [], "cnn_losses": [], "levels": [], "round_ms": [], "accs": []}
+    system, app, nodes, rng, x, y = quickstart(device)
 
     def one_round(a, key):
         sync()
@@ -186,6 +358,126 @@ def compare(name, a, b, tol) -> float:
     if not np.allclose(a, b, **tol):
         raise SystemExit(f"{name}: card and CPU runs disagree (max abs {err:.3e}, {tol})")
     return err
+
+
+def _host(v):
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().clone()
+    if isinstance(v, (tuple, list)):
+        return type(v)(_host(x) for x in v)
+    return v
+
+
+class Recorder:
+    """Wraps the kernel wrappers of ``repro_torch.kernels.ops`` for one run:
+    every call's inputs and outputs, copied to the host, in call order."""
+
+    NAMES = ("qsgd_quantize", "qsgd_dequantize", "apply_quantized_broadcast",
+             "tree_aggregate_groups")
+
+    def __init__(self):
+        self.calls = {n: [] for n in self.NAMES}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self._ops, self._orig = ops, {n: getattr(ops, n) for n in self.NAMES}
+        for n, fn in self._orig.items():
+            setattr(ops, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._orig.items():
+            setattr(self._ops, n, fn)
+
+    def _wrap(self, name, fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            self.calls[name].append((_host(args), dict(kw), _host(out)))
+            return out
+
+        return wrapped
+
+
+def drive_async(device: str, compressed: bool, *, record: bool = False,
+                perturb: float = 0.0) -> dict:
+    """Slice B: the quickstart app through ``run_async`` on ``device``;
+    ``perturb`` scales each start weight by (1 + perturb * N(0, 1))."""
+    import torch
+
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.core.sim import ChurnModel
+    from repro_torch.fl import async_engine
+    from repro_torch.fl.compression import CompressionPolicy
+
+    system, app, *_ = quickstart(device)
+    if perturb:
+        gen = torch.Generator().manual_seed(123)
+        for v in app.params.values():
+            v.mul_(1 + perturb * torch.randn(v.shape, generator=gen).to(v.device))
+    L = sum(int(v.numel()) for v in app.params.values())
+    policy = None
+    if compressed:  # bench_fairness.downlink_compare's policy, with EF on
+        policy = CompressionPolicy(kind="qsgd-int8", error_feedback=True, downlink="delta-qsgd",
+                                   downlink_levels=3, chain_cap=3)
+    recorder = Recorder()
+    with recorder if record else nullcontext():
+        res = async_engine.run_async(
+            system, [app], applies=ASYNC_APPLIES, buffer_k=4, staleness_alpha=0.5,
+            model_bytes=4.0 * L,
+            compute_ms=async_engine.worker_compute_fn(base_ms=40, spread=6, seed=0),
+            churn=ChurnModel(period_ms=500, downtime_ms=1500, seed=0, max_fail_events=2),
+            compression=policy,
+        )
+        if device == "cuda":
+            torch.cuda.synchronize()
+    hist = res["history"]
+    return {
+        "events": [astuple(e) for e in res["events"]],
+        "churn": [astuple(c) for c in res["churn"]],
+        "downlink_log": list(res["scheduler"].downlink_log),
+        "losses": [h["loss"] for h in hist],
+        "arrivals": [h["arrivals"] for h in hist],
+        "params": params_to_numpy(app.params),
+        "L": L,
+        "calls": recorder.calls if record else None,
+    }
+
+
+def replay_on_cpu(torch, ref, calls) -> dict:
+    """Every recorded kernel call of a card run, re-run through its plain
+    version on the CPU: quantize, dequantize and chain apply bit-equal, the
+    int8 aggregation within TOL.  Returns the number of calls of each."""
+    for (x, u), kw, (q, s) in calls["qsgd_quantize"]:
+        rq, rs = ref.quantize_ref(x, u, levels=kw["levels"])
+        if not (torch.equal(q, rq) and torch.equal(s, rs)):
+            raise SystemExit(f"replay: qsgd_quantize (levels {kw['levels']}) differs from the card")
+    for (q, s), _, out in calls["qsgd_dequantize"]:
+        if not torch.equal(out, ref.dequantize_ref(q, s)):
+            raise SystemExit("replay: qsgd_dequantize differs from the card")
+    for (w, q, s), _, out in calls["apply_quantized_broadcast"]:
+        if not torch.equal(out, ref.apply_quantized_ref(w, q, s)):
+            raise SystemExit("replay: apply_quantized_broadcast differs from the card")
+    for (g, w), _, out in calls["tree_aggregate_groups"]:
+        want = ref.tree_aggregate_groups_ref(g, torch.as_tensor(w, dtype=torch.float32))
+        if not bool(((out - want).abs() <= TOL["atol"] + TOL["rtol"] * want.abs()).all()):
+            raise SystemExit("replay: int8 tree_aggregate_groups differs from the card")
+    return {k: len(v) for k, v in calls.items()}
+
+
+def async_launches_expected(run: dict, compressed: bool) -> dict:
+    """The launches a run's commits and applies imply: per apply, one
+    aggregation; compressed, one quantize per commit plus one for the
+    broadcast delta, one dequantize per commit (EF residual) and one chain
+    apply (the broadcast state)."""
+    commits, applies = sum(run["arrivals"]), len(run["arrivals"])
+    if not compressed:
+        return {"tree_aggregate_groups": applies, "qsgd_quantize": 0,
+                "qsgd_dequantize": 0, "apply_quantized_broadcast": 0}
+    return {"tree_aggregate_groups": applies, "qsgd_quantize": commits + applies,
+            "qsgd_dequantize": commits, "apply_quantized_broadcast": applies}
 
 
 # ---------------------------------------------------------------------------
@@ -290,6 +582,104 @@ def profile_rounds(torch, system, app, n: int = 3) -> dict:
     }
 
 
+def _time_row(torch, fn, plain, nbytes: float, ops: float, library=None, **extra) -> dict:
+    ms = device_ms(torch, fn)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    row = {
+        "ms": ms, "plain_ms": device_ms(torch, plain), "bound_ms": max(by_bytes, by_ops),
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "library_ms": None if library is None else device_ms(torch, library),
+        "eager_call_ms": eager_ms(torch, fn), "bytes": nbytes, "GBps": nbytes / (ms * 1e-3) / 1e9,
+    }
+    row.update(extra)
+    return row
+
+
+def time_compression_kernels(torch, qz, bc, ta, ref, R: int, K: int = 4) -> dict:
+    """The slice-B kernels at R rows of 256 (the path's R = 27, or the
+    kernel bench's 4096): quantize at levels 127, dequantize, a chain
+    apply of depth 1, and the int8 aggregation of K commits."""
+    x, u = qsgd_rows(torch, R, seed=7)
+    q, s = qz.qsgd_quantize(x, u)
+    w = torch.randn(R, 256, device="cuda")
+    q1, s1 = q[None].contiguous(), s[None].contiguous()
+    gq = torch.randint(-128, 128, (R, K, 256), device="cuda", dtype=torch.int8)
+    gw = torch.rand(R, K, device="cuda") * 1e-2
+    n = R * 256
+    with uncounted():
+        return {
+            "qsgd_quantize": _time_row(  # abs, max, div, add, floor, 2 clamps
+                torch, lambda: qz.qsgd_quantize(x, u), lambda: ref.quantize_ref(x, u),
+                9 * n + 4 * R, 7 * n, shape=[R, 256]),
+            "qsgd_dequantize": _time_row(
+                torch, lambda: qz.qsgd_dequantize(q, s), lambda: ref.dequantize_ref(q, s),
+                5 * n + 4 * R, n, library=lambda: torch.mul(q, s), shape=[R, 256]),
+            "apply_quantized_broadcast": _time_row(  # D = 1: one addcmul computes it
+                torch, lambda: bc.apply_quantized_broadcast(w, q1, s1),
+                lambda: ref.apply_quantized_ref(w, q1, s1), 8 * n + (n + 4 * R), 2 * n,
+                library=lambda: torch.addcmul(w, q, s), shape=[1, R, 256]),
+            "tree_aggregate_groups_int8": _time_row(
+                torch, lambda: ta.tree_aggregate_groups(gq, gw),
+                lambda: ref.tree_aggregate_groups_ref(gq, gw),
+                R * K * 256 + 4 * R * K + 4 * R * 256, 2 * R * K * 256, shape=[R, K, 256],
+                einsum_of_widened_ms=device_ms(
+                    torch, lambda: torch.einsum("gc,gcl->gl", gw, gq.float()))),
+        }
+
+
+def time_async(torch) -> dict:
+    """The compressed slice-B run on the card twice more: once with each
+    apply timed on the host clock (synchronised before and after), once
+    under torch.profiler for the device's busy share of the applies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fl.async_engine import AsyncTrainer
+
+    orig, apply_ms = AsyncTrainer.apply, []
+
+    def timed(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(self, *a, **kw)
+        torch.cuda.synchronize()
+        apply_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    AsyncTrainer.apply = timed
+    try:
+        with uncounted():
+            t0 = time.perf_counter()
+            drive_async("cuda", True)
+            run_ms = (time.perf_counter() - t0) * 1e3
+            host_ms, apply_ms[:] = list(apply_ms), []
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                drive_async("cuda", True)
+                torch.cuda.synchronize()
+            prof_ms = list(apply_ms)
+    finally:
+        AsyncTrainer.apply = orig
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+
+    def kernel_ms(tag):
+        return sum(e.self_device_time_total for e in dev if tag in e.key) / 1e3
+
+    return {
+        "apply_ms": host_ms, "apply_ms_first": host_ms[0],
+        "apply_ms_steady_mean": float(np.mean(host_ms[1:])), "run_ms": run_ms,
+        "profiled_applies_ms": float(np.sum(prof_ms)), "device_busy_ms": busy_ms,
+        "device_idle_share_of_applies": 1.0 - busy_ms / float(np.sum(prof_ms)),
+        "top_device": [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top],
+        "kernel_device_ms": {
+            "qsgd_quantize": kernel_ms("::quantize_rows"),
+            "qsgd_dequantize": kernel_ms("::dequantize_rows"),
+            "apply_quantized_broadcast": kernel_ms("apply_chain"),
+            "tree_aggregate_groups": kernel_ms("group_sum"),
+        },
+    }
+
+
 def main() -> int:
     import torch
 
@@ -298,6 +688,8 @@ def main() -> int:
         return 1
 
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import broadcast as bc
+    from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import tree_aggregate as ta
 
     # -- 1. device ------------------------------------------------------------
@@ -308,10 +700,10 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    sources = sorted(f[:-3] for f in os.listdir(_build.CSRC) if f.endswith(".cu"))
-    for name in sources:
+    _build.build_all()  # one nvcc per source, all started together
+    for name in _build.sources():
         _build.load(name)
-    log(f"[2 build] {sources} in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    log(f"[2 build] {_build.sources()} in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -328,18 +720,21 @@ def main() -> int:
     max_err = check_tree_aggregate(torch, ta, ref, shapes)
     torch.cuda.synchronize()
     log(f"[3 kernels] tree_aggregate_groups max_abs_err={max_err:.3e} over {len(shapes)} shapes")
+    comp_err = check_compression_kernels(torch, qz, bc, ta, ref)
+    log(f"[3 kernels] slice-B kernels max_abs_err {json.dumps(comp_err)}")
 
-    # -- 4. main path at full width ------------------------------------------
+    # -- 4a. slice A: the synchronous round at full width ----------------------
     # The CPU comparison below runs in full f32; cuDNN's convolutions would
     # otherwise run the CNN in TF32 (about 3 decimal digits), and matmuls
     # are kept from it too, so the card and the CPU compute the same function.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ta.launches = 0
+    set_counts(dict.fromkeys(COUNTED, 0))
     t0 = time.perf_counter()
     gpu = drive_main_path("cuda")
     torch.cuda.synchronize()
-    launches = ta.launches
+    sync_counts = counts()
+    launches = sync_counts["tree_aggregate_groups"]
     wall = time.perf_counter() - t0
     n_levels = len(gpu["levels"])
     log(f"[4 main path] quickstart losses: {[round(l, 4) for l in gpu['losses']]}")
@@ -347,10 +742,10 @@ def main() -> int:
     log(f"[4 main path] master failed -> new master {hex(gpu['new_master'])}")
     log(f"[4 main path] CNN losses: {gpu['cnn_losses']}; params L: {gpu['sizes']}")
     log(f"[4 main path] tree levels (G, C, L): {[lv[:3] for lv in gpu['levels']]}")
-    log(f"[4 main path] tree_aggregate_groups launches={launches} for {n_levels} levels; "
+    log(f"[4 main path] launches {json.dumps(sync_counts)} for {n_levels} levels; "
         f"{wall:.2f} s wall")
-    if launches == 0 or launches != n_levels:
-        raise SystemExit(f"expected {n_levels} kernel launches on the main path, saw {launches}")
+    if launches == 0 or sync_counts != {**dict.fromkeys(COUNTED, 0), "tree_aggregate_groups": n_levels}:
+        raise SystemExit(f"expected {n_levels} aggregation launches and no other, saw {sync_counts}")
     if not gpu["losses"][-1] < gpu["losses"][0] or not gpu["cnn_losses"][-1] < gpu["cnn_losses"][0]:
         raise SystemExit("loss did not fall")
     level_shapes = sorted({lv[:3] for lv in gpu["levels"]})
@@ -371,6 +766,62 @@ def main() -> int:
         raise SystemExit("control plane differs between the card and CPU runs")
     log(f"[4 main path] card vs CPU max abs diff {json.dumps(errs)} ({PATH_TOL})")
 
+    # -- 4b. slice B: the async buffered round, compressed and not ------------
+    async_counts = {}
+    runs = {}
+    for compressed in (True, False):
+        tag = "compressed" if compressed else "uncompressed"
+        set_counts(dict.fromkeys(COUNTED, 0))
+        t0 = time.perf_counter()
+        run = drive_async("cuda", compressed, record=compressed)
+        torch.cuda.synchronize()
+        async_counts[tag] = got = counts()
+        want = async_launches_expected(run, compressed)
+        log(f"[4 async {tag}] losses: {[round(l, 5) for l in run['losses']]}")
+        log(f"[4 async {tag}] applies (t_ms, arrivals, mean/max staleness): "
+            f"{[(round(e[2], 3), e[3], e[4], e[5]) for e in run['events']]}")
+        log(f"[4 async {tag}] churn: {run['churn']}")
+        log(f"[4 async {tag}] launches {json.dumps(got)}, implied by {sum(run['arrivals'])} "
+            f"commits over {len(run['arrivals'])} applies: {json.dumps(want)}; "
+            f"{time.perf_counter() - t0:.2f} s wall")
+        if got != want:
+            raise SystemExit(f"async {tag}: launches {got} differ from the run's {want}")
+        if len(run["losses"]) != ASYNC_APPLIES or not run["losses"][-1] < run["losses"][0]:
+            raise SystemExit(f"async {tag}: {len(run['losses'])} applies, or the loss did not fall")
+        runs[tag] = run
+    replayed = replay_on_cpu(torch, ref, runs["compressed"]["calls"])
+    log(f"[4 async compressed] every card kernel call re-run through its plain version on "
+        f"the CPU: {json.dumps(replayed)} calls; quantize, dequantize and chain apply "
+        f"bit-equal, int8 aggregation within {TOL}")
+
+    cpu_u = drive_async("cpu", False)
+    cpu_c = drive_async("cpu", True, record=True)
+    for tag, c in (("uncompressed", cpu_u), ("compressed", cpu_c)):
+        g = runs[tag]
+        if (g["events"], g["churn"], g["downlink_log"]) != (c["events"], c["churn"], c["downlink_log"]):
+            raise SystemExit(f"async {tag}: event, churn or download traces differ from the CPU run")
+    aerr = {"loss": compare("async loss", runs["uncompressed"]["losses"], cpu_u["losses"], PATH_TOL)}
+    for k, v in runs["uncompressed"]["params"].items():
+        aerr[k] = compare(f"async {k}", v, cpu_u["params"][k], PATH_TOL)
+    log(f"[4 async uncompressed] traces identical to the CPU run; max abs diff "
+        f"{json.dumps(aerr)} ({PATH_TOL})")
+    first = runs["compressed"]["arrivals"][0]
+    lat = [[out[0] for _, kw, out in run["calls"]["qsgd_quantize"] if kw["levels"] == 127][:first]
+           for run in (runs["compressed"], cpu_c)]
+    steps = torch.stack([(a.int() - b.int()).abs() for a, b in zip(*lat)])
+    dloss = np.abs(np.subtract(runs["compressed"]["losses"], cpu_c["losses"]))
+    probe = drive_async("cpu", True, perturb=PERTURB)
+    if probe["events"] != cpu_c["events"]:
+        raise SystemExit("async compressed: perturbed start weights changed the event trace")
+    dprobe = float(np.abs(np.subtract(probe["losses"], cpu_c["losses"])).max())
+    log(f"[4 async compressed] traces identical to the CPU run; first apply's {first} commit "
+        f"lattices: max |dq|={int(steps.max())}, share of +-1 elements={float((steps == 1).float().mean()):.3e}; "
+        f"per-apply loss max |d|={float(dloss.max()):.3e} (atol {ASYNC_LOSS_ATOL}), "
+        f"all {[float(d) for d in dloss]}; CPU start weights perturbed by {PERTURB} "
+        f"relative move the losses by max |d|={dprobe:.3e}")
+    if int(steps.max()) > 1 or float(dloss.max()) > ASYNC_LOSS_ATOL:
+        raise SystemExit("async compressed: the card and CPU runs disagree past the stated bounds")
+
     # -- 5. times -------------------------------------------------------------
     rows = [time_tree_aggregate(torch, ta, ref, g, c, l, f32) for g, c, l in level_shapes]
     main_row = max(rows, key=lambda r: r["bytes"])  # the main path's largest level
@@ -380,20 +831,45 @@ def main() -> int:
         time_tree_aggregate(torch, ta, ref, 1, 16, 1 << 22, bf16),
         time_tree_aggregate(torch, ta, ref, 1, 16, 1 << 22, f32),
     ]
+    bench_row = rows[-4]  # (1, 16, 131072) bf16: kernel 2's bench shape
     for r in rows:
         log(f"[5 times] tree_aggregate_groups {json.dumps(r)}")
+    comp_rows = {R: time_compression_kernels(torch, qz, bc, ta, ref, R) for R in (27, 4096)}
+    for R, by_kernel in comp_rows.items():
+        for name, r in by_kernel.items():
+            log(f"[5 times] {name} R={R} {json.dumps(r)}")
     prof = profile_rounds(torch, *gpu["live"])
     log(f"[5 times] quickstart round under torch.profiler: {json.dumps(prof)}")
     rms = gpu["round_ms"]
     log(f"[5 times] quickstart round ms (host clock to synchronize): first={rms[0]:.3f} "
         f"steady_mean={float(np.mean(rms[1:9])):.3f} all={[round(t, 3) for t in rms]}")
+    aprof = time_async(torch)
+    log(f"[5 times] compressed async applies: {json.dumps(aprof)}")
     log(f"[5 times] card: {smi}")
 
+    path = comp_rows[27]
+    int8_row = {k: path["tree_aggregate_groups_int8"][k]
+                for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "einsum_of_widened_ms")}
     KERNELS[0].update(
-        launches=launches, max_abs_err=max_err, ms=main_row["ms"],
+        launches=launches + async_counts["compressed"]["tree_aggregate_groups"]
+        + async_counts["uncompressed"]["tree_aggregate_groups"],
+        max_abs_err=max(max_err, comp_err["tree_aggregate_groups_int8"]), ms=main_row["ms"],
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
         bound_by=main_row["bound_by"], library_ms=main_row["library_ms"],
+        int8=dict(int8_row, launches=async_counts["compressed"]["tree_aggregate_groups"]),
     )
+    KERNELS[1].update(  # reached through ops.tree_aggregate, which no main path calls
+        launches=0, max_abs_err=max_err, ms=bench_row["ms"], plain_ms=bench_row["plain_ms"],
+        bound_ms=bench_row["bound_ms"], bound_by=bench_row["bound_by"],
+        library_ms=bench_row["library_ms"],
+    )
+    for entry in KERNELS[2:]:
+        r = path[entry["name"]]
+        entry.update(
+            launches=async_counts["compressed"][entry["name"]], max_abs_err=comp_err[entry["name"]],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+        )
     log(smi)
     log(json.dumps({"kernels": KERNELS}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

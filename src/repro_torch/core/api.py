@@ -6,13 +6,9 @@ behind the paper's verbs: Join / CreateTree / Subscribe / Unsubscribe /
 Broadcast / Aggregate + onBroadcast / onAggregate / onTimer callbacks.
 Payloads are dicts of tensors; ``Aggregate`` runs the tree's level
 schedule through the port's ``tree_aggregate_groups`` kernel, with every
-level's state kept on the payload's device.
-
-Compressed commits (``QuantizedDelta`` in the JAX package) come with the
-compression slice of the port: ``ApplyBuffered`` raises on them for now.
-``AppHandle``'s transport and compression knobs (``transfer_weight``,
-``rate_cap_mbps``, ``compression``) come with the async and compression
-slices, whose scheduler and trainer read them.
+level's state kept on the payload's device.  ``ApplyBuffered`` aggregates
+a buffer of ``fl/compression.QuantizedDelta`` commits through the int8
+instantiation of the same kernel, dequantizing inside the aggregation.
 """
 from __future__ import annotations
 
@@ -26,6 +22,7 @@ from . import recovery as recovery_mod
 from .forest import DataflowTree, Forest
 from .nodeid import IdSpace
 from .overlay import MultiRingOverlay
+from ..fl.compression import QuantizedDelta
 from ..kernels import ops as kops
 from ..kernels.tree_aggregate import staleness_weights
 from ..pytree import leaves, ravel, tree_map, unravel_like
@@ -57,6 +54,17 @@ class AppHandle:
     round_num: int = 0
     traffic_bytes: float = 0.0
     version: int = 0  # bumped by ApplyBuffered (async model version)
+    # weighted-fair transport knobs (read by AsyncBufferScheduler):
+    # the app's share of a contended uplink is proportional to
+    # transfer_weight, and rate_cap_mbps bounds the app's AGGREGATE
+    # rate on any single uplink (concurrent same-uplink flows split
+    # both the share and the cap); both must be > 0
+    transfer_weight: float = 1.0
+    rate_cap_mbps: float | None = None
+    # commit-direction compression policy (fl/compression.CompressionPolicy
+    # or None): the async trainer quantizes delta uploads under it and the
+    # scheduler prices commit flows at policy.wire_bytes(model_bytes)
+    compression: Any | None = None
     buffer: list[BufferedDelta] = field(default_factory=list)
     # per-apply telemetry appended by ApplyBuffered
     round_records: list[dict] = field(default_factory=list)
@@ -233,23 +241,30 @@ class TotoroSystem:
 
         Weights ``w_i / (1 + staleness_i)^alpha`` ride the
         ``tree_aggregate_groups`` kernel's weight vector
-        (``kernels.ops.buffered_aggregate``).  Returns ``result=None``
-        when fewer than ``min_k`` commits are buffered (buffer untouched).
+        (``kernels.ops.buffered_aggregate``); a buffer of quantized
+        commits goes through ``buffered_aggregate_quantized``, where each
+        row scale composes with the discount in the kernel's weights.
+        Returns ``result=None`` when fewer than ``min_k`` commits are
+        buffered (buffer untouched).
         ``k``, ``selector_scores`` and ``transport`` are caller telemetry,
         recorded in ``round_records`` with every apply.
         """
         h = self.apps[app_id]
         if len(h.buffer) < max(1, min_k):
             return {"result": None, "arrivals": len(h.buffer), "version": h.version}
-        if any(hasattr(e.delta, "dequantize") for e in h.buffer):
-            raise NotImplementedError(
-                "ApplyBuffered: quantized commits need the port's compression "
-                "slice (kernels/quantize and fl/compression), not ported yet"
-            )
         entries, h.buffer = h.buffer, []
+        quantized = [isinstance(e.delta, QuantizedDelta) for e in entries]
+        if any(quantized) and not all(quantized):
+            raise ValueError(
+                "ApplyBuffered: mixed quantized and raw deltas in one buffer "
+                "— an app's CompressionPolicy must cover every commit"
+            )
         if h.aggregate_fn is not None:
+            # custom aggregators see plain pytrees: dequantize up front
+            deltas = [e.delta.dequantize() if q else e.delta
+                      for e, q in zip(entries, quantized)]
             result = h.aggregate_fn(
-                [e.delta for e in entries],
+                deltas,
                 list(staleness_weights(
                     np.asarray([e.weight for e in entries], np.float64),
                     np.asarray([e.staleness for e in entries], np.float64),
@@ -257,6 +272,15 @@ class TotoroSystem:
                 )),
             )
             combined = None
+        elif all(quantized) and entries:
+            flat, combined = kops.buffered_aggregate_quantized(
+                [e.delta.q for e in entries],
+                [e.delta.scale for e in entries],
+                [e.weight for e in entries],
+                [e.staleness for e in entries],
+                alpha=staleness_alpha,
+            )
+            result = entries[0].delta.unflatten(flat)
         else:
             result, combined = kops.buffered_aggregate(
                 [e.delta for e in entries],

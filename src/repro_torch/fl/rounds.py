@@ -7,8 +7,9 @@ model deltas aggregate up the tree level-by-level through the
 and replicates its state to the k-node neighborhood set.
 
 Apps live on the CUDA card unless the caller passes ``device="cpu"``;
-with no card and no explicit ``"cpu"``, ``make_app`` raises.  The async
-buffered round (``run_async``) comes with the port's async slice.
+with no card and no explicit ``"cpu"``, ``make_app`` raises.
+``run_async`` runs FedBuff-style buffered-async rounds on the event clock
+(``fl/async_engine``).
 
 Also provides ``CentralizedBaseline``: the OpenFL/FedScale-style single
 coordinator that serves M concurrent applications through one queue.
@@ -106,6 +107,46 @@ def run_round_fused(system: TotoroSystem, apps: list[FLApp], *, use_kernel: bool
     """One round for many apps with a single fused training dispatch
     (``fl/engine.run_round_fused``)."""
     return engine.run_round_fused(system, apps, use_kernel=use_kernel)
+
+
+def run_async(
+    system: TotoroSystem,
+    apps: list[FLApp],
+    *,
+    applies: int,
+    buffer_k: int | list[int],
+    staleness_alpha: float = 0.5,
+    model_bytes: float,
+    compute_ms=50.0,
+    churn=None,
+    barrier: bool = False,
+    adaptive: bool = False,
+    adaptive_kwargs: dict | None = None,
+    selector=None,
+    fair: bool = True,
+    app_weights=None,
+    app_rate_caps=None,
+    relay_admission=None,
+) -> dict:
+    """FedBuff-style buffered-async rounds on the event clock.
+
+    Delegates to ``fl/async_engine.run_async``: every worker's
+    download / compute / upload is its own simulator event, the master
+    applies a staleness-weighted update after ``buffer_k`` arrivals
+    (``CommitDelta``/``ApplyBuffered`` verbs), and optional ``churn``
+    (``core.sim.ChurnModel``) fails/rejoins workers mid-round.  The
+    handles' ``compression`` policies compress commits and broadcasts.
+    """
+    from . import async_engine
+
+    return async_engine.run_async(
+        system, apps, applies=applies, buffer_k=buffer_k,
+        staleness_alpha=staleness_alpha, model_bytes=model_bytes,
+        compute_ms=compute_ms, churn=churn, barrier=barrier,
+        adaptive=adaptive, adaptive_kwargs=adaptive_kwargs, selector=selector,
+        fair=fair, app_weights=app_weights, app_rate_caps=app_rate_caps,
+        relay_admission=relay_admission,
+    )
 
 
 def evaluate(app: FLApp, x, y) -> float:

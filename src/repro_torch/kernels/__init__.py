@@ -1,7 +1,12 @@
 """Hand-written Hopper kernels for the port, with their plain versions.
 
 tree_aggregate — weighted child-update reduction, one launch per tree
-                 level (CUDA C++, ``csrc/tree_aggregate.cu``)
+                 level; f32, bf16 or int8 input (CUDA C++,
+                 ``csrc/tree_aggregate.cu``)
+quantize       — QSGD int8 quantize and dequantize of (R, 256) rows
+                 (CUDA C++, ``csrc/quantize.cu``)
+broadcast      — fused dequantize-and-apply of a broadcast delta chain
+                 (CUDA C++, ``csrc/broadcast.cu``)
 
 ``ops.py`` holds the public wrappers, ``ref.py`` the plain PyTorch
 versions, ``_build.py`` the nvcc build.  A CPU tensor takes the plain

@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
-its own into ``build/kernels/lib<name>-<hash>.so`` at the repository
-root (listed in ``.gitignore``), for ``sm_90a`` only:
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+its own nvcc process (``build_all`` starts them together) into
+``build/kernels/lib<name>-<hash>.so`` at the repository root (listed in
+``.gitignore``), for ``sm_90a`` only:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so csrc/<name>.cu
@@ -52,27 +53,53 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _compile(name: str, out: Path) -> None:
-    """Run nvcc on ``csrc/<name>.cu`` into ``out``; raise if it fails."""
+def sources() -> list[str]:
+    """The names of every ``csrc/<name>.cu``, sorted."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_all(names: list[str] | None = None) -> None:
+    """Compile every named source (default: all) that is not built yet.
+
+    One nvcc per source, all started together, so the build takes as
+    long as the slowest file.  Each output appears atomically; any failed
+    build raises after every process has ended.
+    """
+    todo = [(n, _lib_path(n)) for n in (sources() if names is None else names)]
+    todo = [(n, out) for n, out in todo if not out.exists()]
+    if not todo:
+        return
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG[name] = res.stdout + res.stderr
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu (rc {res.returncode}):\n{BUILD_LOG[name]}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    procs = []
+    try:
+        for name, out in todo:
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for name, out, tmp, proc in procs:
+            BUILD_LOG[name] = proc.communicate()[0]
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"csrc/{name}.cu (rc {proc.returncode}):\n{BUILD_LOG[name]}")
+            else:
+                os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("nvcc failed on " + "\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        out = _lib_path(name)
-        if not out.exists():
-            _compile(name, out)
-        lib = ctypes.CDLL(str(out))
+        build_all([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
         _LIBS[name] = lib
     return lib

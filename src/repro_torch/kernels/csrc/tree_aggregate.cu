@@ -1,6 +1,6 @@
 // Per-group weighted sums of children's flattened updates: one tree level.
 //
-//   out[g, l] = sum_c w[g, c] * x[g, c, l]      x: (G, C, L) f32 or bf16
+//   out[g, l] = sum_c w[g, c] * x[g, c, l]      x: (G, C, L) f32, bf16 or int8
 //                                               w: (G, C) f32, out: (G, L) f32
 //
 // Replaces the Pallas TPU kernel repro/kernels/tree_aggregate.py::
@@ -16,8 +16,13 @@
 // the quickstart tree (L=6792, G*C in the tens) needs well under 1 us, so
 // there the launch costs more than the bytes.
 //
+// The int8 instantiation serves the compressed async apply
+// (buffered_aggregate_quantized): G = rows of 256 QSGD lattice points, C =
+// buffered commits, w = staleness weight times row scale.  int8 -> f32 is
+// exact, so it gives the same bits as the f32 instantiation on q.float().
+//
 // What the design does about it: each thread owns VPT consecutive l (16-byte
-// loads: 4 f32 or 8 bf16) and walks c = 0..C-1 in order, keeping VPT f32
+// loads: 4 f32, 8 bf16 or 16 int8) and walks c = 0..C-1 in order, keeping VPT f32
 // accumulators in registers, so each input byte crosses the memory bus once
 // and neighbouring threads read neighbouring addresses.  The grid is
 // (G, L chunks): G on x, where the grid allows up to 2^31-1 blocks, the L
@@ -67,7 +72,24 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+template <>
+struct Vec<int8_t> {
+  static constexpr int kVPT = 16;
+  __device__ static void load(const int8_t* p, float* dst) {
+    int4 v = *reinterpret_cast<const int4*>(p);
+    const char4* c = reinterpret_cast<const char4*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      dst[4 * i] = (float)c[i].x;
+      dst[4 * i + 1] = (float)c[i].y;
+      dst[4 * i + 2] = (float)c[i].z;
+      dst[4 * i + 3] = (float)c[i].w;
+    }
+  }
+};
+
 __device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(int8_t v) { return (float)v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // 16-byte path: L % VPT == 0 and 16-byte aligned bases, so a thread's VPT
@@ -166,4 +188,11 @@ extern "C" int tree_aggregate_groups_bf16(const void* x, const float* w, float* 
                                           int64_t G, int64_t C, int64_t L,
                                           void* stream) {
   return launch<__nv_bfloat16>(x, w, out, G, C, L, static_cast<cudaStream_t>(stream));
+}
+
+
+extern "C" int tree_aggregate_groups_i8(const void* x, const float* w, float* out,
+                                        int64_t G, int64_t C, int64_t L,
+                                        void* stream) {
+  return launch<int8_t>(x, w, out, G, C, L, static_cast<cudaStream_t>(stream));
 }

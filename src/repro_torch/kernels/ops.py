@@ -7,18 +7,22 @@ its inputs for reasons the port does not share:
   masks its own ragged edge, so L is taken as it is;
 - the power-of-two bucketing of G and C existed to bound XLA recompiles;
   PyTorch runs eagerly and the kernel takes any (G, C), so it is gone.
-  ``bucket_size`` stays as the shared next-power-of-two helper.
+  ``bucket_size`` stays as the shared next-power-of-two helper;
+- the ROWS_PER_BLOCK padding of the quantize and broadcast kernels'
+  row count existed for the TPU's blocks; their CUDA kernels take any R.
 
 There is no kernel mode: every wrapper dispatches by the device of its
 tensors (CPU: plain version; CUDA: the hand-written kernel or an error).
-Only the tree-aggregation kernels are ported so far; the quantize,
-broadcast-apply, fused-update and policy-update kernels are not.
+The tree-aggregation, quantize, dequantize and broadcast-apply kernels
+are ported; the fused-update and policy-update kernels are not.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import broadcast as _bc
+from . import quantize as _q
 from . import tree_aggregate as _ta
 from ..pytree import ravel, unravel_like
 
@@ -66,6 +70,46 @@ def buffered_aggregate(updates: list, weights, staleness, *, alpha: float = 0.5)
     w = _ta.staleness_weights(weights, staleness, alpha, device=stacked.device)
     agg = tree_aggregate_groups(stacked, w[None])[0] / torch.clamp(w.sum(), min=1e-12)
     return unravel_like(agg, updates[0]), w
+
+
+def buffered_aggregate_quantized(qs, scales, weights, staleness, *, alpha: float = 0.5):
+    """Staleness-weighted aggregate of K *quantized* deltas, dequantized
+    inside the aggregation (the compressed-transport apply path).
+
+    ``qs``: K int8 (R, C) lattices; ``scales``: K f32 (R, 1) row scales.
+    The row scale composes with the staleness discount into one weight
+    per (row, commit), formed before the kernel as the reference does:
+
+        agg[r, :] = sum_k (w_k * s_{k,r}) * q_k[r, :] / sum_k w_k
+
+    The R rows form the group axis of the int8 ``tree_aggregate_groups``
+    launch; the (K, R, C) stack is permuted to (R, K, C) as int8.
+    Returns (flat (R*C,) f32 aggregate, combined weights (K,) f32).
+    """
+    q = torch.stack(list(qs))  # (K, R, C) int8
+    w = _ta.staleness_weights(weights, staleness, alpha, device=q.device)  # (K,)
+    s = torch.stack([x.reshape(-1) for x in scales])  # (K, R)
+    g = q.permute(1, 0, 2).contiguous()  # (R, K, C) int8
+    gw = (w[:, None] * s).t().contiguous()  # (R, K): staleness x row scale
+    agg = tree_aggregate_groups(g, gw) / torch.clamp(w.sum(), min=1e-12)
+    return agg.reshape(-1), w
+
+
+def qsgd_quantize(x: torch.Tensor, rand: torch.Tensor, *, levels: int = 127):
+    """(R, 256) f32 + uniforms -> (int8 (R, 256), f32 scales (R, 1))."""
+    return _q.qsgd_quantize(x.contiguous(), rand.contiguous(), levels=levels)
+
+
+def qsgd_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 (R, C) x f32 (R, 1) -> f32 (R, C)."""
+    return _q.qsgd_dequantize(q.contiguous(), scale.contiguous())
+
+
+def apply_quantized_broadcast(w: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Fused dequantize-and-apply of a broadcast delta chain: (R, 256) f32
+    held params + (D, R, 256) int8 lattice points * (D, R, 1) f32 row
+    scales -> (R, 256) f32, the chain accumulated strictly in order."""
+    return _bc.apply_quantized_broadcast(w.contiguous(), q.contiguous(), scale.contiguous())
 
 
 def jain_fairness(x) -> float:

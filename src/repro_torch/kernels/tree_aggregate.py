@@ -3,7 +3,8 @@
 ``tree_aggregate_groups`` answers to ``repro/kernels/tree_aggregate.py``'s
 Pallas kernel of the same name: (G, C, L) children's flattened updates
 times (G, C) weights -> (G, L) f32 per-parent weighted sums, one launch per
-tree level.  Dispatch goes by the tensor's device and nothing else:
+tree level.  The input is f32 or bf16, or int8 for the compressed async
+apply (QSGD lattice points, the row scales folded into the weights).  Dispatch goes by the tensor's device and nothing else:
 
 - a CPU tensor goes to the plain version (``ref.tree_aggregate_groups_ref``);
 - a CUDA tensor launches ``csrc/tree_aggregate.cu`` (built for sm_90a at
@@ -29,7 +30,7 @@ from . import ref as _ref
 
 launches = 0  # CUDA kernel launches since the last reset (a plain int)
 
-_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "i8"}
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -61,7 +62,7 @@ def _check(grads: torch.Tensor, weights: torch.Tensor) -> None:
     if grads.dim() != 3:
         raise ValueError(f"grads must be (G, C, L), got shape {tuple(grads.shape)}")
     if grads.dtype not in _DTYPES:
-        raise TypeError(f"grads must be float32 or bfloat16, got {grads.dtype}")
+        raise TypeError(f"grads must be float32, bfloat16 or int8, got {grads.dtype}")
     if weights.dtype != torch.float32:
         raise TypeError(f"weights must be float32, got {weights.dtype}")
     if tuple(weights.shape) != tuple(grads.shape[:2]):
@@ -77,7 +78,7 @@ def _check(grads: torch.Tensor, weights: torch.Tensor) -> None:
 
 
 def tree_aggregate_groups(grads: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """(G, C, L) f32/bf16 x (G, C) f32 -> (G, L) f32 weighted sums."""
+    """(G, C, L) f32/bf16/int8 x (G, C) f32 -> (G, L) f32 weighted sums."""
     global launches
     _check(grads, weights)
     if grads.device.type == "cpu":

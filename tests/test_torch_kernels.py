@@ -1,21 +1,29 @@
-"""The port's tree-aggregation wrappers (CPU path) against the JAX package.
+"""The port's kernel wrappers (CPU path) against the JAX package.
 
 Same numpy inputs go through ``repro.kernels.ops`` (in its compiled
 ``jnp`` mode and in its ``pallas`` interpret mode) and through
 ``repro_torch.kernels.ops``.  On the CPU the port's wrappers take the
-plain version; the CUDA kernel itself is held against that plain version
-in tests/test_torch_gpu.py and chip_smoke.py.  Tolerance rtol = atol =
-1e-5, the JAX package's own (tests/test_engine.py).
+plain version; the CUDA kernels themselves are held against those plain
+versions in tests/test_torch_gpu.py and chip_smoke.py.
+
+Tolerances: f32 reductions rtol = atol = 1e-5, the JAX package's own
+(tests/test_engine.py).  QSGD quantize, dequantize and the broadcast
+chain apply are held bit for bit: their plain versions repeat the
+reference's roundings (reciprocal scale, saturating cast, one rounding
+per chain step).
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.fl import compression as jcomp
 from repro.kernels import ops as jops
 from repro.kernels import tree_aggregate as jta
 from repro_torch.kernels import _build
+from repro_torch.kernels import broadcast as tbc
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import quantize as tq
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import tree_aggregate as tta
 
@@ -179,3 +187,148 @@ def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build, "_LIBS", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("tree_aggregate")
+
+
+# -- QSGD quantize / dequantize, broadcast chain apply, int8 aggregation -------
+
+OVERFLOW_MAX = np.float32(0.16625983)  # fl(M / fl(M * fl(1/127))) > 127
+
+
+def _qsgd_inputs(R, seed):
+    """(R, 256) rows at mixed magnitudes and their uniforms; row 0 is built
+    so that floor(x/scale + r) reaches 128 at levels = 127, the last row is
+    all zeros."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((R, 256)) * rng.uniform(1e-4, 10.0, (R, 1))).astype(np.float32)
+    r = rng.random((R, 256), dtype=np.float32)
+    x[0] = np.linspace(-0.1, 0.1, 256, dtype=np.float32)
+    x[0, 0] = OVERFLOW_MAX
+    r[0, 0] = np.float32(1.0 - 2.0**-24)
+    if R > 1:
+        x[-1] = 0.0
+    return x, r
+
+
+@pytest.mark.parametrize("levels", [127, 7, 3])
+@pytest.mark.parametrize("R", [1, 27, 64])
+def test_qsgd_quantize_bit_exact_against_jax(jax_mode, R, levels):
+    x, r = _qsgd_inputs(R, seed=R * 1000 + levels)
+    jq, js = jops.qsgd_quantize(jnp.asarray(x), jnp.asarray(r), levels=levels)
+    q, s = tops.qsgd_quantize(torch.from_numpy(x), torch.from_numpy(r), levels=levels)
+    assert q.dtype == torch.int8 and tuple(q.shape) == (R, 256) and tuple(s.shape) == (R, 1)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    if levels == 127:  # the row that overflows a wrapping cast saturates
+        raw = np.floor(x[0, 0] / s.numpy()[0, 0] + r[0, 0])
+        assert raw == 128.0 and q[0, 0] == 127
+    if R > 1:
+        assert s[-1, 0] == np.float32(1e-12) and not q[-1].any()
+
+
+@pytest.mark.parametrize("levels", [127, 3])
+@pytest.mark.parametrize("chunk", [100, 7])
+def test_quantize_truediv_bit_exact_against_eager_jax(chunk, levels):
+    """Chunk widths other than 256 take the reference's eager arithmetic."""
+    x, r = _qsgd_inputs(33, seed=chunk + levels)
+    x, r = x[:, :chunk], r[:, :chunk]
+    jq, js = jcomp.qsgd_quantize(jnp.asarray(x), levels=levels, rand=jnp.asarray(r))
+    q, s = tref.quantize_ref_truediv(torch.from_numpy(x), torch.from_numpy(r), levels=levels)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+
+
+@pytest.mark.parametrize("R", [1, 27, 64])
+def test_qsgd_dequantize_bit_exact_against_jax(jax_mode, R):
+    rng = np.random.default_rng(R)
+    q = rng.integers(-128, 128, (R, 256)).astype(np.int8)
+    s = rng.uniform(1e-6, 0.1, (R, 1)).astype(np.float32)
+    want = np.asarray(jops.qsgd_dequantize(jnp.asarray(q), jnp.asarray(s)))
+    got = tops.qsgd_dequantize(torch.from_numpy(q), torch.from_numpy(s))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _chain(D, R, seed):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((R, 256)).astype(np.float32)
+    q = rng.integers(-127, 128, (D, R, 256)).astype(np.int8)
+    s = rng.uniform(1e-4, 0.05, (D, R, 1)).astype(np.float32)
+    return w, q, s
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+@pytest.mark.parametrize("R", [1, 27, 64])
+def test_apply_quantized_broadcast_bit_exact_against_jax(jax_mode, D, R):
+    w, q, s = _chain(D, R, seed=10 * D + R)
+    want = np.asarray(jops.apply_quantized_broadcast(w, q, s))
+    got = tops.apply_quantized_broadcast(*map(torch.from_numpy, (w, q, s)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("D", [2, 3])
+def test_chain_apply_d_deep_equals_d_single_steps(D):
+    w, q, s = (torch.from_numpy(a) for a in _chain(D, 27, seed=D))
+    step = w
+    for d in range(D):
+        step = tops.apply_quantized_broadcast(step, q[d : d + 1], s[d : d + 1])
+    assert torch.equal(tops.apply_quantized_broadcast(w, q, s), step)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_buffered_aggregate_quantized_matches_jax(jax_mode, K):
+    rng = np.random.default_rng(K)
+    qs = [rng.integers(-127, 128, (27, 256)).astype(np.int8) for _ in range(K)]
+    ss = [rng.uniform(1e-4, 0.05, (27, 1)).astype(np.float32) for _ in range(K)]
+    weights = rng.uniform(1, 300, K).tolist()
+    stal = rng.integers(0, 4, K).tolist()
+    want, wc = jops.buffered_aggregate_quantized(qs, ss, weights, stal, alpha=0.5)
+    got, tc = tops.buffered_aggregate_quantized(
+        [torch.from_numpy(a) for a in qs], [torch.from_numpy(a) for a in ss],
+        weights, stal, alpha=0.5,
+    )
+    np.testing.assert_allclose(tc.numpy(), np.asarray(wc), **TOL)
+    assert tuple(got.shape) == (27 * 256,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_int8_aggregate_equals_f32_path_on_widened_input():
+    """int8 -> f32 is exact: the int8 input gives the f32 path's bits."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.integers(-128, 128, (27, 4, 256)).astype(np.int8))
+    w = torch.from_numpy(rng.uniform(1e-5, 1e-2, (27, 4)).astype(np.float32))
+    assert torch.equal(tops.tree_aggregate_groups(q, w), tops.tree_aggregate_groups(q.float(), w))
+
+
+@pytest.mark.parametrize(
+    "call,exc",
+    [
+        (lambda: tq.qsgd_quantize(torch.zeros(2, 128), torch.zeros(2, 128)), ValueError),
+        (lambda: tq.qsgd_quantize(torch.zeros(2, 256), torch.zeros(3, 256)), ValueError),
+        (lambda: tq.qsgd_quantize(torch.zeros(2, 256).double(), torch.zeros(2, 256)), TypeError),
+        (lambda: tq.qsgd_quantize(torch.zeros(2, 256), torch.zeros(2, 256), levels=128), ValueError),
+        (lambda: tq.qsgd_quantize(torch.zeros(256, 2).t(), torch.zeros(2, 256)), ValueError),
+        (lambda: tq.qsgd_dequantize(torch.zeros(2, 256), torch.zeros(2, 1)), TypeError),
+        (lambda: tq.qsgd_dequantize(torch.zeros(2, 256, dtype=torch.int8), torch.zeros(2)), ValueError),
+        (lambda: tbc.apply_quantized_broadcast(
+            torch.zeros(2, 256), torch.zeros(1, 3, 256, dtype=torch.int8), torch.zeros(1, 3, 1)), ValueError),
+        (lambda: tbc.apply_quantized_broadcast(
+            torch.zeros(2, 256), torch.zeros(1, 2, 256, dtype=torch.int8), torch.zeros(1, 2)), ValueError),
+        (lambda: tbc.apply_quantized_broadcast(
+            torch.zeros(2, 256), torch.zeros(1, 2, 256), torch.zeros(1, 2, 1)), TypeError),
+    ],
+)
+def test_quantize_and_broadcast_wrappers_reject_bad_inputs(call, exc):
+    with pytest.raises(exc):
+        call()
+
+
+def test_new_cpu_paths_are_the_plain_versions_and_count_no_launch():
+    x, r = (torch.from_numpy(a) for a in _qsgd_inputs(5, seed=0))
+    w, q, s = (torch.from_numpy(a) for a in _chain(2, 5, seed=0))
+    before = (dict(tq.launches), tbc.launches, tta.launches)
+    qq, sc = tq.qsgd_quantize(x, r, levels=7)
+    rq, rs = tref.quantize_ref(x, r, levels=7)
+    assert torch.equal(qq, rq) and torch.equal(sc, rs)
+    assert torch.equal(tq.qsgd_dequantize(qq, sc), tref.dequantize_ref(qq, sc))
+    assert torch.equal(tbc.apply_quantized_broadcast(w, q, s), tref.apply_quantized_ref(w, q, s))
+    tta.tree_aggregate_groups(q.permute(1, 0, 2).contiguous(), torch.ones(5, 2))
+    assert (dict(tq.launches), tbc.launches, tta.launches) == before

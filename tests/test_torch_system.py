@@ -133,15 +133,23 @@ def test_commit_and_apply_buffered_match_jax(alpha):
 
 
 def test_apply_buffered_raises_on_quantized_commits():
-    class Quantized:  # the QuantizedDelta protocol: it can dequantize itself
-        def dequantize(self):
-            return {}
+    """Quantized commits mixed with raw ones in one buffer raise in both
+    packages (an app's policy must cover every commit), and both drain
+    the buffer before raising."""
+    from repro.fl import compression as jcomp
+    from repro_torch.fl import compression as tcomp
 
-    _, (ts, ta, tn), _ = _pair(seed=6)
-    ts.CommitDelta(ta.handle.app_id, tn[0], Quantized())
-    with pytest.raises(NotImplementedError, match="compression"):
-        ts.ApplyBuffered(ta.handle.app_id)
-    assert len(ts.apps[ta.handle.app_id].buffer) == 1  # untouched
+    (js, ja, jn), (ts, ta, tn), _ = _pair(seed=6)
+    d = {"a": np.random.default_rng(6).standard_normal((4, 3)).astype(np.float32)}
+    td = {"a": torch.from_numpy(d["a"])}
+    js.CommitDelta(ja.handle.app_id, jn[0], jcomp.quantize_delta(d, jcomp.CompressionPolicy(kind="qsgd-int8")))
+    js.CommitDelta(ja.handle.app_id, jn[1], d)
+    ts.CommitDelta(ta.handle.app_id, tn[0], tcomp.quantize_delta(td, tcomp.CompressionPolicy(kind="qsgd-int8")))
+    ts.CommitDelta(ta.handle.app_id, tn[1], td)
+    for s, a in ((js, ja), (ts, ta)):
+        with pytest.raises(ValueError, match="mixed quantized and raw"):
+            s.ApplyBuffered(a.handle.app_id)
+        assert s.apps[a.handle.app_id].buffer == []
 
 
 def test_quickstart_shaped_rounds_match_jax():
