@@ -15,7 +15,13 @@ the CPU):
    bf16 and f32; QSGD quantize (levels 127, 3, 7; a row that reaches 128
    and a zero row), dequantize and the broadcast chain apply (D = 1..3,
    and D-deep = D single steps) bit-equal at R = 1, 27, 4096; the int8
-   aggregation bit-equal to the f32 path on the widened input;
+   aggregation bit-equal to the f32 path on the widened input; the fused
+   FedProx update bit-equal at L = 1, 1000, 2^17 (bf16 and f32) and 2^24,
+   at (mu, wd) = (0, 0), (0.01, 0), (0.1, 0.01), in place and on a
+   misaligned view; the policy update bit-equal, with the same rho and pi~
+   on every node, at N = 1 ... 1,000,000 and K = 2, 8, 16, 36, on
+   candidate sets with ties (candidate_policy_set) and without, partial
+   masks, all-zero reward rows and policies at the 1e-12 floor;
 4. the main paths at full width, each with every launch counter set to 0
    just before and read just after:
    a. slice A: the README quickstart (400-node overlay, 16 workers, 4,000
@@ -33,12 +39,27 @@ the CPU):
       parameters uncompressed, first-apply commit lattices within +-1 and
       losses within ASYNC_LOSS_ATOL compressed, beside how far the losses
       move on the CPU when the start weights are perturbed by PERTURB;
+   Every local SGD step of a and b is one fused-update launch per leaf:
+   the count must equal local steps x leaves over the training dispatches,
+   and the kernel is checked against its plain version at every leaf
+   shape the paths gave it.
+   c. slice C: the path-planning demo's game (128 nodes, 8 hops of 20-100
+      Mbps, 2 Mbit packets, 40 episodes of tau = 16) for Totoro+ (Alg. 1),
+      the bandit and OPT; Alg. 1 at Fig 15's N = 10,000, K = 16, tau = 8
+      for 20 episodes; Alg. 2 (multicast, subsets of up to 2 of 8 hops)
+      at N = 128 for 20 episodes.  Every policy update of the card runs is
+      replayed on the CPU through the plain version (PLANNER_TOL, same rho
+      and pi~ indices), the same seeds run on the CPU give the same series
+      (PLANNER_TOL), and Totoro+'s cumulative latency is below the
+      bandit's.  Then the async quickstart with a live PlacementEngine:
+      event, churn and replan logs identical to the CPU run's;
 5. times: each kernel's device time (a CUDA graph of calls between CUDA
    events) beside its bound, its plain version and one PyTorch call
    computing the same function where there is one, at the main paths'
    shapes and at the kernel bench's; the round and apply times on the
-   host clock; and the device's busy share of a steady round and of
-   steady applies under torch.profiler.
+   host clock; the host time of a planner episode at N = 128 and 10,000;
+   and the device's busy share of a steady round, of steady applies and
+   of planner episodes under torch.profiler.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, and
@@ -76,6 +97,14 @@ PATH_TOL = {"rtol": 1e-4, "atol": 1e-5}
 ASYNC_LOSS_ATOL = 5e-3
 PERTURB = 1e-5
 ASYNC_APPLIES = 12
+# planner, card vs CPU.  Both runs draw the same uniforms (a CPU generator)
+# and every step of the game is an IEEE-exact f32 operation or an f64 sum of
+# few f32 terms, except the logs of line 5, which only pick the argmin among
+# candidates whose determinants differ far above an ulp (or tie exactly).
+# So policies agree bit for bit unless an index flips; 1e-6 is 17 f32 ulps
+# at 1 and far below any flipped index's effect (>= 1e-3 on a policy).
+PLANNER_TOL = 1e-6
+FUSED_HYPER = ((0.2, 0.0, 0.0), (0.2, 0.01, 0.0), (0.05, 0.1, 0.01))  # (lr, mu, wd)
 
 KERNELS = [
     {
@@ -108,9 +137,21 @@ KERNELS = [
         "source": "src/repro_torch/kernels/csrc/broadcast.cu",
         "replaces": "src/repro/kernels/broadcast.py:36",
     },
+    {
+        "name": "fused_update",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_update.cu",
+        "replaces": "src/repro/kernels/fused_update.py:29",
+    },
+    {
+        "name": "policy_update",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/policy_update.cu",
+        "replaces": "src/repro/kernels/policy_update.py:60",
+    },
 ]
 COUNTED = ("tree_aggregate_groups", "qsgd_quantize", "qsgd_dequantize",
-           "apply_quantized_broadcast")
+           "apply_quantized_broadcast", "fused_update", "policy_update")
 
 
 def log(*a):
@@ -159,16 +200,21 @@ def check_tree_aggregate(torch, ta, ref, shapes) -> float:
 def counts() -> dict:
     """Every kernel wrapper's launch count."""
     from repro_torch.kernels import broadcast as bc
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import policy_update as pu
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import tree_aggregate as ta
 
     return {"tree_aggregate_groups": ta.launches, "qsgd_quantize": qz.launches["qsgd_quantize"],
             "qsgd_dequantize": qz.launches["qsgd_dequantize"],
-            "apply_quantized_broadcast": bc.launches}
+            "apply_quantized_broadcast": bc.launches, "fused_update": fu.launches,
+            "policy_update": pu.launches}
 
 
 def set_counts(c: dict) -> None:
     from repro_torch.kernels import broadcast as bc
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import policy_update as pu
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import tree_aggregate as ta
 
@@ -176,6 +222,8 @@ def set_counts(c: dict) -> None:
     qz.launches["qsgd_quantize"] = c["qsgd_quantize"]
     qz.launches["qsgd_dequantize"] = c["qsgd_dequantize"]
     bc.launches = c["apply_quantized_broadcast"]
+    fu.launches = c["fused_update"]
+    pu.launches = c["policy_update"]
 
 
 @contextmanager
@@ -265,6 +313,91 @@ def check_compression_kernels(torch, qz, bc, ta, ref) -> dict:
     return errs
 
 
+def check_fused_update(torch, fu, ops, ref, cases) -> float:
+    """The fused update bit-equal to its plain version at every (L, dtype)
+    and (lr, mu, wd); in place through ``ops.fused_update(donate=True)``
+    and on a misaligned view too.  Returns max |err| (0 when bit-equal)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+    for L, dtype in cases:
+        w, g, w0 = (torch.randn(L, device="cuda", generator=gen).to(dtype) for _ in range(3))
+        for lr, mu, wd in FUSED_HYPER:
+            out = fu.fused_update(w, g, w0, lr=lr, mu=mu, wd=wd)
+            torch.cuda.synchronize()
+            want = ref.fused_update_ref(w, g, w0, lr, mu, wd)
+            buf = w.clone()
+            ops.fused_update(buf, g, w0, lr=lr, mu=mu, wd=wd, donate=True)
+            base = torch.empty(L + 1, device="cuda", dtype=dtype)
+            base[1:] = w
+            shifted = fu.fused_update(base[1:], g, w0, lr=lr, mu=mu, wd=wd)  # misaligned w
+            torch.cuda.synchronize()
+            err = float((out.float() - want.float()).abs().max())
+            worst = max(worst, err)
+            if not (torch.equal(out, want) and torch.equal(buf, want) and torch.equal(shifted, want)):
+                raise SystemExit(f"fused_update differs from its plain version at L={L} "
+                                 f"{str(dtype)[6:]} (lr, mu, wd)={(lr, mu, wd)}: max |err| {err:.3e}")
+        log(f"  fused_update L={L} {str(dtype)[6:]}: bit-equal at (lr, mu, wd) in {FUSED_HYPER}, "
+            f"in place and misaligned ok")
+    return worst
+
+
+def policy_case(torch, pathplan, N: int, K: int, kind: str, seed: int):
+    """(pi, mask, cand, reward_sums) on the card: ``candidate_policy_set``
+    (permuted corners that tie exactly) or Dirichlet rows without ties;
+    partial masks (a quarter of the rows full), all-zero reward rows, and
+    policies at the 1e-12 floor."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "corners":
+        cand = pathplan.candidate_policy_set(K, seed=0).cuda()
+    else:
+        e = -torch.log(torch.rand(K + 9, K, device="cuda", generator=gen))
+        cand = e / e.sum(-1, keepdim=True)
+    mask = torch.rand(N, K, device="cuda", generator=gen) < 0.75
+    mask[:, 0] = True
+    mask[: max(1, N // 4)] = True
+    pi = torch.rand(N, K, device="cuda", generator=gen) * mask
+    pi[1::7] = torch.where(mask[1::7], 1e-12, 0.0)
+    pi[1::7, 0] = 1.0
+    pi = pi / pi.sum(-1, keepdim=True)
+    rs = torch.rand(N, K, device="cuda", generator=gen) * 3.0
+    rs = rs * (torch.rand(N, K, device="cuda", generator=gen) < 0.5) * mask
+    rs[::5] = 0.0
+    return pi.contiguous(), mask.contiguous(), cand.float().contiguous(), rs.contiguous()
+
+
+def check_policy_update(torch, pu, ref, pathplan) -> float:
+    """The policy update bit-equal to its plain version (within PLANNER_TOL
+    at worst), and its rho and pi~ the plain version's on every node: line
+    8 returns rho itself at alpha = 0 and pi~ at alpha = beta = 1, and
+    those outputs too must equal the plain version's bit for bit (two
+    candidates can only swap without changing them where they normalise
+    to the same bits).  The plain version runs in chunks of nodes."""
+    tau, alpha, beta = 16, 0.98, 0.5
+    worst, chunk = 0.0, 1 << 15
+    for N in (1, 128, 4096, 10_000, 1_000_000):
+        for K in (2, 8, 16, 36):
+            for kind in ("corners", "dirichlet"):
+                pi, mask, cand, rs = policy_case(torch, pathplan, N, K, kind, seed=N + K)
+                outs = {hyper: pu.policy_update(pi, mask, cand, rs, tau=tau, alpha=hyper[0], beta=hyper[1])
+                        for hyper in ((alpha, beta), (0.0, beta), (1.0, 1.0))}
+                torch.cuda.synchronize()
+                equal, err = {h: True for h in outs}, 0.0
+                for a in range(0, N, chunk):
+                    sl = slice(a, min(N, a + chunk))
+                    for h, out in outs.items():
+                        want = ref.policy_update_ref(pi[sl], mask[sl], cand, rs[sl], tau, *h)
+                        equal[h] &= torch.equal(out[sl], want)
+                        err = max(err, float((out[sl] - want).abs().max()))
+                worst = max(worst, err)
+                same_idx = equal[(0.0, beta)] and equal[(1.0, 1.0)]
+                log(f"  policy_update N={N} K={K} M={cand.shape[0]} {kind}: "
+                    f"{'bit-equal' if equal[(alpha, beta)] else f'max_abs_err={err:.3e}'}; "
+                    f"rho (alpha=0) and pi~ (alpha=beta=1) bit-equal on every node: {same_idx}")
+                if not same_idx or err > PLANNER_TOL:
+                    raise SystemExit(f"policy_update differs from its plain version at N={N} K={K} {kind}")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main paths
 
@@ -294,19 +427,56 @@ def quickstart(device: str):
     return system, app, nodes, rng, x, y
 
 
+class TrainingTally:
+    """For one run: the fused-update launches its training dispatches imply
+    (local steps x leaves of every ``megabatched_local_train`` call) and
+    the (leaf shape, dtype) of every ``ops.fused_update`` call."""
+
+    def __enter__(self):
+        from repro_torch.fl import engine
+        from repro_torch.kernels import ops
+
+        self.implied, self.shapes = 0, set()
+        self._mods = (engine, ops)
+        self._orig = (engine.megabatched_local_train, ops.fused_update)
+        train, update = self._orig
+
+        def counted_train(params_stack, *a, steps, **kw):
+            self.implied += steps * len(params_stack)
+            return train(params_stack, *a, steps=steps, **kw)
+
+        def recorded_update(w, *a, **kw):
+            self.shapes.add((tuple(w.shape), w.dtype))
+            return update(w, *a, **kw)
+
+        engine.megabatched_local_train, ops.fused_update = counted_train, recorded_update
+        return self
+
+    def __exit__(self, *exc):
+        engine, ops = self._mods
+        engine.megabatched_local_train, ops.fused_update = self._orig
+
+
 def drive_main_path(device: str) -> dict:
     """The README quickstart, then 2 rounds of a CNN app, on ``device``."""
     import torch
-
-    from repro_torch import data
-    from repro_torch.convert import params_to_numpy
-    from repro_torch.fl import rounds
 
     def sync():
         if device == "cuda":
             torch.cuda.synchronize()
 
     rec = {"losses": [], "cnn_losses": [], "levels": [], "round_ms": [], "accs": []}
+    with TrainingTally() as tally:
+        _sync_rounds(device, rec, sync)
+    rec["fused_implied"], rec["leaf_shapes"] = tally.implied, tally.shapes
+    return rec
+
+
+def _sync_rounds(device, rec, sync) -> None:
+    from repro_torch import data
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.fl import rounds
+
     system, app, nodes, rng, x, y = quickstart(device)
 
     def one_round(a, key):
@@ -349,7 +519,6 @@ def drive_main_path(device: str) -> dict:
         "mlp": sum(int(v.numel()) for v in app.params.values()),
         "cnn": sum(int(v.numel()) for v in cnn.params.values()),
     }
-    return rec
 
 
 def compare(name, a, b, tol) -> float:
@@ -402,9 +571,10 @@ class Recorder:
 
 
 def drive_async(device: str, compressed: bool, *, record: bool = False,
-                perturb: float = 0.0) -> dict:
+                perturb: float = 0.0, placement=None) -> dict:
     """Slice B: the quickstart app through ``run_async`` on ``device``;
-    ``perturb`` scales each start weight by (1 + perturb * N(0, 1))."""
+    ``perturb`` scales each start weight by (1 + perturb * N(0, 1));
+    ``placement`` is passed on (slice C's live re-placement)."""
     import torch
 
     from repro_torch.convert import params_to_numpy
@@ -423,13 +593,13 @@ def drive_async(device: str, compressed: bool, *, record: bool = False,
         policy = CompressionPolicy(kind="qsgd-int8", error_feedback=True, downlink="delta-qsgd",
                                    downlink_levels=3, chain_cap=3)
     recorder = Recorder()
-    with recorder if record else nullcontext():
+    with recorder if record else nullcontext(), TrainingTally() as tally:
         res = async_engine.run_async(
             system, [app], applies=ASYNC_APPLIES, buffer_k=4, staleness_alpha=0.5,
             model_bytes=4.0 * L,
             compute_ms=async_engine.worker_compute_fn(base_ms=40, spread=6, seed=0),
             churn=ChurnModel(period_ms=500, downtime_ms=1500, seed=0, max_fail_events=2),
-            compression=policy,
+            compression=policy, placement=placement,
         )
         if device == "cuda":
             torch.cuda.synchronize()
@@ -443,6 +613,8 @@ def drive_async(device: str, compressed: bool, *, record: bool = False,
         "params": params_to_numpy(app.params),
         "L": L,
         "calls": recorder.calls if record else None,
+        "replans": [astuple(r) for r in res["scheduler"].replan_log],
+        "fused_implied": tally.implied, "leaf_shapes": tally.shapes,
     }
 
 
@@ -473,11 +645,125 @@ def async_launches_expected(run: dict, compressed: bool) -> dict:
     broadcast delta, one dequantize per commit (EF residual) and one chain
     apply (the broadcast state)."""
     commits, applies = sum(run["arrivals"]), len(run["arrivals"])
+    train = {"fused_update": run["fused_implied"], "policy_update": 0}
     if not compressed:
         return {"tree_aggregate_groups": applies, "qsgd_quantize": 0,
-                "qsgd_dequantize": 0, "apply_quantized_broadcast": 0}
+                "qsgd_dequantize": 0, "apply_quantized_broadcast": 0, **train}
     return {"tree_aggregate_groups": applies, "qsgd_quantize": commits + applies,
-            "qsgd_dequantize": commits, "apply_quantized_broadcast": applies}
+            "qsgd_dequantize": commits, "apply_quantized_broadcast": applies, **train}
+
+
+def demo_env(congestion, hops: int = 8, bw=(20.0, 100.0)):
+    """The path-planning demo's hop set (``examples/path_planning_demo.py``):
+    ``make_env(hops, seed=7, bw_range=bw)`` with 2 Mbit packets."""
+    env = congestion.make_env(hops, seed=7, bw_range=bw)
+    return congestion.CongestionEnv(capacity=env.capacity, theta=env.theta, packet_mbit=2.0)
+
+
+class EpisodeRecorder:
+    """Wraps one planner's ``update``: every episode's (pi before, actions,
+    rewards, pi after), copied to the host, and what a replay needs."""
+
+    def __init__(self, planner):
+        self.episodes = []
+        self.args = (planner.mask.cpu(), planner.cand.cpu(), planner.tau, planner.alpha, planner.beta)
+        orig = planner.update
+
+        def update(actions, rewards):
+            before = planner.pi.cpu().clone()
+            orig(actions, rewards)
+            self.episodes.append((before, actions.cpu().clone(), rewards.cpu().clone(),
+                                  planner.pi.cpu().clone()))
+
+        planner.update = update
+
+
+def drive_planners(device: str, *, record: bool = False) -> dict:
+    """Slice C on ``device``: the demo's game (Totoro+, bandit, OPT; 128
+    nodes, 8 hops, 40 episodes of tau = 16), Alg. 1 at Fig 15's N = 10,000,
+    K = 16, tau = 8 (hop capacities scaled with the nodes per hop) for 20
+    episodes, and Alg. 2 at N = 128 over subsets of up to 2 of 8 hops for
+    20 episodes.  Returns each run's series and, with ``record``, every
+    Alg.-1 episode of the policy-update runs."""
+    import torch
+
+    from repro_torch.core import congestion, multicast, pathplan
+
+    env = demo_env(congestion)
+    runs = {
+        "totoro_plus": (pathplan.GameTheoreticPlanner(128, 8, tau=16, alpha=0.98, beta=0.5, seed=0,
+                                                      device=device), env, 40),
+        "bandit": (pathplan.BanditPlanner(128, 8, tau=16, device=device), env, 40),
+        "opt": (pathplan.OptPlanner(env, 128, tau=16, device=device), env, 40),
+        "fig15_n10000": (pathplan.GameTheoreticPlanner(10_000, 16, tau=8, alpha=0.9, beta=0.5, seed=0,
+                                                       device=device),
+                         demo_env(congestion, 16, (800.0, 4000.0)), 20),
+    }
+    out = {"series": {}, "episodes": {}, "episode_ms": {}}
+    for name, (planner, e, episodes) in runs.items():
+        rec = EpisodeRecorder(planner) if record and hasattr(planner, "cand") else None
+        t0 = time.perf_counter()
+        out["series"][name] = pathplan.run_planner(planner, e, episodes)
+        out["episode_ms"][name] = (time.perf_counter() - t0) * 1e3 / episodes
+        if rec is not None:
+            out["episodes"][name] = rec
+    mc = multicast.MulticastPlanner(128, 8, max_subset=2, tau=8, seed=0, device=device)
+    rec = EpisodeRecorder(mc) if record else None
+    gen, rewards = torch.Generator().manual_seed(0), []
+    for _ in range(20):
+        actions = mc.sample_actions(gen)
+        r = mc.rewards(env, actions, pathplan.uniforms(gen, (mc.tau, 128, 8), device))
+        mc.update(actions, r)
+        rewards.append(float(r.double().mean()))
+    out["series"]["multicast"] = {"mean_reward": rewards, "subset_usage": mc.subset_usage().tolist()}
+    if rec is not None:
+        out["episodes"]["multicast"] = rec
+    return out
+
+
+def reward_sums(torch, actions, rewards, K):
+    """The per-hop reward sums ``algorithm1_episode`` forms."""
+    rs = torch.zeros((actions.shape[0], K), dtype=torch.float64, device=actions.device)
+    return rs.scatter_add_(1, actions.long(), rewards.double()).float()
+
+
+def replay_planners(torch, ref, pathplan, card: dict) -> dict:
+    """Every recorded Alg.-1 episode of the card run, re-run on the CPU
+    through the plain version: the policies agree within PLANNER_TOL and
+    rho and pi~ (the plain version's picks, on the card's inputs on the
+    card and on the CPU) are the same on every node."""
+    out = {}
+    for name, rec in card["episodes"].items():
+        mask, cand, tau, alpha, beta = rec.args
+        worst = 0.0
+        for pi_b, actions, rewards, pi_a in rec.episodes:
+            got = pathplan.algorithm1_episode(pi_b, mask, cand, actions, rewards,
+                                              tau=tau, alpha=alpha, beta=beta)
+            worst = max(worst, float((got - pi_a).abs().max()))
+            rs = reward_sums(torch, actions, rewards, pi_b.shape[1])
+            on_cpu = ref.policy_choices(pi_b, mask, cand, rs, tau)[1:]
+            on_card = ref.policy_choices(*(t.cuda() for t in (pi_b, mask, cand, rs)), tau)[1:]
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)):
+                raise SystemExit(f"planner {name}: rho or pi~ differ between the card and the CPU")
+        if worst > PLANNER_TOL:
+            raise SystemExit(f"planner {name}: the CPU replay differs from the card by {worst:.3e}")
+        out[name] = {"episodes": len(rec.episodes), "max_abs_err": worst}
+    return out
+
+
+def compare_planner_series(card: dict, cpu: dict) -> dict:
+    """The card and CPU runs of the same seeds: every series within
+    PLANNER_TOL (relative for cumulative latency)."""
+    errs = {}
+    for name, s in card["series"].items():
+        for key, val in s.items():
+            a, b = np.asarray(val, np.float64), np.asarray(cpu["series"][name][key], np.float64)
+            scale = np.maximum(np.abs(b), 1.0) if key == "cum_latency_ms" else 1.0
+            err = float(np.max(np.abs(a - b) / scale))
+            errs[f"{name}.{key}"] = err
+            if err > PLANNER_TOL:
+                raise SystemExit(f"planner {name} {key}: card and CPU runs differ by {err:.3e}")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -579,17 +865,23 @@ def profile_rounds(torch, system, app, n: int = 3) -> dict:
         "tree_aggregate_device_ms": sum(
             e.self_device_time_total for e in dev if "group_sum" in e.key
         ) / 1e3 / n,
+        "fused_update_device_ms": sum(
+            e.self_device_time_total for e in dev if "fused_update_kernel" in e.key
+        ) / 1e3 / n,
     }
 
 
-def _time_row(torch, fn, plain, nbytes: float, ops: float, library=None, **extra) -> dict:
-    ms = device_ms(torch, fn)
+def _time_row(torch, fn, plain, nbytes: float, ops: float, library=None, *, calls: int = 50,
+              replays: int = 20, **extra) -> dict:
+    reps = dict(calls=calls, replays=replays)
+    ms = device_ms(torch, fn, **reps)
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
     row = {
-        "ms": ms, "plain_ms": device_ms(torch, plain), "bound_ms": max(by_bytes, by_ops),
+        "ms": ms, "plain_ms": device_ms(torch, plain, **reps), "bound_ms": max(by_bytes, by_ops),
         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-        "library_ms": None if library is None else device_ms(torch, library),
-        "eager_call_ms": eager_ms(torch, fn), "bytes": nbytes, "GBps": nbytes / (ms * 1e-3) / 1e9,
+        "library_ms": None if library is None else device_ms(torch, library, **reps),
+        "eager_call_ms": eager_ms(torch, fn, iters=min(200, 4 * calls), warmup=min(20, calls)),
+        "bytes": nbytes, "ops": ops, "GBps": nbytes / (ms * 1e-3) / 1e9,
     }
     row.update(extra)
     return row
@@ -625,6 +917,80 @@ def time_compression_kernels(torch, qz, bc, ta, ref, R: int, K: int = 4) -> dict
                 einsum_of_widened_ms=device_ms(
                     torch, lambda: torch.einsum("gc,gcl->gl", gw, gq.float()))),
         }
+
+
+def time_fused_update(torch, fu, ref, L: int, dtype) -> dict:
+    """The fused update at L elements, the sync path's (lr, mu) = (0.2,
+    0.01); one PyTorch call computes it only at mu = wd = 0 (``torch.add(w,
+    g, alpha=-lr)``), timed and labelled so."""
+    gen = torch.Generator(device="cuda").manual_seed(L)
+    w, g, w0 = (torch.randn(L, device="cuda", generator=gen).to(dtype) for _ in range(3))
+    s = w.element_size()
+    with uncounted():
+        return _time_row(  # sub + 3 fused multiply-adds per element
+            torch, lambda: fu.fused_update(w, g, w0, lr=0.2, mu=0.01),
+            lambda: ref.fused_update_ref(w, g, w0, 0.2, 0.01, 0.0), 4 * s * L, 7 * L,
+            shape=[L], dtype=str(dtype)[6:],
+            library_ms_mu0_wd0=device_ms(torch, lambda: torch.add(w, g, alpha=-0.2)))
+
+
+def time_policy_update(torch, pu, ref, pathplan, N: int, K: int) -> dict:
+    """The policy update at N nodes over K hops with candidate_policy_set
+    (M = K + 9), as the planners call it.  Bound: the larger of the bytes
+    (pi, mask, rsum read, pi' written, cand once) and N*M*K logs plus
+    3*N*M*K fused multiply-adds at the f32 rate."""
+    pi, mask, cand, rs = policy_case(torch, pathplan, N, K, "corners", seed=N)
+    M = cand.shape[0]
+    reps = dict(calls=3, replays=3) if N >= 100_000 else {}
+    with uncounted():
+        return _time_row(
+            torch, lambda: pu.policy_update(pi, mask, cand, rs, tau=8, alpha=0.9, beta=0.5),
+            lambda: ref.policy_update_ref(pi, mask, cand, rs, 8, 0.9, 0.5),
+            N * K * 13 + 4 * M * K, 7 * N * M * K, shape=[N, K, M], **reps)
+
+
+def time_planner(torch, N: int) -> dict:
+    """Host time of each Alg.-1 episode of ``run_planner`` (sampling, tau
+    packets' rewards and latencies, the policy update, the Nash-regret
+    evaluation) at the demo's N = 128 or Fig 15's N = 10,000, then 5
+    episodes under torch.profiler for the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import congestion, pathplan
+
+    if N == 128:
+        env, K, tau, alpha = demo_env(congestion), 8, 16, 0.98
+    else:
+        env, K, tau, alpha = demo_env(congestion, 16, (800.0, 4000.0)), 16, 8, 0.9
+    p = pathplan.GameTheoreticPlanner(N, K, tau=tau, alpha=alpha, beta=0.5, seed=0, device="cuda")
+    stamps, orig = [], p.sample_actions
+
+    def stamped(gen):  # an episode starts with its draw (the last call: selection_freq's)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return orig(gen)
+
+    p.sample_actions = stamped
+    with uncounted():
+        pathplan.run_planner(p, env, 10)
+        host = list(np.diff(stamps) * 1e3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pathplan.run_planner(p, env, 5)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    return {
+        "N": N, "K": K, "tau": tau, "episode_ms": host,
+        "episode_ms_steady_mean": float(np.mean(host[1:])), "profiled_ms_5_episodes": wall_ms,
+        "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "policy_update_device_ms": sum(e.self_device_time_total for e in dev
+                                       if "policy_update_kernel" in e.key) / 1e3,
+        "top_device": [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top],
+    }
 
 
 def time_async(torch) -> dict:
@@ -676,6 +1042,7 @@ def time_async(torch) -> dict:
             "qsgd_dequantize": kernel_ms("::dequantize_rows"),
             "apply_quantized_broadcast": kernel_ms("apply_chain"),
             "tree_aggregate_groups": kernel_ms("group_sum"),
+            "fused_update": kernel_ms("fused_update_kernel"),
         },
     }
 
@@ -687,8 +1054,11 @@ def main() -> int:
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
 
-    from repro_torch.kernels import _build, ref
+    from repro_torch.core import pathplan
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import broadcast as bc
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import policy_update as pu
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import tree_aggregate as ta
 
@@ -722,6 +1092,11 @@ def main() -> int:
     log(f"[3 kernels] tree_aggregate_groups max_abs_err={max_err:.3e} over {len(shapes)} shapes")
     comp_err = check_compression_kernels(torch, qz, bc, ta, ref)
     log(f"[3 kernels] slice-B kernels max_abs_err {json.dumps(comp_err)}")
+    fused_cases = [(1, f32), (1000, f32), (1 << 17, bf16), (1 << 17, f32), (1 << 24, f32)]
+    fused_err = check_fused_update(torch, fu, ops, ref, fused_cases)
+    policy_err = check_policy_update(torch, pu, ref, pathplan)
+    log(f"[3 kernels] slice-C kernels max_abs_err fused_update={fused_err:.3e} "
+        f"policy_update={policy_err:.3e}")
 
     # -- 4a. slice A: the synchronous round at full width ----------------------
     # The CPU comparison below runs in full f32; cuDNN's convolutions would
@@ -744,8 +1119,12 @@ def main() -> int:
     log(f"[4 main path] tree levels (G, C, L): {[lv[:3] for lv in gpu['levels']]}")
     log(f"[4 main path] launches {json.dumps(sync_counts)} for {n_levels} levels; "
         f"{wall:.2f} s wall")
-    if launches == 0 or sync_counts != {**dict.fromkeys(COUNTED, 0), "tree_aggregate_groups": n_levels}:
-        raise SystemExit(f"expected {n_levels} aggregation launches and no other, saw {sync_counts}")
+    sync_want = {**dict.fromkeys(COUNTED, 0), "tree_aggregate_groups": n_levels,
+                 "fused_update": gpu["fused_implied"]}
+    log(f"[4 main path] fused_update launches implied by the training dispatches "
+        f"(local steps x leaves): {gpu['fused_implied']}")
+    if launches == 0 or gpu["fused_implied"] == 0 or sync_counts != sync_want:
+        raise SystemExit(f"expected launches {sync_want}, saw {sync_counts}")
     if not gpu["losses"][-1] < gpu["losses"][0] or not gpu["cnn_losses"][-1] < gpu["cnn_losses"][0]:
         raise SystemExit("loss did not fall")
     level_shapes = sorted({lv[:3] for lv in gpu["levels"]})
@@ -753,6 +1132,7 @@ def main() -> int:
     max_err = max(max_err, level_err)
     log(f"[4 main path] tree_aggregate_groups max_abs_err={level_err:.3e} over "
         f"{len(level_shapes)} main-path level shapes")
+    leaf_shapes = set(gpu["leaf_shapes"])
     cpu = drive_main_path("cpu")
     errs = {
         "quickstart_loss": compare("quickstart loss", gpu["losses"], cpu["losses"], PATH_TOL),
@@ -788,6 +1168,7 @@ def main() -> int:
             raise SystemExit(f"async {tag}: launches {got} differ from the run's {want}")
         if len(run["losses"]) != ASYNC_APPLIES or not run["losses"][-1] < run["losses"][0]:
             raise SystemExit(f"async {tag}: {len(run['losses'])} applies, or the loss did not fall")
+        leaf_shapes |= run["leaf_shapes"]
         runs[tag] = run
     replayed = replay_on_cpu(torch, ref, runs["compressed"]["calls"])
     log(f"[4 async compressed] every card kernel call re-run through its plain version on "
@@ -821,6 +1202,58 @@ def main() -> int:
         f"relative move the losses by max |d|={dprobe:.3e}")
     if int(steps.max()) > 1 or float(dloss.max()) > ASYNC_LOSS_ATOL:
         raise SystemExit("async compressed: the card and CPU runs disagree past the stated bounds")
+    leaf_cases = sorted({(int(np.prod(shape)), dtype) for shape, dtype in leaf_shapes})
+    log(f"[4 main path] fused_update leaf shapes of the sync and async runs: "
+        f"{sorted((shape, str(dtype)[6:]) for shape, dtype in leaf_shapes)}")
+    fused_err = max(fused_err, check_fused_update(torch, fu, ops, ref, leaf_cases))
+
+    # -- 4c. slice C: the planners, then live placement -------------------------
+    set_counts(dict.fromkeys(COUNTED, 0))
+    t0 = time.perf_counter()
+    plan = drive_planners("cuda", record=True)
+    torch.cuda.synchronize()
+    plan_counts = counts()
+    n_updates = sum(len(rec.episodes) for rec in plan["episodes"].values())
+    plan_want = {**dict.fromkeys(COUNTED, 0), "policy_update": n_updates}
+    for name, ser in plan["series"].items():
+        brief = {k: (round(v[-1], 4) if isinstance(v, list) else v) for k, v in ser.items()
+                 if k != "selection_freq"}
+        log(f"[4 planner] {name}: last of each series {json.dumps(brief)}; "
+            f"{plan['episode_ms'].get(name, float('nan')):.2f} ms an episode (host clock, first call)")
+    log(f"[4 planner] launches {json.dumps(plan_counts)}, implied by {n_updates} Alg.-1 updates; "
+        f"{time.perf_counter() - t0:.2f} s wall")
+    if plan_counts != plan_want:
+        raise SystemExit(f"planner: launches {plan_counts} differ from {plan_want}")
+    tp, bd = (plan["series"][k]["cum_latency_ms"][-1] for k in ("totoro_plus", "bandit"))
+    log(f"[4 planner] cumulative latency over 40 episodes: Totoro+ {tp:.1f} ms, bandit {bd:.1f} ms, "
+        f"OPT {plan['series']['opt']['cum_latency_ms'][-1]:.1f} ms")
+    if not tp < bd:
+        raise SystemExit("planner: Totoro+'s cumulative latency is not below the bandit's")
+    replay = replay_planners(torch, ref, pathplan, plan)
+    log(f"[4 planner] every card policy update replayed on the CPU: {json.dumps(replay)} "
+        f"(tol {PLANNER_TOL}; rho and pi~ identical on every node)")
+    cpu_plan = drive_planners("cpu")
+    series_err = compare_planner_series(plan, cpu_plan)
+    log(f"[4 planner] card vs CPU runs of the same seeds, max |d| per series (relative for "
+        f"cum_latency_ms): {json.dumps(series_err)} (tol {PLANNER_TOL})")
+
+    set_counts(dict.fromkeys(COUNTED, 0))
+    placed = drive_async("cuda", False, placement=pathplan.PlacementEngine(cooldown_ms=5000.0))
+    torch.cuda.synchronize()
+    place_counts = counts()
+    place_want = async_launches_expected(placed, False)
+    cpu_placed = drive_async("cpu", False, placement=pathplan.PlacementEngine(cooldown_ms=5000.0))
+    log(f"[4 placement] replans (time_ms, trigger, moves): "
+        f"{[(round(r[0], 3), r[1], len(r[2])) for r in placed['replans']]}")
+    log(f"[4 placement] launches {json.dumps(place_counts)}, implied {json.dumps(place_want)}; "
+        f"losses {[round(l, 5) for l in placed['losses']]}")
+    if place_counts != place_want or not placed["replans"]:
+        raise SystemExit(f"placement: launches {place_counts} differ from {place_want}, or no replan")
+    if (placed["events"], placed["churn"], placed["replans"]) != (
+            cpu_placed["events"], cpu_placed["churn"], cpu_placed["replans"]):
+        raise SystemExit("placement: event, churn or replan logs differ from the CPU run")
+    perr = compare("placement loss", placed["losses"], cpu_placed["losses"], PATH_TOL)
+    log(f"[4 placement] event, churn and replan logs identical to the CPU run; loss max |d| {perr:.3e}")
 
     # -- 5. times -------------------------------------------------------------
     rows = [time_tree_aggregate(torch, ta, ref, g, c, l, f32) for g, c, l in level_shapes]
@@ -845,6 +1278,18 @@ def main() -> int:
         f"steady_mean={float(np.mean(rms[1:9])):.3f} all={[round(t, 3) for t in rms]}")
     aprof = time_async(torch)
     log(f"[5 times] compressed async applies: {json.dumps(aprof)}")
+    largest_leaf = max(n for n, _ in leaf_cases)
+    fused_rows = [time_fused_update(torch, fu, ref, largest_leaf, f32),
+                  time_fused_update(torch, fu, ref, 1 << 17, bf16),
+                  time_fused_update(torch, fu, ref, 1 << 24, f32)]
+    for r in fused_rows:
+        log(f"[5 times] fused_update {json.dumps(r)}")
+    policy_rows = [time_policy_update(torch, pu, ref, pathplan, N, K)
+                   for N, K in ((128, 8), (4096, 16), (10_000, 16), (1_000_000, 16))]
+    for r in policy_rows:
+        log(f"[5 times] policy_update {json.dumps(r)}")
+    for N in (128, 10_000):
+        log(f"[5 times] planner episodes: {json.dumps(time_planner(torch, N))}")
     log(f"[5 times] card: {smi}")
 
     path = comp_rows[27]
@@ -852,7 +1297,8 @@ def main() -> int:
                 for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "einsum_of_widened_ms")}
     KERNELS[0].update(
         launches=launches + async_counts["compressed"]["tree_aggregate_groups"]
-        + async_counts["uncompressed"]["tree_aggregate_groups"],
+        + async_counts["uncompressed"]["tree_aggregate_groups"]
+        + place_counts["tree_aggregate_groups"],
         max_abs_err=max(max_err, comp_err["tree_aggregate_groups_int8"]), ms=main_row["ms"],
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
         bound_by=main_row["bound_by"], library_ms=main_row["library_ms"],
@@ -863,13 +1309,25 @@ def main() -> int:
         bound_ms=bench_row["bound_ms"], bound_by=bench_row["bound_by"],
         library_ms=bench_row["library_ms"],
     )
-    for entry in KERNELS[2:]:
+    for entry in KERNELS[2:5]:
         r = path[entry["name"]]
         entry.update(
             launches=async_counts["compressed"][entry["name"]], max_abs_err=comp_err[entry["name"]],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
         )
+    KERNELS[5].update(
+        launches=sum(c["fused_update"] for c in (sync_counts, *async_counts.values(), place_counts)),
+        max_abs_err=fused_err, ms=fused_rows[0]["ms"], plain_ms=fused_rows[0]["plain_ms"],
+        bound_ms=fused_rows[0]["bound_ms"], bound_by=fused_rows[0]["bound_by"],
+        library_ms=None,  # no one call at mu = 0.01; torch.add is the mu = wd = 0 case:
+        library_ms_mu0_wd0=fused_rows[0]["library_ms_mu0_wd0"], shape=fused_rows[0]["shape"],
+    )
+    KERNELS[6].update(
+        launches=plan_counts["policy_update"], max_abs_err=policy_err, ms=policy_rows[0]["ms"],
+        plain_ms=policy_rows[0]["plain_ms"], bound_ms=policy_rows[0]["bound_ms"],
+        bound_by=policy_rows[0]["bound_by"], library_ms=None, shape=policy_rows[0]["shape"],
+    )
     log(smi)
     log(json.dumps({"kernels": KERNELS}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -2,17 +2,23 @@
 
 Answers to ``repro/core/congestion.py``.  Facilities = next-hop nodes with
 bandwidth capacities; when k nodes pick the same hop, its rate drops to
-capacity/k (the paper's bandwidth-sharing model, §VII-E).  The async
-scheduler reads ``CongestionEnv.packet_mbit`` and the fair-share
-allocators below; the path planner's ``latency_ms`` / ``rewards`` come
-with the port's planner slice.
+capacity/k (the paper's bandwidth-sharing model, §VII-E): latency =
+packet_bits / (capacity/k) + propagation; reward = 1 - latency / l_max in
+[0, 1] (Appendix G), times a link-success draw with mean theta_p.  The
+async scheduler reads ``CongestionEnv.packet_mbit`` and the fair-share
+allocators below on the host; the path planner's ``latency_ms`` /
+``rewards`` run on the device of the actions they are given, with
+``capacity`` and ``theta`` copied there once.  ``rewards`` takes its
+link-success uniforms from the caller (``bernoulli(theta)`` is
+``u < theta``), so a run on the card and one on the CPU see the same draws.
 """
 from __future__ import annotations
 
 import bisect
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -23,9 +29,47 @@ class CongestionEnv:
     base_ms: float = 5.0
     l_max_ms: float = 2000.0
 
+    # device -> (capacity, theta, 1e3 * packet_mbit, l_max_ms) as f32 tensors
+    _on: dict = field(default_factory=dict, init=False, repr=False, compare=False)
+
     @property
     def num_paths(self) -> int:
         return int(self.capacity.shape[0])
+
+    def on(self, device: torch.device):
+        """(capacity, theta, 1e3 * packet_mbit, l_max_ms) on ``device``.
+        The two constants are tensors so that every division is a true
+        f32 division (PyTorch's CUDA division by a Python scalar multiplies
+        by its reciprocal instead), as the reference's eager ops divide."""
+        dev = torch.device(device)
+        got = self._on.get(dev)
+        if got is None:
+            f32 = torch.float32
+            got = (
+                torch.as_tensor(np.asarray(self.capacity, np.float32), device=dev),
+                torch.as_tensor(np.asarray(self.theta, np.float32), device=dev),
+                torch.tensor(1e3 * self.packet_mbit, dtype=f32, device=dev),
+                torch.tensor(self.l_max_ms, dtype=f32, device=dev),
+            )
+            self._on[dev] = got
+        return got
+
+    def latency_ms(self, actions: torch.Tensor) -> torch.Tensor:
+        """actions: (N,) hop index per node -> per-node latency (ms), f32,
+        on the actions' device."""
+        cap, _, bits, _ = self.on(actions.device)
+        counts = torch.bincount(actions, minlength=self.num_paths).to(torch.float32)
+        n_p = counts[actions]  # the congestion each node sees
+        rate = cap[actions] / torch.clamp_min(n_p, 1.0)  # Mbps
+        return self.base_ms + bits / torch.clamp_min(rate, 1e-6)
+
+    def rewards(self, actions: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:
+        """``clip(1 - latency / l_max, 0, 1)`` times the link-success draw
+        ``uniforms < theta[actions]`` (uniforms in [0, 1), one per node)."""
+        _, theta, _, l_max = self.on(actions.device)
+        r = torch.clamp(1.0 - self.latency_ms(actions) / l_max, 0.0, 1.0)
+        p = theta[actions]
+        return r * (uniforms.to(p.dtype) < p)
 
     def mean_reward(self, path: int, k: int) -> float:
         """r^p(k, theta_p): closed-form mean reward with k users on path."""

@@ -1,11 +1,10 @@
 """Discrete-event execution layer: pluggable schedulers on one clock.
 
-A copy of ``repro/core/sim.py`` (numpy throughout), with three changes:
-the ``CongestionEnv`` is the port's numpy dataclass, the compression
-policy and ``jain_fairness`` come from the port's modules, and live
-placement (``placement=``) raises ``NotImplementedError`` until the
-port's planner slice brings ``PlacementEngine``.  Event traces are
-identical to the reference's.
+A copy of ``repro/core/sim.py`` (numpy throughout), with two changes:
+the ``CongestionEnv`` is the port's numpy dataclass, and the compression
+policy, ``jain_fairness`` and the live ``PlacementEngine`` come from the
+port's modules.  Event traces and replan logs are identical to the
+reference's.
 
 The round engine used to be a monolith: ``MultiAppSimulator`` priced each
 app's round as a fixed chain of phases with a hard barrier per round.
@@ -1083,10 +1082,13 @@ class AsyncBufferScheduler(EventCore):
         self._resample_events0 = self.resample_events
         # live placement engine (docs/architecture.md "placement layer");
         # None keeps every hook dormant and the event trace byte-identical
-        if placement is not None:
-            raise NotImplementedError(
-                "live placement needs core/pathplan.PlacementEngine, which comes "
-                "with the port's planner slice; pass placement=None"
+        from .pathplan import PlacementEngine
+
+        if placement is True:
+            placement = PlacementEngine()
+        if placement is not None and not isinstance(placement, PlacementEngine):
+            raise TypeError(
+                f"placement must be None or a PlacementEngine, got {placement!r}"
             )
         self.placement = placement
         self.compute_ms = compute_ms

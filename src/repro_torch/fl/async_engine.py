@@ -300,7 +300,8 @@ def run_async(
     per-app list, or ``None`` for the handles' fields) turns on
     compressed commits and, through its ``downlink`` axis, compressed
     broadcasts; the scheduler prices both at their wire sizes.
-    ``placement`` must stay ``None`` until the port's planner slice."""
+    ``placement`` (``None``, ``True`` or a ``core.pathplan.PlacementEngine``)
+    turns on live re-placement of the apps' trees."""
     from ..core.sim import AsyncBufferScheduler
 
     trainer = AsyncTrainer(

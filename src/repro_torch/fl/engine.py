@@ -7,7 +7,9 @@ reference's ``vmap`` becomes that axis written out (batched matmuls for
 the MLP, grouped convolutions for the CNN), and its ``lax.scan`` a
 Python loop over E.  The per-worker losses are separable, so autograd of
 their sum gives each worker its own gradient; the masked mean makes each
-worker's loss and gradient those of its unpadded shard.
+worker's loss and gradient those of its unpadded shard.  Each SGD step
+goes through the ``fused_update`` kernel, one launch per leaf, which
+applies the FedProx proximal gradient with the step.
 
 The reference bucketed W and B to powers of two to bound XLA recompiles;
 PyTorch runs eagerly, so shards pad to the exact largest shard.  Deltas
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from . import small_models as sm
+from ..kernels import ops as kops
 from ..pytree import leaves
 
 
@@ -91,21 +94,30 @@ def megabatched_local_train(
     """E local SGD steps with *per-worker start params* (each row is also
     its own FedProx anchor); ``logits_fn`` takes stacked params.
 
+    Autograd differentiates the cross-entropy alone; each step is one
+    ``fused_update`` per leaf, in place, which adds the proximal gradient
+    ``mu * (w - w0)`` (the FedProx client update).  The reported loss is
+    the reference's, cross-entropy plus ``0.5 * mu * ||w - w0||^2``.
+
     Returns (stacked new params (W, ...), per-worker mean loss (W,)).
     """
     keys = sorted(params_stack)
-    anchor = [params_stack[k].detach() for k in keys]
+    # the anchor may be an expanded view (stride 0): one contiguous copy
+    # per call, which the kernel reads at every step
+    anchor = [params_stack[k].detach().contiguous() for k in keys]
     p = [a.clone().requires_grad_(True) for a in anchor]
     losses = []
     for _ in range(steps):
         per_worker = _masked_ce(logits_fn(dict(zip(keys, p)), x), y, mask)
-        if mu > 0:
-            prox = sum(((a - b) ** 2).flatten(1).sum(1) for a, b in zip(p, anchor))
-            per_worker = per_worker + 0.5 * mu * prox
         grads = torch.autograd.grad(per_worker.sum(), p)
         with torch.no_grad():
-            p = [(w - lr * g).requires_grad_(True) for w, g in zip(p, grads)]
-        losses.append(per_worker.detach())
+            per_worker = per_worker.detach()
+            if mu > 0:  # the reported loss keeps the proximal term
+                prox = sum(((a - b) ** 2).flatten(1).sum(1) for a, b in zip(p, anchor))
+                per_worker = per_worker + 0.5 * mu * prox
+            p = [kops.fused_update(w.detach(), g, a, lr=lr, mu=mu, donate=True).requires_grad_(True)
+                 for w, g, a in zip(p, grads, anchor)]
+        losses.append(per_worker)
     new = {k: w.detach() for k, w in zip(keys, p)}
     return new, torch.stack(losses).mean(0)
 

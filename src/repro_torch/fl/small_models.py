@@ -15,6 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops as kops
 from ..pytree import tree_map
 
 
@@ -99,19 +100,26 @@ def accuracy(logits, y):
 
 def local_train(params, global_params, x, y, *, logits_fn, steps: int, lr: float, mu: float = 0.0):
     """E local SGD steps with the optional FedProx proximal term; returns
-    (new_params, mean of the E losses, each taken before its update)."""
+    (new_params, mean of the E losses, each taken before its update).
+
+    Autograd differentiates the cross-entropy; each step is one
+    ``fused_update`` per leaf, which adds the proximal gradient
+    ``mu * (w - w0)``.  The loss reported includes ``0.5 mu ||w - w0||^2``.
+    """
     keys = sorted(params)
-    p = [params[k].detach().clone().requires_grad_(True) for k in keys]
-    anchor = [global_params[k].detach() for k in keys]
+    p = [params[k].detach().clone().contiguous().requires_grad_(True) for k in keys]
+    anchor = [global_params[k].detach().contiguous() for k in keys]
     losses = []
     for _ in range(steps):
         loss = ce_loss(logits_fn(dict(zip(keys, p)), x), y)
-        if mu > 0:
-            loss = loss + 0.5 * mu * sum(((a - b) ** 2).sum() for a, b in zip(p, anchor))
         grads = torch.autograd.grad(loss, p)
         with torch.no_grad():
-            p = [(w - lr * g).requires_grad_(True) for w, g in zip(p, grads)]
-        losses.append(loss.detach())
+            loss = loss.detach()
+            if mu > 0:  # the reported loss keeps the proximal term
+                loss = loss + 0.5 * mu * sum(((a - b) ** 2).sum() for a, b in zip(p, anchor))
+            p = [kops.fused_update(w.detach(), g, a, lr=lr, mu=mu, donate=True).requires_grad_(True)
+                 for w, g, a in zip(p, grads, anchor)]
+        losses.append(loss)
     return {k: w.detach() for k, w in zip(keys, p)}, torch.stack(losses).mean()
 
 

@@ -9,12 +9,16 @@ its inputs for reasons the port does not share:
   PyTorch runs eagerly and the kernel takes any (G, C), so it is gone.
   ``bucket_size`` stays as the shared next-power-of-two helper;
 - the ROWS_PER_BLOCK padding of the quantize and broadcast kernels'
-  row count existed for the TPU's blocks; their CUDA kernels take any R.
+  row count existed for the TPU's blocks; their CUDA kernels take any R;
+- the NODE_BLOCK padding of the policy update's N (with uniform rows)
+  and the TILE padding of the fused update's L existed for the TPU's
+  BlockSpecs; their CUDA kernels take any N and any L.
 
 There is no kernel mode: every wrapper dispatches by the device of its
 tensors (CPU: plain version; CUDA: the hand-written kernel or an error).
-The tree-aggregation, quantize, dequantize and broadcast-apply kernels
-are ported; the fused-update and policy-update kernels are not.
+All seven of the reference's kernels are ported: tree aggregation (and
+its G = 1 case), QSGD quantize and dequantize, the broadcast chain apply,
+the fused FedProx update and the Algorithm-1 policy update.
 """
 from __future__ import annotations
 
@@ -22,9 +26,11 @@ import numpy as np
 import torch
 
 from . import broadcast as _bc
+from . import fused_update as _fu
+from . import policy_update as _pu
 from . import quantize as _q
 from . import tree_aggregate as _ta
-from ..pytree import ravel, unravel_like
+from ..pytree import ravel, tree_map, unravel_like
 
 
 def bucket_size(n: int) -> int:
@@ -110,6 +116,40 @@ def apply_quantized_broadcast(w: torch.Tensor, q: torch.Tensor, scale: torch.Ten
     held params + (D, R, 256) int8 lattice points * (D, R, 1) f32 row
     scales -> (R, 256) f32, the chain accumulated strictly in order."""
     return _bc.apply_quantized_broadcast(w.contiguous(), q.contiguous(), scale.contiguous())
+
+
+def policy_update(pi, mask, cand, reward_sums, *, tau: int, alpha: float, beta: float):
+    """(N, K) policies -> updated (N, K) policies: Algorithm 1, lines 5-8."""
+    return _pu.policy_update(
+        pi.contiguous(), mask.contiguous(), cand.contiguous(), reward_sums.contiguous(),
+        tau=tau, alpha=alpha, beta=beta,
+    )
+
+
+def fused_update(w, g, w0, *, lr: float, mu: float = 0.0, wd: float = 0.0, donate: bool = False):
+    """``w - lr * (g + mu*(w - w0) + wd*w)`` leaf-wise over any shape, in
+    ``w.dtype`` (the FedProx client update).
+
+    ``donate=True`` writes the result into ``w`` and returns it (``w`` must
+    then be contiguous and must not alias ``w0``); the default leaves
+    ``w`` as it was, the reference semantics.
+    """
+    if donate and not w.is_contiguous():
+        raise ValueError("donate=True updates w in place: w must be contiguous")
+    flat = w.reshape(-1) if donate else w.contiguous().reshape(-1)
+    out = _fu.fused_update(
+        flat, g.contiguous().reshape(-1), w0.contiguous().reshape(-1), lr=lr, mu=mu, wd=wd,
+        out=flat if donate else None,
+    )
+    return w if donate else out.reshape(w.shape)
+
+
+def fused_update_pytree(params, grads, round_start, *, lr, mu=0.0, wd=0.0, donate=False):
+    """``fused_update`` over matching dict pytrees of tensors."""
+    return tree_map(
+        lambda w, g, w0: fused_update(w, g, w0, lr=lr, mu=mu, wd=wd, donate=donate),
+        params, grads, round_start,
+    )
 
 
 def jain_fairness(x) -> float:

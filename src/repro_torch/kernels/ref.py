@@ -4,11 +4,10 @@ Each function computes what its CUDA kernel computes, in the same
 arithmetic type and with the same roundings, with ordinary tensor
 operations.  The wrappers use them for tensors that lie on the CPU;
 ``chip_smoke.py`` and the card-only tests hold each kernel against them
-on the card.  Only the oracles of the kernels ported so far are here
-(``repro/kernels/ref.py`` has the rest).
+on the card.
 
-Three rounding rules keep the QSGD and chain-apply versions bit-equal to
-the JAX package's compiled path:
+Three rounding rules keep the QSGD, chain-apply and fused-update
+versions bit-equal to the JAX package's compiled path:
 
 - XLA turns the division by the constant ``levels`` into a multiply by
   the f32 reciprocal, so ``quantize_ref`` forms ``max|x| * fl32(1/levels)``;
@@ -16,8 +15,17 @@ the JAX package's compiled path:
 - JAX's f32 -> int8 cast saturates where PyTorch's wraps
   (``floor(x/scale + r)`` can reach 128), so both clamp to [-128, 127];
 - XLA contracts ``acc + q * s`` into one fused multiply-add, so
-  ``apply_quantized_ref`` rounds once per chain step: ``q * s`` is exact
-  in f64, and the f64 sum rounds once to f32.
+  ``apply_quantized_ref`` rounds once per chain step (``fma_f32``: the
+  product is exact in f64, and the double rounding of the f64 sum to f32
+  is undone).  XLA contracts the fused update into three such steps,
+  which ``fused_update_ref`` repeats.
+
+The Algorithm-1 policy update has no bit-exact reference: XLA sums its
+rows in an order of its own, and permuted candidates that tie in exact
+arithmetic do not tie there.  ``policy_update_ref`` and its kernel sum
+every row in f64 in one fixed order (``warp_sum``, the CUDA kernel's
+lane-and-butterfly order) and round the sum to f32, so the candidates
+tie exactly, on every device, and argmin / argmax take the first index.
 """
 from __future__ import annotations
 
@@ -86,10 +94,114 @@ def apply_quantized_ref(w: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> to
 
     w: (R, C) f32; q: (D, R, C) int8; s: (D, R, 1) f32 -> (R, C) f32.  The
     chain accumulates strictly in order, one rounding per step
-    (``acc = fl32(acc + q_d * s_d)``), so one D-deep call equals D
+    (``acc = fma(q_d, s_d, acc)``), so one D-deep call equals D
     single-step calls bit for bit.
     """
     acc = w.float()
     for d in range(q.shape[0]):
-        acc = (acc.double() + q[d].double() * s[d].double()).float()
+        acc = fma_f32(q[d].float(), s[d].float(), acc)
     return acc
+
+
+def fma_f32(a, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``fl32(a * b + c)`` rounded once, as ``__fmaf_rn`` does; f32 inputs
+    (``a`` may be a Python float holding an f32 value).
+
+    ``a * b`` is exact in f64 and ``s = fl64(a*b + c)`` rounds once; the
+    f32 rounding of ``s`` is then right unless ``s`` landed exactly on a
+    midpoint between two f32 values while the exact sum did not.  The
+    f64 sum's error ``e`` (TwoSum) says which side the exact sum lies on.
+    """
+    b64, c64 = b.double(), c.double()
+    p = b64 * a if isinstance(a, float) else a.double() * b64
+    s = p + c64
+    bb = s - p
+    e = (p - (s - bb)) + (c64 - bb)
+    r = s.float()
+    r64 = r.double()
+    inf = torch.full_like(r, float("inf"))
+    other = torch.nextafter(r, torch.where(s > r64, inf, -inf))  # the f32 across s
+    tie = (r64 + other.double() == 2.0 * s) & (e != 0) & torch.isfinite(e)
+    return torch.where(tie, torch.where(e > 0, torch.maximum(r, other), torch.minimum(r, other)), r)
+
+
+def fused_update_ref(w: torch.Tensor, g: torch.Tensor, w0: torch.Tensor,
+                     lr: float, mu: float, wd: float) -> torch.Tensor:
+    """Fused SGD + FedProx proximal term + weight decay,
+    ``w' = w - lr * (g + mu*(w - w0) + wd*w)``, computed in f32 and
+    returned in ``w.dtype`` (bf16 rounds to nearest even).
+
+    The arithmetic of XLA's compiled reference: ``t = fl32(w - w0)``, then
+    three fused multiply-adds, ``a = fma(mu, t, g)``, ``b = fma(wd, w, a)``,
+    ``w' = fma(-lr, b, w)``, with lr, mu and wd rounded to f32.  At
+    ``mu = wd = 0`` that is ``fma(-lr, g, w)``, one rounding.
+    """
+    lr, mu, wd = (float(np.float32(v)) for v in (lr, mu, wd))
+    wf, gf, w0f = w.float(), g.float(), w0.float()
+    a = fma_f32(mu, wf - w0f, gf)
+    b = fma_f32(wd, wf, a)
+    return fma_f32(-lr, b, wf).to(w.dtype)
+
+
+def warp_sum(x: torch.Tensor) -> torch.Tensor:
+    """f64 sum over the last axis (K <= 64) in the policy-update kernel's
+    order: lane l holds ``0.0 + x[l] + x[l + 32]``, then a butterfly adds
+    lane l ^ off for off = 16, 8, 4, 2, 1.  Lanes past K hold exact
+    zeros, so the butterfly may start at the first power of two >= K."""
+    x = x.double()
+    K = x.shape[-1]
+    width = 32 if K > 32 else 1 << (K - 1).bit_length()
+    x = torch.nn.functional.pad(x, (0, (64 if K > 32 else width) - K))
+    acc = torch.zeros_like(x[..., :width]) + x[..., :width]
+    if K > 32:
+        acc = acc + x[..., 32:]
+    while width > 1:
+        width //= 2
+        acc = acc[..., :width] + acc[..., width:]
+    return acc[..., 0]
+
+
+def policy_update_ref(pi: torch.Tensor, mask: torch.Tensor, cand: torch.Tensor,
+                      reward_sums: torch.Tensor, tau: int, alpha: float,
+                      beta: float) -> torch.Tensor:
+    """Algorithm-1 episode update, lines 5-8, with one-hot features.
+
+    pi (N, K) f32, mask (N, K) bool, cand (M, K) f32, reward_sums (N, K)
+    f32 (``sum_t 1[a_t = k] r_t``) -> (N, K) f32, as
+    ``repro/kernels/ref.py::policy_update_ref``:
+
+    - line 5: each candidate re-normalised onto the node's valid hops;
+      rho = the candidate of least ``sum_k log max(candn_k, 1e-12)``;
+    - line 6: ``grad = rsum / (tau * max(pi, 1e-12)) * mask``;
+    - line 7: pi~ = the candidate of largest ``<candn, grad>``;
+    - line 8: ``alpha (pi + beta (pi~ - pi)) + (1 - alpha) rho`` on the
+      mask, re-normalised.
+
+    Row sums, log-determinants and scores are ``warp_sum`` f64 sums
+    rounded to f32; ties go to the first index.  Every f32 step rounds
+    once, in the order written (no contraction).
+    """
+    candn, rho_i, tilde_i = policy_choices(pi, mask, cand, reward_sums, tau)
+    rows = torch.arange(pi.shape[0], device=pi.device)
+    rho, pi_t = candn[rows, rho_i], candn[rows, tilde_i]
+    alpha32, beta32 = np.float32(alpha), np.float32(beta)
+    one_minus_alpha = float(np.float32(1.0) - alpha32)
+    mixed = (pi + (pi_t - pi) * float(beta32)) * float(alpha32) + rho * one_minus_alpha
+    mixed = mixed * mask.to(torch.float32)
+    return mixed / torch.clamp_min(warp_sum(mixed).to(torch.float32), 1e-12)[:, None]
+
+
+def policy_choices(pi: torch.Tensor, mask: torch.Tensor, cand: torch.Tensor,
+                   reward_sums: torch.Tensor, tau: int):
+    """Lines 5-7 of ``policy_update_ref``: the re-normalised candidates
+    (N, M, K) f32, rho's index (N,) and pi~'s index (N,)."""
+    f = torch.float32
+    maskf = mask.to(f)
+    candm = cand[None] * maskf[:, None, :]  # (N, M, K)
+    denom = torch.clamp_min(warp_sum(candm).to(f), 1e-12)
+    candn = candm / denom[..., None]
+    logs = torch.log(torch.clamp_min(candn, 1e-12)).double()
+    logdet = warp_sum(torch.where(mask[:, None, :], logs, torch.zeros_like(logs))).to(f)
+    grad = reward_sums / (float(tau) * torch.clamp_min(pi, 1e-12)) * maskf
+    scores = warp_sum(candn.double() * grad.double()[:, None, :]).to(f)
+    return candn, torch.argmin(logdet, dim=1), torch.argmax(scores, dim=1)

@@ -158,9 +158,16 @@ def test_compressed_pricing_traces_identical_to_reference(downlink):
 
 
 def test_placement_waits_for_the_planner_slice():
+    """The planner slice has landed: ``placement=True`` builds the port's
+    ``PlacementEngine`` (its traces are held to the reference's in
+    tests/test_torch_pathplan.py), anything else but ``None`` raises."""
+    from repro_torch.core.pathplan import PlacementEngine
+
     sys_, handles = _handles(TSystem, 1)
-    with pytest.raises(NotImplementedError, match="PlacementEngine"):
-        tsim.AsyncBufferScheduler(sys_, handles, model_bytes=1e5, placement=True)
+    sched = tsim.AsyncBufferScheduler(sys_, handles, model_bytes=1e5, placement=True)
+    assert isinstance(sched.placement, PlacementEngine)
+    with pytest.raises(TypeError, match="PlacementEngine"):
+        tsim.AsyncBufferScheduler(sys_, handles, model_bytes=1e5, placement="yes")
 
 
 def test_compute_models_match_reference():

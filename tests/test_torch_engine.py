@@ -6,6 +6,8 @@ engines.  ``pack_shards`` must agree exactly; trained deltas and losses
 agree to rtol 1e-4, atol 1e-5 (XLA and PyTorch reduce matmuls in other
 orders), and the port's batched path agrees with its own per-worker loop
 to the JAX package's tolerance for that pair (tests/test_engine.py).
+Every local SGD step is one ``fused_update`` per leaf (the FedProx client
+update); the reported loss keeps the proximal term, as the reference's.
 """
 import jax
 import numpy as np
@@ -19,6 +21,7 @@ from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.core.api import TotoroSystem as TSystem
 from repro_torch.fl import engine as teng
 from repro_torch.fl import rounds as trounds
+from repro_torch.kernels import ops as tops
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 LOOP_TOL = dict(rtol=5e-4, atol=5e-6)
@@ -143,3 +146,77 @@ def test_dispatch_stats_count_distinct_keys():
     assert (st.dispatches, st.compiles) == (4, 2)
     st.reset()
     assert (st.dispatches, st.compiles) == (0, 0)
+
+
+def _round_pair(mu):
+    """The quickstart's shape at test size: 60-node overlay, 6 workers."""
+    out = []
+    p0 = None
+    for S, R in ((JSystem, jrounds), (TSystem, trounds)):
+        sys_ = S(zone_bits=2, suffix_bits=20, seed=0)
+        rng = np.random.default_rng(0)
+        nodes = [sys_.Join("n", i, site=i % 4, coord=rng.uniform(0, 50, 2)) for i in range(60)]
+        x, y = jdata.synthetic_classification(600, 16, 4, seed=0)
+        parts = jdata.dirichlet_partition(y, 6, alpha=0.5, seed=1)
+        ws = [int(w) for w in rng.choice(nodes, size=6, replace=False)]
+        extra = {} if p0 is None else dict(params=p0, device="cpu")
+        app = R.make_app(sys_, "prox", workers=ws,
+                         data_by_worker={w: (x[parts[i]], y[parts[i]]) for i, w in enumerate(ws)},
+                         dim=16, num_classes=4, local_steps=4, lr=0.2, mu=mu, **extra)
+        p0 = jax.tree.map(np.asarray, app.params)
+        out.append((sys_, app))
+    return out
+
+
+@pytest.mark.parametrize("mu", [0.0, 0.01])
+def test_fedprox_rounds_match_jax(mu):
+    """Three rounds through run_round: losses (proximal term included) and
+    parameters fp-tight against the reference."""
+    (js, ja), (ts, ta) = _round_pair(mu)
+    for _ in range(3):
+        lj = jrounds.run_round(js, ja)["loss"]
+        lt = trounds.run_round(ts, ta)["loss"]
+        np.testing.assert_allclose(lt, lj, **TOL)
+    for k, v in params_to_numpy(ta.params).items():
+        np.testing.assert_allclose(v, np.asarray(ja.params[k]), **TOL)
+
+
+def test_every_local_step_is_one_fused_update_per_leaf(monkeypatch):
+    """steps x leaves calls of ``fused_update`` per training dispatch, each
+    with the app's lr and mu and no weight decay, in place."""
+    calls = []
+    orig = tops.fused_update
+
+    def counting(w, g, w0, **kw):
+        calls.append(kw)
+        return orig(w, g, w0, **kw)
+
+    monkeypatch.setattr(tops, "fused_update", counting)
+    _, tapp, ws = _apps(model="cnn", mu=0.05, workers=4)
+    teng.local_training(tapp, ws, vectorized=True)
+    assert len(calls) == tapp.local_steps * len(tapp.params)
+    assert all(c == dict(lr=tapp.lr, mu=0.05, donate=True) for c in calls)
+    calls.clear()
+    teng.local_training(tapp, ws[:2], vectorized=False)
+    assert len(calls) == 2 * tapp.local_steps * len(tapp.params)
+
+
+def test_reported_loss_keeps_the_proximal_term():
+    """With the anchor away from the start params the proximal term is
+    large; the loss reported is cross-entropy plus 0.5 mu ||w - w0||^2,
+    taken before each step, as ``repro.fl.small_models.local_train``."""
+    from repro.fl import small_models as jsm
+    from repro_torch.fl import small_models as tsm
+
+    japp, tapp, ws = _apps(model="mlp", workers=2)
+    x, y = tapp.data[ws[1]]
+    p0 = jax.tree.map(np.asarray, japp.params)
+    far = {k: (v + 0.3).astype(np.float32) for k, v in p0.items()}
+    jp, jl = jsm.local_train(p0, far, x, y, logits_fn=jsm.mlp_logits, steps=3, lr=0.1, mu=0.5)
+    tp, tl = tsm.local_train(params_from_numpy(p0, "cpu"), params_from_numpy(far, "cpu"),
+                             params_from_numpy(x, "cpu"), params_from_numpy(y, "cpu"),
+                             logits_fn=tsm.mlp_logits, steps=3, lr=0.1, mu=0.5)
+    assert float(jl) > 1.0  # the proximal term dominates
+    np.testing.assert_allclose(float(tl), float(jl), **TOL)
+    for k, v in params_to_numpy(tp).items():
+        np.testing.assert_allclose(v, np.asarray(jp[k]), **TOL)

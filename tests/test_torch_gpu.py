@@ -7,14 +7,17 @@ Run on a machine with a CUDA card:
 Whether a card is present is decided inside the ``cuda`` fixture, never
 at import, so every pytest worker collects the same tests; without a
 card each test skips with that reason.  Tolerance rtol = atol = 1e-5 for
-the f32 aggregation; the QSGD quantize, dequantize and chain-apply kernels
-must give the same bits as their plain versions.
+the f32 aggregation; the QSGD quantize, dequantize, chain-apply, fused
+update and policy update kernels must give the same bits as their plain
+versions (the policy update also the same rho and pi~ on every node).
 """
 import pytest
 import torch
 
 from repro_torch.kernels import broadcast as bc
+from repro_torch.kernels import fused_update as fu
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import policy_update as pu
 from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import tree_aggregate as ta
 
@@ -177,3 +180,102 @@ def test_compressed_apply_on_card_matches_cpu(cuda):
     gpu, _ = ops.buffered_aggregate_quantized(
         [q.to(cuda) for q in qs], [s.to(cuda) for s in ss], *args, alpha=0.5)
     torch.testing.assert_close(gpu.cpu(), cpu, **TOL)
+
+
+# -- the fused FedProx update and the Algorithm-1 policy update ------------------
+
+LENGTHS = [1, 1000, 6792, 1 << 17, (1 << 22) + 3]  # the last: many waves, a ragged tail
+HYPER = [(0.2, 0.0, 0.0), (0.2, 0.01, 0.0), (0.05, 0.1, 0.01)]
+
+
+@pytest.mark.parametrize("lr,mu,wd", HYPER)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", LENGTHS)
+def test_fused_update_kernel_bit_equal_to_plain_version(cuda, L, dtype, lr, mu, wd):
+    gen = torch.Generator(device=cuda).manual_seed(L)
+    w, g, w0 = (torch.randn(L, device=cuda, generator=gen).to(dtype) for _ in range(3))
+    before = fu.launches
+    out = fu.fused_update(w, g, w0, lr=lr, mu=mu, wd=wd)
+    torch.cuda.synchronize()
+    assert fu.launches == before + 1 and out.dtype == dtype
+    assert torch.equal(out, ref.fused_update_ref(w, g, w0, lr, mu, wd))
+    assert torch.equal(out.cpu(), ref.fused_update_ref(w.cpu(), g.cpu(), w0.cpu(), lr, mu, wd))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_update_in_place_and_misaligned(cuda, dtype):
+    L = 4099
+    base = torch.randn(3, L + 1, device=cuda).to(dtype)
+    w, g, w0 = base[0, 1:], base[1, 1:], base[2, :-1]  # 2- or 4-byte offsets
+    want = ref.fused_update_ref(w, g, w0, 0.05, 0.1, 0.01)
+    assert torch.equal(fu.fused_update(w, g, w0, lr=0.05, mu=0.1, wd=0.01), want)
+    buf = torch.randn(5, 7, device=cuda).to(dtype)
+    g2, w02 = torch.randn_like(buf), torch.randn_like(buf)
+    want = ref.fused_update_ref(buf.reshape(-1), g2.reshape(-1), w02.reshape(-1), 0.1, 0.2, 0.0)
+    out = ops.fused_update(buf, g2, w02, lr=0.1, mu=0.2, donate=True)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == buf.data_ptr() and torch.equal(buf.reshape(-1), want)
+
+
+def _policy_case(N, K, cand_kind, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    from repro_torch.core.pathplan import candidate_policy_set
+
+    M = K + 9
+    if cand_kind == "corners":  # permuted corners: exact ties in line 5
+        cand = candidate_policy_set(K, seed=seed)
+    else:
+        e = -torch.log(torch.rand(M, K, generator=gen))  # Dirichlet(1, ..., 1) rows
+        cand = e / e.sum(-1, keepdim=True)
+    mask = torch.rand(N, K, generator=gen) < 0.75
+    mask[:, 0] = True
+    mask[: N // 4] = True  # full rows too
+    pi = torch.rand(N, K, generator=gen) * mask
+    pi[1::7] = torch.where(mask[1::7], 1e-12, 0.0)  # policies at the 1e-12 floor
+    pi[1::7, 0] = 1.0
+    pi = pi / pi.sum(-1, keepdim=True)
+    rs = torch.rand(N, K, generator=gen) * 3 * (torch.rand(N, K, generator=gen) < 0.5) * mask
+    rs[::5] = 0.0  # all-zero reward rows
+    return [t.to(device).contiguous() for t in (pi, mask, cand.float(), rs.float())]
+
+
+@pytest.mark.parametrize("cand_kind", ["corners", "dirichlet"])
+@pytest.mark.parametrize("N,K", [(1, 8), (128, 8), (4096, 16), (70_001, 16), (300, 36), (64, 2), (50, 64)])
+def test_policy_update_kernel_bit_equal_to_plain_version(cuda, N, K, cand_kind):
+    pi, mask, cand, rs = _policy_case(N, K, cand_kind, cuda, seed=N + K)
+    kw = dict(tau=16, alpha=0.98, beta=0.5)
+    before = pu.launches
+    out = pu.policy_update(pi, mask, cand, rs, **kw)
+    torch.cuda.synchronize()
+    assert pu.launches == before + 1
+    want = ref.policy_update_ref(pi, mask, cand, rs, kw["tau"], kw["alpha"], kw["beta"])
+    assert torch.equal(out, want)
+    # the same (rho, pi~) on the CPU as on the card
+    on_card = ref.policy_choices(pi, mask, cand, rs, 16)[1:]
+    on_cpu = ref.policy_choices(*(t.cpu() for t in (pi, mask, cand, rs)), 16)[1:]
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu))
+    torch.testing.assert_close(out.cpu(), ref.policy_update_ref(
+        *(t.cpu() for t in (pi, mask, cand, rs)), kw["tau"], kw["alpha"], kw["beta"]), rtol=0, atol=1e-6)
+
+
+def test_policy_update_kernel_on_misaligned_views(cuda):
+    N, K = 33, 8
+    pi, mask, cand, rs = _policy_case(N, K, "dirichlet", cuda, seed=1)
+    shift = lambda t: torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].view(t.shape)
+    args = [shift(t) for t in (pi, mask, cand, rs)]
+    assert all(a.storage_offset() == 1 for a in args)
+    out = pu.policy_update(*args, tau=4, alpha=0.9, beta=0.5)
+    assert torch.equal(out, ref.policy_update_ref(*args, 4, 0.9, 0.5))
+
+
+def test_planner_episode_on_card_matches_cpu(cuda):
+    from repro_torch.core import congestion, pathplan
+
+    env = congestion.make_env(8, seed=7)
+    series = []
+    for dev in (cuda, "cpu"):
+        planner = pathplan.GameTheoreticPlanner(128, 8, tau=16, alpha=0.98, seed=0, device=dev)
+        series.append(pathplan.run_planner(planner, env, 3))
+    for k in ("nash_regret", "cum_latency_ms", "mean_reward"):  # f64 sums in other orders
+        torch.testing.assert_close(torch.tensor(series[0][k]), torch.tensor(series[1][k]),
+                                   rtol=1e-9, atol=1e-12)

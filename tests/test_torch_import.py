@@ -41,12 +41,14 @@ def test_every_module_imports_without_jax_or_repro(tmp_path):
     res = _run(PROBE, tmp_path)
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 25  # every module of slices A and B
+    assert len(names) >= 29  # every module of slices A, B and C
     assert {
         "repro_torch.fl.compression", "repro_torch.fl.async_engine",
         "repro_torch.fl.selection", "repro_torch.core.sim",
         "repro_torch.core.congestion", "repro_torch.kernels.quantize",
-        "repro_torch.kernels.broadcast",
+        "repro_torch.kernels.broadcast", "repro_torch.core.pathplan",
+        "repro_torch.core.multicast", "repro_torch.kernels.fused_update",
+        "repro_torch.kernels.policy_update",
     } <= names
 
 

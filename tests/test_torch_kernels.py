@@ -7,10 +7,12 @@ plain version; the CUDA kernels themselves are held against those plain
 versions in tests/test_torch_gpu.py and chip_smoke.py.
 
 Tolerances: f32 reductions rtol = atol = 1e-5, the JAX package's own
-(tests/test_engine.py).  QSGD quantize, dequantize and the broadcast
-chain apply are held bit for bit: their plain versions repeat the
-reference's roundings (reciprocal scale, saturating cast, one rounding
-per chain step).
+(tests/test_engine.py).  QSGD quantize, dequantize, the broadcast chain
+apply and the fused FedProx update are held bit for bit: their plain
+versions repeat the reference's roundings (reciprocal scale, saturating
+cast, one rounding per fused multiply-add).  The policy update is held
+within atol 1e-5 (tests/test_kernels.py's tolerance) on candidate sets
+without ties: XLA's f32 row sums have an order of their own.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,8 @@ from repro.kernels import ops as jops
 from repro.kernels import tree_aggregate as jta
 from repro_torch.kernels import _build
 from repro_torch.kernels import broadcast as tbc
+from repro_torch.kernels import fused_update as tfu
+from repro_torch.kernels import policy_update as tpu
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quantize as tq
 from repro_torch.kernels import ref as tref
@@ -332,3 +336,142 @@ def test_new_cpu_paths_are_the_plain_versions_and_count_no_launch():
     assert torch.equal(tbc.apply_quantized_broadcast(w, q, s), tref.apply_quantized_ref(w, q, s))
     tta.tree_aggregate_groups(q.permute(1, 0, 2).contiguous(), torch.ones(5, 2))
     assert (dict(tq.launches), tbc.launches, tta.launches) == before
+
+
+# -- the fused FedProx update --------------------------------------------------------------
+
+
+HYPER = [(0.05, 0.1, 0.01), (0.2, 0.01, 0.0), (0.2, 0.0, 0.0)]
+
+
+def _fused_inputs(L, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(L).astype(np.float32) for _ in range(3))
+
+
+@pytest.mark.parametrize("lr,mu,wd", HYPER)
+@pytest.mark.parametrize("L", [1, 1000, 2048, 65536])
+def test_fused_update_bit_exact_against_jax(jax_mode, L, lr, mu, wd):
+    w, g, w0 = _fused_inputs(L, seed=L)
+    want = np.asarray(jops.fused_update(jnp.asarray(w), jnp.asarray(g), jnp.asarray(w0),
+                                        lr=lr, mu=mu, wd=wd))
+    got = tops.fused_update(*map(torch.from_numpy, (w, g, w0)), lr=lr, mu=mu, wd=wd)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("lr,mu,wd", HYPER)
+def test_fused_update_bf16_bit_exact_against_jax(jax_mode, lr, mu, wd):
+    w, g, w0 = _fused_inputs(4099, seed=5)
+    jw, jg, j0 = (jnp.asarray(a, jnp.bfloat16) for a in (w, g, w0))
+    want = jops.fused_update(jw, jg, j0, lr=lr, mu=mu, wd=wd)
+    got = tops.fused_update(*(torch.from_numpy(a).to(torch.bfloat16) for a in (w, g, w0)),
+                            lr=lr, mu=mu, wd=wd)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+def test_fused_update_in_place_and_pytree():
+    """``donate=True`` writes into w; shaped leaves and pytrees take the
+    flat path; mu = wd = 0 is one fused multiply-add, fma(-lr, g, w)."""
+    rng = np.random.default_rng(0)
+    p = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+         for k, s in (("a", (3, 5)), ("b", (7,)))}
+    g = {k: torch.from_numpy(rng.standard_normal(v.shape).astype(np.float32)) for k, v in p.items()}
+    p0 = {k: v.clone() * 0.5 for k, v in p.items()}
+    want = tops.fused_update_pytree(p, g, p0, lr=0.1, mu=0.05, wd=0.01)
+    buf = {k: v.clone() for k, v in p.items()}
+    ptr = {k: v.data_ptr() for k, v in buf.items()}
+    out = tops.fused_update_pytree(buf, g, p0, lr=0.1, mu=0.05, wd=0.01, donate=True)
+    for k in p:
+        assert out[k].data_ptr() == ptr[k] and torch.equal(out[k], want[k])
+        assert out[k].shape == p[k].shape
+    w, gg = p["a"].reshape(-1), g["a"].reshape(-1)
+    assert torch.equal(tops.fused_update(w, gg, w, lr=0.2), tref.fma_f32(float(np.float32(-0.2)), gg, w))
+
+
+def test_fma_f32_undoes_double_rounding():
+    """2^30 + 2^7 + (2^6 - 2^-40): the f64 sum lands on an f32 midpoint and
+    ties to even (up); the exact sum lies below it."""
+    a = torch.tensor([np.float32(2.0**6 * (1 + 2.0**-23))])
+    b = torch.tensor([np.float32(1 - 2.0**-23)])
+    c = torch.tensor([np.float32(2.0**30 + 2.0**7)])
+    assert float((a.double() * b.double() + c.double()).float()) == 2.0**30 + 2.0**8
+    assert float(tref.fma_f32(a, b, c)) == 2.0**30 + 2.0**7
+    assert float(tref.fma_f32(a, -b, -c)) == -(2.0**30 + 2.0**7)
+    assert float(tref.fma_f32(float(a), b, c)) == 2.0**30 + 2.0**7  # a Python float a
+
+
+# -- the Algorithm-1 policy update ---------------------------------------------------------
+
+
+def _policy_inputs(N, K, M, seed):
+    rng = np.random.default_rng(seed)
+    mask = rng.random((N, K)) < 0.7
+    mask[:, 0] = True
+    pi = rng.dirichlet(np.ones(K), N) * mask
+    pi = (pi / pi.sum(-1, keepdims=True)).astype(np.float32)
+    cand = rng.dirichlet(np.ones(K), M).astype(np.float32)  # no ties
+    rs = (rng.uniform(0, 4, (N, K)) * (rng.random((N, K)) < 0.5) * mask).astype(np.float32)
+    rs[0] = 0.0  # a node whose packets all failed
+    if N > 1:  # a policy at the 1e-12 floor
+        pi[1] = np.where(mask[1], 1e-12, 0.0)
+        pi[1, 0] = 1.0
+    return pi, mask, cand, rs
+
+
+@pytest.mark.parametrize("N,K,M", [(1, 2, 11), (64, 8, 17), (33, 16, 25), (5, 36, 45)])
+def test_policy_update_matches_jax(jax_mode, N, K, M):
+    pi, mask, cand, rs = _policy_inputs(N, K, M, seed=N + K)
+    kw = dict(tau=8, alpha=0.9, beta=0.5)
+    want = np.asarray(jops.policy_update(*map(jnp.asarray, (pi, mask, cand, rs)), **kw))
+    got = tops.policy_update(*map(torch.from_numpy, (pi, mask, cand, rs)), **kw)
+    assert got.dtype == torch.float32 and got.shape == (N, K)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+def test_warp_sum_is_the_kernel_order():
+    """Lane l holds 0 + x[l] + x[l+32], then the butterfly: exact sums come
+    out exact, in any K up to 64, and inexact ones in that fixed order."""
+    rng = np.random.default_rng(0)
+    for K in (1, 2, 3, 8, 16, 31, 32, 33, 36, 64):
+        x = torch.from_numpy(rng.integers(-1000, 1000, (4, K)).astype(np.float64))
+        assert torch.equal(tref.warp_sum(x), x.sum(-1))
+    x = torch.tensor([[1.0, 2.0**-60, -1.0, 2.0**-60]])  # butterfly: (1 + -1) + (2^-60 + 2^-60)
+    assert float(tref.warp_sum(x)[0]) == 2.0**-59
+    y = torch.zeros(1, 36, dtype=torch.float64)
+    y[0, 0], y[0, 32], y[0, 1] = 1.0, 2.0**-60, -1.0  # lane 0: (0 + 1) + 2^-60 rounds to 1
+    assert float(tref.warp_sum(y)[0]) == 0.0
+
+
+@pytest.mark.parametrize(
+    "call,exc",
+    [
+        (lambda: tfu.fused_update(torch.zeros(4), torch.zeros(5), torch.zeros(4), lr=0.1), ValueError),
+        (lambda: tfu.fused_update(torch.zeros(4), torch.zeros(4).double(), torch.zeros(4), lr=0.1), TypeError),
+        (lambda: tfu.fused_update(torch.zeros(2, 2), torch.zeros(2, 2), torch.zeros(2, 2), lr=0.1), ValueError),
+        (lambda: tfu.fused_update(torch.zeros(8)[::2], torch.zeros(4), torch.zeros(4), lr=0.1), ValueError),
+        (lambda: tops.fused_update(torch.zeros(4, 2).t(), torch.zeros(2, 4), torch.zeros(2, 4),
+                                   lr=0.1, donate=True), ValueError),
+        (lambda: tpu.policy_update(torch.zeros(2, 65), torch.ones(2, 65, dtype=torch.bool),
+                                   torch.ones(3, 65), torch.zeros(2, 65), tau=1, alpha=0.5, beta=0.5), ValueError),
+        (lambda: tpu.policy_update(torch.zeros(2, 4), torch.ones(2, 4), torch.ones(3, 4),
+                                   torch.zeros(2, 4), tau=1, alpha=0.5, beta=0.5), TypeError),
+        (lambda: tpu.policy_update(torch.zeros(2, 4), torch.ones(2, 4, dtype=torch.bool),
+                                   torch.ones(3, 5), torch.zeros(2, 4), tau=1, alpha=0.5, beta=0.5), ValueError),
+    ],
+)
+def test_fused_and_policy_wrappers_reject_bad_inputs(call, exc):
+    with pytest.raises(exc):
+        call()
+
+
+def test_slice_c_cpu_paths_are_the_plain_versions_and_count_no_launch():
+    w, g, w0 = (torch.from_numpy(a) for a in _fused_inputs(100, seed=1))
+    pi, mask, cand, rs = (torch.from_numpy(a) for a in _policy_inputs(6, 4, 9, seed=2))
+    before = (tfu.launches, tpu.launches)
+    assert torch.equal(tfu.fused_update(w, g, w0, lr=0.1, mu=0.2, wd=0.3),
+                       tref.fused_update_ref(w, g, w0, 0.1, 0.2, 0.3))
+    assert torch.equal(tpu.policy_update(pi, mask, cand, rs, tau=3, alpha=0.7, beta=0.4),
+                       tref.policy_update_ref(pi, mask, cand, rs, 3, 0.7, 0.4))
+    assert (tfu.launches, tpu.launches) == before
