@@ -18,10 +18,14 @@ the CPU):
    aggregation bit-equal to the f32 path on the widened input; the fused
    FedProx update bit-equal at L = 1, 1000, 2^17 (bf16 and f32) and 2^24,
    at (mu, wd) = (0, 0), (0.01, 0), (0.1, 0.01), in place and on a
-   misaligned view; the policy update bit-equal, with the same rho and pi~
-   on every node, at N = 1 ... 1,000,000 and K = 2, 8, 16, 36, on
-   candidate sets with ties (candidate_policy_set) and without, partial
-   masks, all-zero reward rows and policies at the 1e-12 floor;
+   misaligned view, and its multi-leaf launch bit-equal on every leaf of a
+   table with one-element, zero-length and misaligned leaves and of one
+   past a launch's parameter table (launch counts as the table implies);
+   the policy update bit-equal, with the same rho and pi~ on every node,
+   at N = 1 ... 1,000,000 and K = 2, 8, 16, 36, on candidate sets with
+   ties (candidate_policy_set) and without, on partial, all-ones (the
+   planners') and mixed masks, at M up to 300 candidates, with all-zero
+   reward rows and policies at the 1e-12 floor;
 4. the main paths at full width, each with every launch counter set to 0
    just before and read just after:
    a. slice A: the README quickstart (400-node overlay, 16 workers, 4,000
@@ -39,10 +43,11 @@ the CPU):
       parameters uncompressed, first-apply commit lattices within +-1 and
       losses within ASYNC_LOSS_ATOL compressed, beside how far the losses
       move on the CPU when the start weights are perturbed by PERTURB;
-   Every local SGD step of a and b is one fused-update launch per leaf:
-   the count must equal local steps x leaves over the training dispatches,
-   and the kernel is checked against its plain version at every leaf
-   shape the paths gave it.
+   Every local SGD step of a and b is one multi-leaf fused-update launch
+   per dtype present: the count must equal local steps x launches per
+   step's leaf table over the training dispatches, and the kernel is
+   checked against its plain version at every leaf shape and on every
+   leaf table (in f32 and bf16) the paths gave it.
    c. slice C: the path-planning demo's game (128 nodes, 8 hops of 20-100
       Mbps, 2 Mbit packets, 40 episodes of tau = 16) for Totoro+ (Alg. 1),
       the bandit and OPT; Alg. 1 at Fig 15's N = 10,000, K = 16, tau = 8
@@ -55,8 +60,10 @@ the CPU):
       event, churn and replan logs identical to the CPU run's;
 5. times: each kernel's device time (a CUDA graph of calls between CUDA
    events) beside its bound, its plain version and one PyTorch call
-   computing the same function where there is one, at the main paths'
-   shapes and at the kernel bench's; the round and apply times on the
+   computing the same function where there is one (timed in turns with
+   the fused update: a b b a), at the main paths' shapes and at the kernel
+   bench's; the fused update on one local step's leaf table; the policy
+   update on all-ones and partial masks; the round and apply times on the
    host clock; the host time of a planner episode at N = 128 and 10,000;
    and the device's busy share of a steady round, of steady applies and
    of planner episodes under torch.profiler.
@@ -341,20 +348,89 @@ def check_fused_update(torch, fu, ops, ref, cases) -> float:
     return worst
 
 
-def policy_case(torch, pathplan, N: int, K: int, kind: str, seed: int):
-    """(pi, mask, cand, reward_sums) on the card: ``candidate_policy_set``
-    (permuted corners that tie exactly) or Dirichlet rows without ties;
-    partial masks (a quarter of the rows full), all-zero reward rows, and
-    policies at the 1e-12 floor."""
+def leaf_table(torch, lengths, dtypes, seed, misaligned=()):
+    """(w, g, w0) leaves on the card of the given lengths, dtypes cycled
+    over the leaves; those at the indices in ``misaligned`` start one
+    element past a 16-byte boundary."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = []
+    for j, L in enumerate(lengths):
+        shift = 1 if j in misaligned else 0
+        dtype = dtypes[j % len(dtypes)]
+        table.append(tuple(torch.randn(L + shift, device="cuda", generator=gen).to(dtype)[shift:]
+                           for _ in range(3)))
+    return [list(t) for t in zip(*table)]
+
+
+def table_launches(fu, leaves) -> int:
+    """Launches one ``fused_update_many`` call makes: per dtype present,
+    one per ``max_leaves()`` leaves that hold an element.  ``leaves``:
+    (numel, dtype) pairs."""
+    per = {}
+    for n, dtype in leaves:
+        if n:
+            per[dtype] = per.get(dtype, 0) + 1
+    return sum(-(-c // fu.max_leaves()) for c in per.values())
+
+
+def check_fused_tables(torch, fu, ops, ref, tables) -> float:
+    """The multi-leaf update bit-equal to the plain version on every leaf
+    of every (lengths, dtypes, misaligned) table, at every (lr, mu, wd),
+    out of place and in place, with the launches the table implies."""
+    worst = 0.0
+    for t, (name, lengths, dtypes, misaligned) in enumerate(tables):
+        ws, gs, w0s = leaf_table(torch, lengths, dtypes, seed=t, misaligned=misaligned)
+        want_launches = table_launches(fu, [(int(w.numel()), w.dtype) for w in ws])
+        for lr, mu, wd in FUSED_HYPER:
+            with uncounted():
+                before = fu.launches
+                outs = fu.fused_update_many(ws, gs, w0s, lr=lr, mu=mu, wd=wd)
+                bufs = [w.clone() for w in ws]
+                ops.fused_update_leaves(bufs, gs, w0s, lr=lr, mu=mu, wd=wd, donate=True)
+                torch.cuda.synchronize()
+                made = fu.launches - before
+            for j, (w, g, w0, out, buf) in enumerate(zip(ws, gs, w0s, outs, bufs)):
+                want = ref.fused_update_ref(w, g, w0, lr, mu, wd)
+                if w.numel():
+                    worst = max(worst, float((out.float() - want.float()).abs().max()))
+                if not (torch.equal(out, want) and torch.equal(buf, want)):
+                    raise SystemExit(f"fused_update_many differs from its plain version on leaf {j} "
+                                     f"of table {name} at (lr, mu, wd)={(lr, mu, wd)}")
+            if made != 2 * want_launches:
+                raise SystemExit(f"fused_update_many: table {name} made {made} launches, "
+                                 f"expected 2 x {want_launches}")
+        log(f"  fused_update_many table {name} ({len(lengths)} leaves, "
+            f"{'/'.join(str(d)[6:] for d in dtypes)}, {len(misaligned)} misaligned): bit-equal per "
+            f"leaf at (lr, mu, wd) in {FUSED_HYPER}, in place too; {want_launches} launch(es) a call")
+    return worst
+
+
+def policy_case(torch, pathplan, N: int, K: int, kind: str, seed: int, masks: str = "partial",
+                M: int | None = None):
+    """(pi, mask, cand, reward_sums) on the card.  ``kind``:
+    ``candidate_policy_set`` (permuted corners that tie exactly, M = K + 9)
+    or M Dirichlet rows without ties (default M = K + 9).  ``masks``:
+    "partial" (random rows, a quarter of them full), "ones" (the planners'
+    masks) or "mixed" (one shared partial row for most nodes, every third
+    node its own, every fifth all ones: blocks whose first row is shared,
+    distinct or full).  All-zero reward rows and policies at the 1e-12
+    floor in every case."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     if kind == "corners":
         cand = pathplan.candidate_policy_set(K, seed=0).cuda()
     else:
-        e = -torch.log(torch.rand(K + 9, K, device="cuda", generator=gen))
+        e = -torch.log(torch.rand(K + 9 if M is None else M, K, device="cuda", generator=gen))
         cand = e / e.sum(-1, keepdim=True)
     mask = torch.rand(N, K, device="cuda", generator=gen) < 0.75
     mask[:, 0] = True
-    mask[: max(1, N // 4)] = True
+    if masks == "ones":
+        mask[:] = True
+    elif masks == "mixed":
+        keep = torch.arange(N, device="cuda") % 3 == 0
+        mask = torch.where(keep[:, None], mask, mask[0][None])
+        mask[::5] = True
+    else:
+        mask[: max(1, N // 4)] = True
     pi = torch.rand(N, K, device="cuda", generator=gen) * mask
     pi[1::7] = torch.where(mask[1::7], 1e-12, 0.0)
     pi[1::7, 0] = 1.0
@@ -365,19 +441,32 @@ def policy_case(torch, pathplan, N: int, K: int, kind: str, seed: int):
     return pi.contiguous(), mask.contiguous(), cand.float().contiguous(), rs.contiguous()
 
 
+POLICY_CASES = (  # (N, K, M or None, candidate kinds, mask kinds)
+    [(N, K, None, ("corners", "dirichlet"), ("partial",))
+     for N in (1, 128, 4096, 10_000, 1_000_000) for K in (2, 8, 16, 36)]
+    + [(N, K, None, ("corners", "dirichlet"), ("ones", "mixed"))
+       for N, K in ((1, 8), (128, 8), (128, 36), (4096, 16), (10_000, 16), (1_000_000, 16))]
+    + [(N, K, M, ("dirichlet",), ("partial", "ones", "mixed"))
+       for N, K, M in ((4096, 16, 70), (1000, 8, 100), (300, 64, 73), (77, 2, 300))]
+)
+
+
 def check_policy_update(torch, pu, ref, pathplan) -> float:
     """The policy update bit-equal to its plain version (within PLANNER_TOL
     at worst), and its rho and pi~ the plain version's on every node: line
     8 returns rho itself at alpha = 0 and pi~ at alpha = beta = 1, and
     those outputs too must equal the plain version's bit for bit (two
     candidates can only swap without changing them where they normalise
-    to the same bits).  The plain version runs in chunks of nodes."""
+    to the same bits).  Partial, all-ones and mixed masks; M up to 300
+    candidates (lanes own several).  The plain version runs in chunks of
+    nodes."""
     tau, alpha, beta = 16, 0.98, 0.5
     worst, chunk = 0.0, 1 << 15
-    for N in (1, 128, 4096, 10_000, 1_000_000):
-        for K in (2, 8, 16, 36):
-            for kind in ("corners", "dirichlet"):
-                pi, mask, cand, rs = policy_case(torch, pathplan, N, K, kind, seed=N + K)
+    for N, K, M, kinds, mask_kinds in POLICY_CASES:
+        for kind in kinds:
+            for masks in mask_kinds:
+                pi, mask, cand, rs = policy_case(torch, pathplan, N, K, kind, seed=N + K,
+                                                 masks=masks, M=M)
                 outs = {hyper: pu.policy_update(pi, mask, cand, rs, tau=tau, alpha=hyper[0], beta=hyper[1])
                         for hyper in ((alpha, beta), (0.0, beta), (1.0, 1.0))}
                 torch.cuda.synchronize()
@@ -390,11 +479,12 @@ def check_policy_update(torch, pu, ref, pathplan) -> float:
                         err = max(err, float((out[sl] - want).abs().max()))
                 worst = max(worst, err)
                 same_idx = equal[(0.0, beta)] and equal[(1.0, 1.0)]
-                log(f"  policy_update N={N} K={K} M={cand.shape[0]} {kind}: "
+                log(f"  policy_update N={N} K={K} M={cand.shape[0]} {kind} {masks} masks: "
                     f"{'bit-equal' if equal[(alpha, beta)] else f'max_abs_err={err:.3e}'}; "
                     f"rho (alpha=0) and pi~ (alpha=beta=1) bit-equal on every node: {same_idx}")
                 if not same_idx or err > PLANNER_TOL:
-                    raise SystemExit(f"policy_update differs from its plain version at N={N} K={K} {kind}")
+                    raise SystemExit(f"policy_update differs from its plain version at N={N} K={K} "
+                                     f"M={cand.shape[0]} {kind} {masks} masks")
     return worst
 
 
@@ -429,32 +519,36 @@ def quickstart(device: str):
 
 class TrainingTally:
     """For one run: the fused-update launches its training dispatches imply
-    (local steps x leaves of every ``megabatched_local_train`` call) and
-    the (leaf shape, dtype) of every ``ops.fused_update`` call."""
+    (local steps x the launches one step's leaf table needs: one per dtype
+    present, a table being at most ``max_leaves()`` leaves, in every
+    ``megabatched_local_train`` call) and the leaf table, (numel, dtype) per
+    leaf, of every ``ops.fused_update_leaves`` call."""
 
     def __enter__(self):
         from repro_torch.fl import engine
+        from repro_torch.kernels import fused_update as fu
         from repro_torch.kernels import ops
 
-        self.implied, self.shapes = 0, set()
+        self.implied, self.tables = 0, set()
         self._mods = (engine, ops)
-        self._orig = (engine.megabatched_local_train, ops.fused_update)
+        self._orig = (engine.megabatched_local_train, ops.fused_update_leaves)
         train, update = self._orig
 
         def counted_train(params_stack, *a, steps, **kw):
-            self.implied += steps * len(params_stack)
+            leaves = [(int(v.numel()), v.dtype) for v in params_stack.values()]
+            self.implied += steps * table_launches(fu, leaves)
             return train(params_stack, *a, steps=steps, **kw)
 
-        def recorded_update(w, *a, **kw):
-            self.shapes.add((tuple(w.shape), w.dtype))
-            return update(w, *a, **kw)
+        def recorded_update(ws, *a, **kw):
+            self.tables.add(tuple((int(w.numel()), w.dtype) for w in ws))
+            return update(ws, *a, **kw)
 
-        engine.megabatched_local_train, ops.fused_update = counted_train, recorded_update
+        engine.megabatched_local_train, ops.fused_update_leaves = counted_train, recorded_update
         return self
 
     def __exit__(self, *exc):
         engine, ops = self._mods
-        engine.megabatched_local_train, ops.fused_update = self._orig
+        engine.megabatched_local_train, ops.fused_update_leaves = self._orig
 
 
 def drive_main_path(device: str) -> dict:
@@ -468,7 +562,7 @@ def drive_main_path(device: str) -> dict:
     rec = {"losses": [], "cnn_losses": [], "levels": [], "round_ms": [], "accs": []}
     with TrainingTally() as tally:
         _sync_rounds(device, rec, sync)
-    rec["fused_implied"], rec["leaf_shapes"] = tally.implied, tally.shapes
+    rec["fused_implied"], rec["leaf_tables"] = tally.implied, tally.tables
     return rec
 
 
@@ -614,7 +708,7 @@ def drive_async(device: str, compressed: bool, *, record: bool = False,
         "L": L,
         "calls": recorder.calls if record else None,
         "replans": [astuple(r) for r in res["scheduler"].replan_log],
-        "fused_implied": tally.implied, "leaf_shapes": tally.shapes,
+        "fused_implied": tally.implied, "leaf_tables": tally.tables,
     }
 
 
@@ -919,34 +1013,86 @@ def time_compression_kernels(torch, qz, bc, ta, ref, R: int, K: int = 4) -> dict
         }
 
 
-def time_fused_update(torch, fu, ref, L: int, dtype) -> dict:
-    """The fused update at L elements, the sync path's (lr, mu) = (0.2,
-    0.01); one PyTorch call computes it only at mu = wd = 0 (``torch.add(w,
-    g, alpha=-lr)``), timed and labelled so."""
+def abba_ms(torch, a, b, rounds: int = 2, **reps) -> tuple:
+    """Device times of two functions measured in turns, a b b a, ``rounds``
+    times over: the mean of each function's times."""
+    ta, tb = [], []
+    for _ in range(rounds):
+        a1, b1, b2, a2 = (device_ms(torch, f, **reps) for f in (a, b, b, a))
+        ta += [a1, a2]
+        tb += [b1, b2]
+    return float(np.mean(ta)), float(np.mean(tb))
+
+
+def fused_row(torch, kernel, plain, nbytes: float, ops: float, library=None, **extra) -> dict:
+    """A fused-update time row; with a library call, kernel and library are
+    timed in turns (abba_ms) in this run."""
+    if library is None:
+        return _time_row(torch, kernel, plain, nbytes, ops, **extra)
+    ms, lib_ms = abba_ms(torch, kernel, library)
+    row = _time_row(torch, kernel, plain, nbytes, ops, **extra)
+    row.update(ms=ms, library_ms=lib_ms, GBps=nbytes / (ms * 1e-3) / 1e9,
+               kernel_over_library=ms / lib_ms)
+    return row
+
+
+def time_fused_update(torch, fu, ref, L: int, dtype, lr: float = 0.2, mu: float = 0.01) -> dict:
+    """The fused update at L elements and (lr, mu), wd = 0 (the sync path's
+    (0.2, 0.01) by default).  At mu = wd = 0 it reads no anchor (12 bytes an
+    f32 element, not 16), and one PyTorch call computes it, ``torch.add(w,
+    g, alpha=-lr)``, timed in turns with the kernel as ``library_ms``."""
     gen = torch.Generator(device="cuda").manual_seed(L)
     w, g, w0 = (torch.randn(L, device="cuda", generator=gen).to(dtype) for _ in range(3))
     s = w.element_size()
+    prox = mu != 0.0
     with uncounted():
-        return _time_row(  # sub + 3 fused multiply-adds per element
-            torch, lambda: fu.fused_update(w, g, w0, lr=0.2, mu=0.01),
-            lambda: ref.fused_update_ref(w, g, w0, 0.2, 0.01, 0.0), 4 * s * L, 7 * L,
-            shape=[L], dtype=str(dtype)[6:],
-            library_ms_mu0_wd0=device_ms(torch, lambda: torch.add(w, g, alpha=-0.2)))
+        return fused_row(  # sub + 3 fused multiply-adds per element, or 1 at mu = wd = 0
+            torch, lambda: fu.fused_update(w, g, w0, lr=lr, mu=mu),
+            lambda: ref.fused_update_ref(w, g, w0, lr, mu, 0.0),
+            (4 if prox else 3) * s * L, (7 if prox else 2) * L,
+            None if prox else (lambda: torch.add(w, g, alpha=-lr)),
+            shape=[L], dtype=str(dtype)[6:], mu=mu)
 
 
-def time_policy_update(torch, pu, ref, pathplan, N: int, K: int) -> dict:
+def time_fused_table(torch, fu, ref, name: str, lengths, lr: float, mu: float) -> dict:
+    """One local step's update of a whole f32 leaf table (one launch), and,
+    for comparison, the same leaves as one single-leaf call each.  At mu =
+    wd = 0 one PyTorch call computes the step: ``torch._foreach_add(ws,
+    gs, alpha=-lr)``, timed in turns with the kernel as ``library_ms``."""
+    ws, gs, w0s = leaf_table(torch, lengths, [torch.float32], seed=len(lengths))
+    L = sum(lengths)
+    prox = mu != 0.0
+    with uncounted():
+        row = fused_row(
+            torch, lambda: fu.fused_update_many(ws, gs, w0s, lr=lr, mu=mu),
+            lambda: [ref.fused_update_ref(w, g, w0, lr, mu, 0.0) for w, g, w0 in zip(ws, gs, w0s)],
+            (16 if prox else 12) * L, (7 if prox else 2) * L,
+            None if prox else (lambda: torch._foreach_add(ws, gs, alpha=-lr)),
+            shape=[len(lengths), L], table=name, leaves=list(lengths), mu=mu)
+
+        def per_leaf():
+            for w, g, w0 in zip(ws, gs, w0s):
+                fu.fused_update(w, g, w0, lr=lr, mu=mu)
+
+        row["one_call_per_leaf_ms"] = device_ms(torch, per_leaf)
+        row["one_call_per_leaf_eager_ms"] = eager_ms(torch, per_leaf)
+    return row
+
+
+def time_policy_update(torch, pu, ref, pathplan, N: int, K: int, masks: str) -> dict:
     """The policy update at N nodes over K hops with candidate_policy_set
-    (M = K + 9), as the planners call it.  Bound: the larger of the bytes
-    (pi, mask, rsum read, pi' written, cand once) and N*M*K logs plus
-    3*N*M*K fused multiply-adds at the f32 rate."""
-    pi, mask, cand, rs = policy_case(torch, pathplan, N, K, "corners", seed=N)
+    (M = K + 9), as the planners call it, on "ones" masks (the planners')
+    or "partial" ones (every node computes its own line 5).  Bound: the
+    larger of the bytes (pi, mask, rsum read, pi' written, cand once) and
+    N*M*K logs plus 3*N*M*K fused multiply-adds at the f32 rate."""
+    pi, mask, cand, rs = policy_case(torch, pathplan, N, K, "corners", seed=N, masks=masks)
     M = cand.shape[0]
     reps = dict(calls=3, replays=3) if N >= 100_000 else {}
     with uncounted():
         return _time_row(
             torch, lambda: pu.policy_update(pi, mask, cand, rs, tau=8, alpha=0.9, beta=0.5),
             lambda: ref.policy_update_ref(pi, mask, cand, rs, 8, 0.9, 0.5),
-            N * K * 13 + 4 * M * K, 7 * N * M * K, shape=[N, K, M], **reps)
+            N * K * 13 + 4 * M * K, 7 * N * M * K, shape=[N, K, M], masks=masks, **reps)
 
 
 def time_planner(torch, N: int) -> dict:
@@ -1094,6 +1240,12 @@ def main() -> int:
     log(f"[3 kernels] slice-B kernels max_abs_err {json.dumps(comp_err)}")
     fused_cases = [(1, f32), (1000, f32), (1 << 17, bf16), (1 << 17, f32), (1 << 24, f32)]
     fused_err = check_fused_update(torch, fu, ops, ref, fused_cases)
+    n_big = 2 * fu.max_leaves() + 5  # past one launch's parameter table
+    fused_err = max(fused_err, check_fused_tables(torch, fu, ops, ref, [
+        ("edge", [1, 0, 7, 4099, 0, 3, 1000, 1], [f32, bf16], (0, 2, 3, 6)),
+        ("edge-f32", [1, 0, 7, 4099, 0, 3, 1000, 1], [f32], (2, 3)),
+        (f"{n_big}-leaves", [(37 * j) % 3001 for j in range(n_big)], [f32, bf16], range(0, n_big, 7)),
+    ]))
     policy_err = check_policy_update(torch, pu, ref, pathplan)
     log(f"[3 kernels] slice-C kernels max_abs_err fused_update={fused_err:.3e} "
         f"policy_update={policy_err:.3e}")
@@ -1122,7 +1274,7 @@ def main() -> int:
     sync_want = {**dict.fromkeys(COUNTED, 0), "tree_aggregate_groups": n_levels,
                  "fused_update": gpu["fused_implied"]}
     log(f"[4 main path] fused_update launches implied by the training dispatches "
-        f"(local steps x leaves): {gpu['fused_implied']}")
+        f"(local steps x launches per step's leaf table): {gpu['fused_implied']}")
     if launches == 0 or gpu["fused_implied"] == 0 or sync_counts != sync_want:
         raise SystemExit(f"expected launches {sync_want}, saw {sync_counts}")
     if not gpu["losses"][-1] < gpu["losses"][0] or not gpu["cnn_losses"][-1] < gpu["cnn_losses"][0]:
@@ -1132,7 +1284,7 @@ def main() -> int:
     max_err = max(max_err, level_err)
     log(f"[4 main path] tree_aggregate_groups max_abs_err={level_err:.3e} over "
         f"{len(level_shapes)} main-path level shapes")
-    leaf_shapes = set(gpu["leaf_shapes"])
+    leaf_tables = set(gpu["leaf_tables"])
     cpu = drive_main_path("cpu")
     errs = {
         "quickstart_loss": compare("quickstart loss", gpu["losses"], cpu["losses"], PATH_TOL),
@@ -1168,7 +1320,7 @@ def main() -> int:
             raise SystemExit(f"async {tag}: launches {got} differ from the run's {want}")
         if len(run["losses"]) != ASYNC_APPLIES or not run["losses"][-1] < run["losses"][0]:
             raise SystemExit(f"async {tag}: {len(run['losses'])} applies, or the loss did not fall")
-        leaf_shapes |= run["leaf_shapes"]
+        leaf_tables |= run["leaf_tables"]
         runs[tag] = run
     replayed = replay_on_cpu(torch, ref, runs["compressed"]["calls"])
     log(f"[4 async compressed] every card kernel call re-run through its plain version on "
@@ -1202,10 +1354,14 @@ def main() -> int:
         f"relative move the losses by max |d|={dprobe:.3e}")
     if int(steps.max()) > 1 or float(dloss.max()) > ASYNC_LOSS_ATOL:
         raise SystemExit("async compressed: the card and CPU runs disagree past the stated bounds")
-    leaf_cases = sorted({(int(np.prod(shape)), dtype) for shape, dtype in leaf_shapes})
-    log(f"[4 main path] fused_update leaf shapes of the sync and async runs: "
-        f"{sorted((shape, str(dtype)[6:]) for shape, dtype in leaf_shapes)}")
+    leaf_cases = sorted({leaf for table in leaf_tables for leaf in table})
+    log(f"[4 main path] fused_update leaf tables of the sync and async runs: "
+        f"{sorted([(n, str(d)[6:]) for n, d in t] for t in leaf_tables)}")
     fused_err = max(fused_err, check_fused_update(torch, fu, ops, ref, leaf_cases))
+    path_tables = sorted([n for n, _ in t] for t in leaf_tables)
+    fused_err = max(fused_err, check_fused_tables(torch, fu, ops, ref, [
+        (f"path-{i}-{dt}", lengths, [d], ()) for i, lengths in enumerate(path_tables)
+        for dt, d in (("f32", f32), ("bf16", bf16))]))
 
     # -- 4c. slice C: the planners, then live placement -------------------------
     set_counts(dict.fromkeys(COUNTED, 0))
@@ -1279,13 +1435,27 @@ def main() -> int:
     aprof = time_async(torch)
     log(f"[5 times] compressed async applies: {json.dumps(aprof)}")
     largest_leaf = max(n for n, _ in leaf_cases)
-    fused_rows = [time_fused_update(torch, fu, ref, largest_leaf, f32),
-                  time_fused_update(torch, fu, ref, 1 << 17, bf16),
-                  time_fused_update(torch, fu, ref, 1 << 24, f32)]
+    # one local step of the 16-worker apps: the MLP's six leaves, the CNN's three
+    mlp_table = max((t for t in path_tables if len(t) == 6), key=sum)
+    cnn_table = max((t for t in path_tables if len(t) == 3), key=sum)
+    fused_rows = [
+        time_fused_table(torch, fu, ref, "mlp-step", mlp_table, 0.2, 0.01),  # the sync path's
+        time_fused_table(torch, fu, ref, "cnn-step", cnn_table, 0.1, 0.0),   # the CNN app's
+        time_fused_update(torch, fu, ref, largest_leaf, f32),
+        time_fused_update(torch, fu, ref, largest_leaf, f32, mu=0.0),
+        time_fused_update(torch, fu, ref, 1 << 17, bf16),
+        time_fused_update(torch, fu, ref, 1 << 24, f32),
+        time_fused_update(torch, fu, ref, 1 << 24, f32, mu=0.0),
+    ]
     for r in fused_rows:
         log(f"[5 times] fused_update {json.dumps(r)}")
-    policy_rows = [time_policy_update(torch, pu, ref, pathplan, N, K)
-                   for N, K in ((128, 8), (4096, 16), (10_000, 16), (1_000_000, 16))]
+    big0 = fused_rows[-1]
+    log(f"[5 times] fused_update at 2^24 f32, mu = wd = 0: kernel {big0['ms'] * 1e3:.2f} us, "
+        f"torch.add(w, g, alpha=-lr) {big0['library_ms'] * 1e3:.2f} us in turns (a b b a, twice); "
+        f"ratio {big0['kernel_over_library']:.4f}")
+    policy_rows = [time_policy_update(torch, pu, ref, pathplan, N, K, masks)
+                   for N, K in ((128, 8), (4096, 16), (10_000, 16), (1_000_000, 16), (128, 36))
+                   for masks in ("ones", "partial")]
     for r in policy_rows:
         log(f"[5 times] policy_update {json.dumps(r)}")
     for N in (128, 10_000):
@@ -1316,17 +1486,20 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
         )
+    step = fused_rows[0]  # one MLP local step's table, the launch the paths make most
     KERNELS[5].update(
         launches=sum(c["fused_update"] for c in (sync_counts, *async_counts.values(), place_counts)),
-        max_abs_err=fused_err, ms=fused_rows[0]["ms"], plain_ms=fused_rows[0]["plain_ms"],
-        bound_ms=fused_rows[0]["bound_ms"], bound_by=fused_rows[0]["bound_by"],
-        library_ms=None,  # no one call at mu = 0.01; torch.add is the mu = wd = 0 case:
-        library_ms_mu0_wd0=fused_rows[0]["library_ms_mu0_wd0"], shape=fused_rows[0]["shape"],
+        max_abs_err=fused_err, ms=step["ms"], plain_ms=step["plain_ms"],
+        bound_ms=step["bound_ms"], bound_by=step["bound_by"],
+        library_ms=None,  # no one call at mu = 0.01; at mu = wd = 0, torch._foreach_add / torch.add:
+        library_ms_mu0_wd0={"cnn-step": fused_rows[1]["library_ms"], "2^24": big0["library_ms"]},
+        shape=step["shape"], leaves=step["leaves"],
     )
+    demo = policy_rows[0]  # the demo's (128, 8, 17) on the planners' all-ones masks
     KERNELS[6].update(
-        launches=plan_counts["policy_update"], max_abs_err=policy_err, ms=policy_rows[0]["ms"],
-        plain_ms=policy_rows[0]["plain_ms"], bound_ms=policy_rows[0]["bound_ms"],
-        bound_by=policy_rows[0]["bound_by"], library_ms=None, shape=policy_rows[0]["shape"],
+        launches=plan_counts["policy_update"], max_abs_err=policy_err, ms=demo["ms"],
+        plain_ms=demo["plain_ms"], bound_ms=demo["bound_ms"], bound_by=demo["bound_by"],
+        library_ms=None, shape=demo["shape"], masks=demo["masks"],
     )
     log(smi)
     log(json.dumps({"kernels": KERNELS}))

@@ -8,8 +8,9 @@ the MLP, grouped convolutions for the CNN), and its ``lax.scan`` a
 Python loop over E.  The per-worker losses are separable, so autograd of
 their sum gives each worker its own gradient; the masked mean makes each
 worker's loss and gradient those of its unpadded shard.  Each SGD step
-goes through the ``fused_update`` kernel, one launch per leaf, which
-applies the FedProx proximal gradient with the step.
+goes through the ``fused_update`` kernel, one launch for all the leaves
+(``kernels.ops.fused_update_leaves``), which applies the FedProx
+proximal gradient with the step.
 
 The reference bucketed W and B to powers of two to bound XLA recompiles;
 PyTorch runs eagerly, so shards pad to the exact largest shard.  Deltas
@@ -95,7 +96,8 @@ def megabatched_local_train(
     its own FedProx anchor); ``logits_fn`` takes stacked params.
 
     Autograd differentiates the cross-entropy alone; each step is one
-    ``fused_update`` per leaf, in place, which adds the proximal gradient
+    ``fused_update_leaves`` call over every leaf (one launch per dtype), in
+    place, which adds the proximal gradient
     ``mu * (w - w0)`` (the FedProx client update).  The reported loss is
     the reference's, cross-entropy plus ``0.5 * mu * ||w - w0||^2``.
 
@@ -115,8 +117,8 @@ def megabatched_local_train(
             if mu > 0:  # the reported loss keeps the proximal term
                 prox = sum(((a - b) ** 2).flatten(1).sum(1) for a, b in zip(p, anchor))
                 per_worker = per_worker + 0.5 * mu * prox
-            p = [kops.fused_update(w.detach(), g, a, lr=lr, mu=mu, donate=True).requires_grad_(True)
-                 for w, g, a in zip(p, grads, anchor)]
+            p = [w.requires_grad_(True) for w in kops.fused_update_leaves(
+                [w.detach() for w in p], grads, anchor, lr=lr, mu=mu, donate=True)]
         losses.append(per_worker)
     new = {k: w.detach() for k, w in zip(keys, p)}
     return new, torch.stack(losses).mean(0)

@@ -103,7 +103,7 @@ def local_train(params, global_params, x, y, *, logits_fn, steps: int, lr: float
     (new_params, mean of the E losses, each taken before its update).
 
     Autograd differentiates the cross-entropy; each step is one
-    ``fused_update`` per leaf, which adds the proximal gradient
+    ``fused_update_leaves`` call over every leaf, which adds the proximal gradient
     ``mu * (w - w0)``.  The loss reported includes ``0.5 mu ||w - w0||^2``.
     """
     keys = sorted(params)
@@ -117,8 +117,8 @@ def local_train(params, global_params, x, y, *, logits_fn, steps: int, lr: float
             loss = loss.detach()
             if mu > 0:  # the reported loss keeps the proximal term
                 loss = loss + 0.5 * mu * sum(((a - b) ** 2).sum() for a, b in zip(p, anchor))
-            p = [kops.fused_update(w.detach(), g, a, lr=lr, mu=mu, donate=True).requires_grad_(True)
-                 for w, g, a in zip(p, grads, anchor)]
+            p = [w.requires_grad_(True) for w in kops.fused_update_leaves(
+                [w.detach() for w in p], grads, anchor, lr=lr, mu=mu, donate=True)]
         losses.append(loss)
     return {k: w.detach() for k, w in zip(keys, p)}, torch.stack(losses).mean()
 

@@ -8,8 +8,10 @@ quantize       — QSGD int8 quantize and dequantize of (R, 256) rows
 broadcast      — fused dequantize-and-apply of a broadcast delta chain
                  (CUDA C++, ``csrc/broadcast.cu``)
 fused_update   — the FedProx client update w - lr (g + mu (w - w0) + wd w),
-                 f32 or bf16 (CUDA C++, ``csrc/fused_update.cu``)
-policy_update  — Algorithm-1 lines 5-8 for every node, one warp per node
+                 f32 or bf16, every leaf of a local step in one launch
+                 (CUDA C++, ``csrc/fused_update.cu``)
+policy_update  — Algorithm-1 lines 5-8 for every node, lanes over
+                 candidates, line 5 once per mask row
                  (CUDA C++, ``csrc/policy_update.cu``)
 
 ``ops.py`` holds the public wrappers, ``ref.py`` the plain PyTorch

@@ -30,7 +30,7 @@ from . import fused_update as _fu
 from . import policy_update as _pu
 from . import quantize as _q
 from . import tree_aggregate as _ta
-from ..pytree import ravel, tree_map, unravel_like
+from ..pytree import leaves, ravel, unflatten_like, unravel_like
 
 
 def bucket_size(n: int) -> int:
@@ -127,29 +127,41 @@ def policy_update(pi, mask, cand, reward_sums, *, tau: int, alpha: float, beta: 
 
 
 def fused_update(w, g, w0, *, lr: float, mu: float = 0.0, wd: float = 0.0, donate: bool = False):
-    """``w - lr * (g + mu*(w - w0) + wd*w)`` leaf-wise over any shape, in
-    ``w.dtype`` (the FedProx client update).
+    """``w - lr * (g + mu*(w - w0) + wd*w)`` over any shape, in ``w.dtype``
+    (the FedProx client update): the one-leaf case of ``fused_update_leaves``.
 
     ``donate=True`` writes the result into ``w`` and returns it (``w`` must
     then be contiguous and must not alias ``w0``); the default leaves
     ``w`` as it was, the reference semantics.
     """
-    if donate and not w.is_contiguous():
+    return fused_update_leaves([w], [g], [w0], lr=lr, mu=mu, wd=wd, donate=donate)[0]
+
+
+def fused_update_leaves(ws, gs, w0s, *, lr: float, mu: float = 0.0, wd: float = 0.0,
+                        donate: bool = False) -> list:
+    """``fused_update`` over lists of matching leaves of any shapes, in one
+    kernel call (one launch per dtype present): one local step's update.
+
+    ``donate=True`` writes each result into its ``w`` (every ``w`` then
+    contiguous, none aliasing a ``w0``); returns the updated leaves.
+    """
+    ws = list(ws)
+    if donate and not all(w.is_contiguous() for w in ws):
         raise ValueError("donate=True updates w in place: w must be contiguous")
-    flat = w.reshape(-1) if donate else w.contiguous().reshape(-1)
-    out = _fu.fused_update(
-        flat, g.contiguous().reshape(-1), w0.contiguous().reshape(-1), lr=lr, mu=mu, wd=wd,
-        out=flat if donate else None,
+    flat = [w.reshape(-1) if donate else w.contiguous().reshape(-1) for w in ws]
+    outs = _fu.fused_update_many(
+        flat, [g.contiguous().reshape(-1) for g in gs], [a.contiguous().reshape(-1) for a in w0s],
+        lr=lr, mu=mu, wd=wd, outs=flat if donate else None,
     )
-    return w if donate else out.reshape(w.shape)
+    return ws if donate else [o.reshape(w.shape) for o, w in zip(outs, ws)]
 
 
 def fused_update_pytree(params, grads, round_start, *, lr, mu=0.0, wd=0.0, donate=False):
-    """``fused_update`` over matching dict pytrees of tensors."""
-    return tree_map(
-        lambda w, g, w0: fused_update(w, g, w0, lr=lr, mu=mu, wd=wd, donate=donate),
-        params, grads, round_start,
-    )
+    """``fused_update`` over matching dict pytrees of tensors, every leaf
+    in one ``fused_update_leaves`` call."""
+    new = fused_update_leaves(leaves(params), leaves(grads), leaves(round_start),
+                              lr=lr, mu=mu, wd=wd, donate=donate)
+    return unflatten_like(params, new)
 
 
 def jain_fairness(x) -> float:

@@ -10,7 +10,10 @@ by the tensors' device and nothing else:
   use) or raise.
 
 Any node count N is taken as it is (the reference padded N to its
-256-node block with uniform rows for the TPU); K <= 64 hops.
+256-node block with uniform rows for the TPU); K <= 64 hops, any number
+M of candidates with M * K <= MAX_CAND_FLOATS.  The kernel computes line
+5 once per block for its first node's mask row and reuses it for every
+node whose row matches (all of them, with the planners' all-ones masks).
 ``launches`` counts kernel launches (never plain-version calls).
 """
 from __future__ import annotations
@@ -23,8 +26,11 @@ import torch
 from . import _build
 from . import ref as _ref
 
-MAX_K = 64  # two hops per lane of a warp
-MAX_CAND_FLOATS = 12288  # M * K f32 in the 48 KB of a block's shared memory
+MAX_K = 64  # two hops per lane of a warp (line 8), two ballot words per mask row
+# M * K: the kernel keeps the candidate set (f32) and one mask row's candn
+# (f64) in shared memory, 12 * M * K + 4 * M + 4096 bytes, 196 KB at most
+# (the opt-in past 48 KB; an H100 block may use 227 KB)
+MAX_CAND_FLOATS = 12288
 
 launches = 0  # CUDA kernel launches since the last reset (a plain int)
 

@@ -133,11 +133,19 @@ def fused_update_ref(w: torch.Tensor, g: torch.Tensor, w0: torch.Tensor,
 
     The arithmetic of XLA's compiled reference: ``t = fl32(w - w0)``, then
     three fused multiply-adds, ``a = fma(mu, t, g)``, ``b = fma(wd, w, a)``,
-    ``w' = fma(-lr, b, w)``, with lr, mu and wd rounded to f32.  At
-    ``mu = wd = 0`` that is ``fma(-lr, g, w)``, one rounding.
+    ``w' = fma(-lr, b, w)``, with lr, mu and wd rounded to f32.
+
+    At ``mu = wd = 0`` (their f32 values) the step is ``fma(-lr, g, w)``,
+    one rounding, and ``w0`` is not read: the chain's values wherever
+    ``w - w0`` is finite (``fma(0, t, g) = g``), and a finite step where
+    the chain would carry a NaN in from ``0 * inf`` (ROADMAP parity rule 8).
+    The kernel takes the same shortcut.
     """
     lr, mu, wd = (float(np.float32(v)) for v in (lr, mu, wd))
-    wf, gf, w0f = w.float(), g.float(), w0.float()
+    wf, gf = w.float(), g.float()
+    if mu == 0.0 and wd == 0.0:
+        return fma_f32(-lr, gf, wf).to(w.dtype)
+    w0f = w0.float()
     a = fma_f32(mu, wf - w0f, gf)
     b = fma_f32(wd, wf, a)
     return fma_f32(-lr, b, wf).to(w.dtype)

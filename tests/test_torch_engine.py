@@ -6,8 +6,9 @@ engines.  ``pack_shards`` must agree exactly; trained deltas and losses
 agree to rtol 1e-4, atol 1e-5 (XLA and PyTorch reduce matmuls in other
 orders), and the port's batched path agrees with its own per-worker loop
 to the JAX package's tolerance for that pair (tests/test_engine.py).
-Every local SGD step is one ``fused_update`` per leaf (the FedProx client
-update); the reported loss keeps the proximal term, as the reference's.
+Every local SGD step is one ``fused_update_leaves`` call over all the
+leaves (the FedProx client update, one launch per dtype on the card); the
+reported loss keeps the proximal term, as the reference's.
 """
 import jax
 import numpy as np
@@ -182,23 +183,51 @@ def test_fedprox_rounds_match_jax(mu):
 
 
 def test_every_local_step_is_one_fused_update_per_leaf(monkeypatch):
-    """steps x leaves calls of ``fused_update`` per training dispatch, each
-    with the app's lr and mu and no weight decay, in place."""
+    """Each local step is one ``fused_update_leaves`` call that updates
+    every leaf once (one kernel launch per dtype on the card), with the
+    app's lr and mu and no weight decay, in place: steps calls of leaves
+    leaves per training dispatch."""
     calls = []
-    orig = tops.fused_update
+    orig = tops.fused_update_leaves
 
-    def counting(w, g, w0, **kw):
-        calls.append(kw)
-        return orig(w, g, w0, **kw)
+    def counting(ws, gs, w0s, **kw):
+        calls.append((len(ws), len(gs), len(w0s), kw))
+        return orig(ws, gs, w0s, **kw)
 
-    monkeypatch.setattr(tops, "fused_update", counting)
+    monkeypatch.setattr(tops, "fused_update_leaves", counting)
     _, tapp, ws = _apps(model="cnn", mu=0.05, workers=4)
     teng.local_training(tapp, ws, vectorized=True)
-    assert len(calls) == tapp.local_steps * len(tapp.params)
-    assert all(c == dict(lr=tapp.lr, mu=0.05, donate=True) for c in calls)
+    leaves = len(tapp.params)
+    assert calls == [(leaves, leaves, leaves, dict(lr=tapp.lr, mu=0.05, donate=True))] * tapp.local_steps
     calls.clear()
     teng.local_training(tapp, ws[:2], vectorized=False)
-    assert len(calls) == 2 * tapp.local_steps * len(tapp.params)
+    assert len(calls) == 2 * tapp.local_steps and all(c[0] == leaves for c in calls)
+
+
+@pytest.mark.parametrize("model", ["mlp", "cnn"])
+def test_small_models_and_async_steps_are_one_fused_call_each(monkeypatch, model):
+    """``small_models.local_train`` and the async path's
+    ``fused_local_training`` (two jobs of one app, megabatched) make one
+    ``fused_update_leaves`` call per local step, over every leaf."""
+    from repro_torch.fl import small_models as tsm
+
+    calls = []
+    orig = tops.fused_update_leaves
+
+    def counting(ws, gs, w0s, **kw):
+        calls.append(len(ws))
+        return orig(ws, gs, w0s, **kw)
+
+    monkeypatch.setattr(tops, "fused_update_leaves", counting)
+    _, tapp, ws = _apps(model=model, mu=0.01, workers=4)
+    leaves = len(tapp.params)
+    x, y = (params_from_numpy(a, "cpu") for a in tapp.data[ws[1]])
+    tsm.local_train(tapp.params, tapp.params, x.float(), y, logits_fn=tsm.LOGITS[model],
+                    steps=5, lr=0.1, mu=0.01)
+    assert calls == [leaves] * 5
+    calls.clear()
+    teng.fused_local_training([(tapp, ws[:2], None), (tapp, ws[2:], tapp.params)])
+    assert calls == [leaves] * tapp.local_steps
 
 
 def test_reported_loss_keeps_the_proximal_term():

@@ -279,3 +279,138 @@ def test_planner_episode_on_card_matches_cpu(cuda):
     for k in ("nash_regret", "cum_latency_ms", "mean_reward"):  # f64 sums in other orders
         torch.testing.assert_close(torch.tensor(series[0][k]), torch.tensor(series[1][k]),
                                    rtol=1e-9, atol=1e-12)
+
+
+# -- the multi-leaf fused update ---------------------------------------------------
+
+MLP_STEP = [1024, 1024, 128, 32768, 65536, 8192]  # quickstart MLP leaves x 16 workers (sorted keys)
+CNN_STEP = [2304, 73728, 65536]                   # the CNN app's leaves x 16 workers
+EDGE_STEP = [1, 0, 7, 4099, 0, 3, 1000, 1]         # one-element, zero-length, ragged leaves
+
+
+def _table(lengths, dtypes, device, seed, misaligned=()):
+    """Leaves (w, g, w0) of the given lengths and dtypes (cycled); the leaves
+    at the indices in ``misaligned`` start 4 (f32) or 2 (bf16) bytes past a
+    16-byte boundary."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    table = []
+    for j, L in enumerate(lengths):
+        dtype = dtypes[j % len(dtypes)]
+        shift = 1 if j in misaligned else 0
+        w, g, w0 = (torch.randn(L + shift, device=device, generator=gen).to(dtype)[shift:]
+                    for _ in range(3))
+        table.append((w, g, w0))
+    return table
+
+
+def _launches_for(table):
+    """One launch per dtype per max_leaves() leaves with at least one element."""
+    cap = fu.max_leaves()
+    per = {}
+    for w, _, _ in table:
+        if w.numel():
+            per[w.dtype] = per.get(w.dtype, 0) + 1
+    return sum(-(-c // cap) for c in per.values())
+
+
+@pytest.mark.parametrize("lr,mu,wd", HYPER)
+@pytest.mark.parametrize(
+    "lengths,dtypes,misaligned",
+    [(MLP_STEP, [torch.float32], ()), (CNN_STEP, [torch.float32], ()),
+     (MLP_STEP, [torch.bfloat16], ()), (MLP_STEP, [torch.float32, torch.bfloat16], ()),
+     (EDGE_STEP, [torch.float32], (0, 3, 6)), (EDGE_STEP, [torch.bfloat16, torch.float32], (2, 3))],
+)
+def test_fused_update_many_bit_equal_per_leaf(cuda, lengths, dtypes, misaligned, lr, mu, wd):
+    table = _table(lengths, dtypes, cuda, seed=len(lengths), misaligned=misaligned)
+    ws, gs, w0s = (list(t) for t in zip(*table))
+    before = fu.launches
+    outs = fu.fused_update_many(ws, gs, w0s, lr=lr, mu=mu, wd=wd)
+    torch.cuda.synchronize()
+    assert fu.launches == before + _launches_for(table)
+    for w, g, w0, out in zip(ws, gs, w0s, outs):
+        assert out.dtype == w.dtype and out.shape == w.shape
+        assert torch.equal(out, ref.fused_update_ref(w, g, w0, lr, mu, wd))
+    bufs = [w.clone() for w in ws]  # in place through the ops entry
+    ops.fused_update_leaves(bufs, gs, w0s, lr=lr, mu=mu, wd=wd, donate=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(b, o) for b, o in zip(bufs, outs))
+
+
+def test_fused_update_many_past_one_parameter_table(cuda):
+    """More leaves than one launch's parameter table holds: ceil(leaves /
+    max_leaves()) launches per dtype, every leaf still bit-equal."""
+    n = 2 * fu.max_leaves() + 5
+    lengths = [(37 * j) % 3001 for j in range(n)]  # includes 0 and odd lengths
+    table = _table(lengths, [torch.float32, torch.bfloat16], cuda, seed=11, misaligned=range(0, n, 7))
+    ws, gs, w0s = (list(t) for t in zip(*table))
+    before = fu.launches
+    outs = fu.fused_update_many(ws, gs, w0s, lr=0.05, mu=0.1, wd=0.01)
+    torch.cuda.synchronize()
+    assert fu.launches - before == _launches_for(table) >= 4
+    for w, g, w0, out in zip(ws, gs, w0s, outs):
+        assert torch.equal(out, ref.fused_update_ref(w, g, w0, 0.05, 0.1, 0.01))
+
+
+def test_fused_update_at_mu_wd_zero_never_reads_the_anchor(cuda):
+    """At mu = wd = 0 the kernel computes fma(-lr, g, w), as the plain
+    version does: a non-finite anchor changes nothing (parity rule 8)."""
+    w, g = torch.randn(4099, device=cuda), torch.randn(4099, device=cuda)
+    w0 = torch.full_like(w, float("inf"))
+    w0[::3] = float("nan")
+    out = fu.fused_update(w, g, w0, lr=0.2)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, ref.fused_update_ref(w, g, torch.zeros_like(w), 0.2, 0.0, 0.0))
+    assert torch.equal(out, ref.fused_update_ref(w, g, w0, 0.2, 0.0, 0.0))
+
+
+# -- the policy update at the planners' masks ----------------------------------------
+
+
+def _policy_masked(N, K, M, kind, device, seed):
+    """(pi, mask, cand, rs) with ``kind`` masks: "ones" (the planners'),
+    "mixed" (most rows one shared partial pattern, every third row its own,
+    every fifth all ones: blocks whose first row is shared or distinct) or
+    "partial" (random rows, a quarter full).  cand: M Dirichlet rows with
+    a duplicate (an exact tie)."""
+    gen = torch.Generator().manual_seed(seed)
+    e = -torch.log(torch.rand(M, K, generator=gen))
+    cand = e / e.sum(-1, keepdim=True)
+    if M > 2:
+        cand[M - 1] = cand[1]
+    if kind == "ones":
+        mask = torch.ones(N, K, dtype=torch.bool)
+    else:
+        mask = torch.rand(N, K, generator=gen) < 0.75
+        mask[:, 0] = True
+        if kind == "mixed":
+            shared = mask[0].clone()
+            keep = torch.arange(N) % 3 == 0
+            mask = torch.where(keep[:, None], mask, shared[None])
+            mask[::5] = True
+        else:
+            mask[: N // 4] = True
+    pi = torch.rand(N, K, generator=gen) * mask
+    pi[1::7] = torch.where(mask[1::7], 1e-12, 0.0)
+    pi[1::7, 0] = 1.0
+    pi = pi / pi.sum(-1, keepdim=True)
+    rs = torch.rand(N, K, generator=gen) * 3 * (torch.rand(N, K, generator=gen) < 0.5) * mask
+    rs[::5] = 0.0
+    return [t.to(device).contiguous() for t in (pi, mask, cand.float(), rs.float())]
+
+
+@pytest.mark.parametrize("kind", ["ones", "mixed", "partial"])
+@pytest.mark.parametrize(
+    "N,K,M",
+    [(128, 8, 17), (10_000, 16, 25), (128, 36, 45), (3000, 16, 70), (777, 8, 100), (50, 64, 73),
+     (1, 1, 3), (33, 2, 200)],
+)
+def test_policy_update_kernel_at_mask_kinds(cuda, N, K, M, kind):
+    """Bit-equal to the plain version, and the same rho (alpha = 0) and pi~
+    (alpha = beta = 1) on every node, at M > 32 and M > 64 too."""
+    pi, mask, cand, rs = _policy_masked(N, K, M, kind, cuda, seed=N + K + M)
+    for alpha, beta in ((0.98, 0.5), (0.0, 0.5), (1.0, 1.0)):
+        before = pu.launches
+        out = pu.policy_update(pi, mask, cand, rs, tau=8, alpha=alpha, beta=beta)
+        torch.cuda.synchronize()
+        assert pu.launches == before + 1
+        assert torch.equal(out, ref.policy_update_ref(pi, mask, cand, rs, 8, alpha, beta))

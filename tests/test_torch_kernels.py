@@ -30,6 +30,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quantize as tq
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import tree_aggregate as tta
+from repro_torch.pytree import leaves as tleaves
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -390,6 +391,116 @@ def test_fused_update_in_place_and_pytree():
     assert torch.equal(tops.fused_update(w, gg, w, lr=0.2), tref.fma_f32(float(np.float32(-0.2)), gg, w))
 
 
+TREE_SHAPES = {"a": (3, 5), "b": (7,), "c": {"d": (2, 1, 1000), "e": (1,)}, "f": (2048,)}
+
+
+def _tree(shapes, rng, dtypes, names=()):
+    """A nested dict of numpy f32 leaves of the given shapes; dtypes:
+    leaf path -> "bf16" or "f32" (default f32)."""
+    out = {}
+    for k, v in shapes.items():
+        if isinstance(v, dict):
+            out[k] = _tree(v, rng, dtypes, names + (k,))
+        else:
+            out[k] = (rng.standard_normal(v).astype(np.float32), dtypes.get(names + (k,), "f32"))
+    return out
+
+
+def _to(tree, framework):
+    conv = {"jax": lambda a, d: jnp.asarray(a, jnp.bfloat16 if d == "bf16" else jnp.float32),
+            "torch": lambda a, d: torch.from_numpy(a).to(torch.bfloat16 if d == "bf16" else torch.float32)}
+    return {k: _to(v, framework) if isinstance(v, dict) else conv[framework](*v) for k, v in tree.items()}
+
+
+def _leaves_np(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_np(tree[k])]
+    return [tree.float().numpy() if isinstance(tree, torch.Tensor) else np.asarray(tree.astype(jnp.float32))]
+
+
+@pytest.mark.parametrize("donate", [False, True])
+@pytest.mark.parametrize("mix", ["f32", "bf16", "mixed"])
+@pytest.mark.parametrize("lr,mu,wd", HYPER)
+def test_fused_update_pytree_bit_exact_against_jax(jax_mode, lr, mu, wd, mix, donate):
+    """The multi-leaf path (one kernel call for every leaf on the card; leaf
+    by leaf through the plain version here) equals JAX's per-leaf
+    ``ops.fused_update_pytree`` bit for bit, over nested leaves of mixed
+    shapes and dtypes, in place and not."""
+    rng = np.random.default_rng(7)
+    dtypes = {"f32": {}, "bf16": {("a",): "bf16", ("b",): "bf16", ("c", "d"): "bf16", ("c", "e"): "bf16",
+                                  ("f",): "bf16"},
+              "mixed": {("b",): "bf16", ("c", "d"): "bf16"}}[mix]
+    p, g, p0 = (_tree(TREE_SHAPES, rng, dtypes) for _ in range(3))
+    want = jops.fused_update_pytree(_to(p, "jax"), _to(g, "jax"), _to(p0, "jax"), lr=lr, mu=mu, wd=wd)
+    tp = _to(p, "torch")
+    got = tops.fused_update_pytree(tp, _to(g, "torch"), _to(p0, "torch"), lr=lr, mu=mu, wd=wd, donate=donate)
+    if donate:
+        assert all(a is b for a, b in zip(tleaves(got), tleaves(tp)))
+    for a, b in zip(_leaves_np(got), _leaves_np(want)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("L", [1, 7, 4099])
+def test_fused_update_mu_wd_zero_shortcut_bit_exact_against_jax(jax_mode, L):
+    """At mu = wd = 0 the port computes fma(-lr, g, w) and never reads w0:
+    on finite inputs (zeros, tiny and huge values among them, results kept
+    normal) that is JAX's three-FMA chain bit for bit."""
+    rng = np.random.default_rng(L)
+    w, g, w0 = (rng.standard_normal(L).astype(np.float32) * s for s in (1.0, 3.0, 1e4))
+    w[::3], g[1::5] = 0.0, 1e-30
+    w0[2::7] = 3e38
+    want = np.asarray(jops.fused_update(*map(jnp.asarray, (w, g, w0)), lr=0.2, mu=0.0, wd=0.0))
+    got = tops.fused_update(*map(torch.from_numpy, (w, g, w0)), lr=0.2, mu=0.0, wd=0.0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    anchorless = tops.fused_update(torch.from_numpy(w), torch.from_numpy(g),
+                                   torch.full((L,), float("nan")), lr=0.2)
+    assert torch.equal(anchorless, got)
+
+
+def test_parity_rule_8_nonfinite_anchor_at_mu_wd_zero(jax_mode):
+    """ROADMAP parity rule 8: at mu = wd = 0 JAX still forms 0 * (w - w0),
+    a NaN where w - w0 is not finite, and the port does not read w0, so
+    its step stays fma(-lr, g, w).  With mu != 0 both run the chain and
+    agree bit for bit, infinities and NaNs included."""
+    w = np.array([1.0, -2.0, 0.5, 3e38, 4.0], np.float32)
+    g = np.array([0.5, 0.25, -1.0, 0.0, 2.0], np.float32)
+    w0 = np.array([np.inf, np.nan, -np.inf, -3e38, 1.0], np.float32)  # w - w0: inf, nan, inf, inf, 3
+    jw = lambda mu: np.asarray(jops.fused_update(*map(jnp.asarray, (w, g, w0)), lr=0.2, mu=mu, wd=0.0))
+    tw = lambda mu: tops.fused_update(*map(torch.from_numpy, (w, g, w0)), lr=0.2, mu=mu, wd=0.0).numpy()
+    step = tref.fma_f32(float(np.float32(-0.2)), torch.from_numpy(g), torch.from_numpy(w)).numpy()
+    assert np.isnan(jw(0.0)[:4]).all() and np.isfinite(tw(0.0)).all()
+    np.testing.assert_array_equal(tw(0.0), step)
+    np.testing.assert_array_equal(tw(0.0)[4], jw(0.0)[4])  # w - w0 finite: the same bits
+    assert not np.isfinite(jw(0.01)[:4]).any()
+    np.testing.assert_array_equal(tw(0.01), jw(0.01))
+
+
+def test_fused_update_many_cpu_path_is_per_leaf_and_counts_no_launch():
+    """The multi-leaf entry on the CPU is the plain version leaf by leaf:
+    mixed dtypes, zero-length and one-element leaves, ``outs`` written in
+    place; no launch is counted; bad tables raise."""
+    rng = np.random.default_rng(3)
+    lengths = [5, 0, 1, 300, 0, 17]
+    dts = [torch.float32, torch.bfloat16] * 3
+    ws, gs, w0s = ([torch.from_numpy(rng.standard_normal(L).astype(np.float32)).to(d)
+                    for L, d in zip(lengths, dts)] for _ in range(3))
+    before = tfu.launches
+    outs = tfu.fused_update_many(ws, gs, w0s, lr=0.1, mu=0.05, wd=0.01)
+    for w, g, w0, o in zip(ws, gs, w0s, outs):
+        assert o.dtype == w.dtype and torch.equal(o, tref.fused_update_ref(w, g, w0, 0.1, 0.05, 0.01))
+    bufs = [w.clone() for w in ws]
+    res = tfu.fused_update_many(ws, gs, w0s, lr=0.1, mu=0.05, wd=0.01, outs=bufs)
+    assert all(r is b and torch.equal(b, o) for r, b, o in zip(res, bufs, outs))
+    assert tfu.fused_update_many([], [], [], lr=0.1) == []
+    assert tfu.launches == before
+    with pytest.raises(ValueError):
+        tfu.fused_update_many(ws, gs[:-1], w0s, lr=0.1)
+    with pytest.raises(ValueError):
+        tfu.fused_update_many([ws[0]], [gs[3]], [w0s[0]], lr=0.1)
+    with pytest.raises(TypeError):
+        tfu.fused_update_many([ws[0]], [gs[0].double()], [w0s[0]], lr=0.1)
+
+
 def test_fma_f32_undoes_double_rounding():
     """2^30 + 2^7 + (2^6 - 2^-40): the f64 sum lands on an f32 midpoint and
     ties to even (up); the exact sum lies below it."""
@@ -427,6 +538,20 @@ def test_policy_update_matches_jax(jax_mode, N, K, M):
     want = np.asarray(jops.policy_update(*map(jnp.asarray, (pi, mask, cand, rs)), **kw))
     got = tops.policy_update(*map(torch.from_numpy, (pi, mask, cand, rs)), **kw)
     assert got.dtype == torch.float32 and got.shape == (N, K)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("N,K,M", [(64, 8, 17), (40, 16, 70), (9, 8, 100), (5, 36, 45)])
+def test_policy_update_all_ones_masks_match_jax(jax_mode, N, K, M):
+    """The planners' all-ones masks (the kernel's shared-row path), and M
+    past one and two warps of candidates."""
+    pi, _, cand, rs = _policy_inputs(N, K, M, seed=N * K + M)
+    mask = np.ones((N, K), bool)
+    pi = np.where(pi > 0, pi, 1e-3).astype(np.float32)
+    pi /= pi.sum(-1, keepdims=True)
+    kw = dict(tau=16, alpha=0.98, beta=0.5)
+    want = np.asarray(jops.policy_update(*map(jnp.asarray, (pi, mask, cand, rs)), **kw))
+    got = tops.policy_update(*map(torch.from_numpy, (pi, mask, cand, rs)), **kw)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
 
