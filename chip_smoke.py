@@ -12,10 +12,12 @@ the CPU):
    one nvcc per source, all started together;
 3. kernels against their plain versions on the card: the tree aggregation
    at ragged shapes, C=1, G=1 and the kernel bench's C=16, L=131072 in
-   bf16 and f32; QSGD quantize (levels 127, 3, 7; a row that reaches 128
-   and a zero row), dequantize and the broadcast chain apply (D = 1..3,
-   and D-deep = D single steps) bit-equal at R = 1, 27, 4096; the int8
-   aggregation bit-equal to the f32 path on the widened input; the fused
+   bf16 and f32, bit-equal to its fmaf chain (``ref.
+   tree_aggregate_groups_chain``) and within TOL of the plain sum; QSGD
+   quantize (levels 127, 3, 7; a row that reaches 128 and a zero row),
+   dequantize and the broadcast chain apply (D = 1..3, and D-deep = D
+   single steps) bit-equal at R = 1, 27, 4096; the int8 aggregation
+   bit-equal to its chain and to the f32 path on the widened input; the fused
    FedProx update bit-equal at L = 1, 1000, 2^17 (bf16 and f32) and 2^24,
    at (mu, wd) = (0, 0), (0.01, 0), (0.1, 0.01), in place and on a
    misaligned view, and its multi-leaf launch bit-equal on every leaf of a
@@ -31,14 +33,15 @@ the CPU):
    a. slice A: the README quickstart (400-node overlay, 16 workers, 4,000
       samples, MLP 32-64-8, 8 rounds, kill the master, 1 more round) and
       2 rounds of a CNN app (16x16x1, channels 16/32); the aggregation
-      kernel against its plain version at every tree-level (G, C, L) the
-      path ran; the same seeds on the CPU, compared with the card's run;
+      kernel bit-equal to its chain at every tree-level (G, C, L) the path
+      ran; the same seeds on the CPU, compared with the card's run;
    b. slice B: the quickstart app through ``run_async`` (12 applies,
       K = 4, staleness alpha 0.5, heterogeneous compute, churn) with
       QSGD-int8 commits under error feedback and delta-QSGD broadcasts
       (levels 3, chain cap 3), then the same without compression; every
       kernel call of the compressed card run is recorded and re-run
-      through the plain versions on the CPU (bit-equal); the same seeds
+      through the plain versions on the CPU (bit-equal; the aggregation
+      to its chain); the same seeds
       on the CPU: identical event and churn traces, fp-tight losses and
       parameters uncompressed, first-apply commit lattices within +-1 and
       losses within ASYNC_LOSS_ATOL compressed, beside how far the losses
@@ -57,13 +60,16 @@ the CPU):
       and pi~ indices), the same seeds run on the CPU give the same series
       (PLANNER_TOL), and Totoro+'s cumulative latency is below the
       bandit's.  Then the async quickstart with a live PlacementEngine:
-      event, churn and replan logs identical to the CPU run's;
+      event, churn and replan logs identical to the CPU run's.  Then the
+      aggregation bit-equal to its chain at every (G, C, L, dtype) that the
+      async and placement runs gave it;
 5. times: each kernel's device time (a CUDA graph of calls between CUDA
    events) beside its bound, its plain version and one PyTorch call
-   computing the same function where there is one (timed in turns with
-   the fused update: a b b a), at the main paths' shapes and at the kernel
-   bench's; the fused update on one local step's leaf table; the policy
-   update on all-ones and partial masks; the round and apply times on the
+   computing the same function where there is one (timed in turns, a b b
+   a, with the fused update and with every f32 aggregation level: einsum),
+   at the main paths' shapes and at the kernel bench's; the fused update
+   on one local step's leaf table; the policy update on all-ones and
+   partial masks; the round and apply times on the
    host clock; the host time of a planner episode at N = 128 and 10,000;
    and the device's busy share of a steady round, of steady applies and
    of planner episodes under torch.profiler.
@@ -178,13 +184,19 @@ def nvidia_smi_line() -> str:
 
 
 def check_tree_aggregate(torch, ta, ref, shapes) -> float:
-    """Kernel vs plain version at every (G, C, L, dtype); ragged groups
-    get zero rows with zero weights in their padding slots."""
+    """Kernel vs plain versions at every (G, C, L, dtype): bit-equal to the
+    fmaf chain, within TOL of the plain sum.  Ragged groups get zero rows
+    with zero weights in their padding slots; int8 rows the compressed
+    apply's small weights."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
     for G, C, L, dtype in shapes:
-        x = torch.randn(G, C, L, device="cuda", generator=gen).to(dtype)
-        w = torch.rand(G, C, device="cuda", generator=gen)
+        if dtype == torch.int8:
+            x = torch.randint(-128, 128, (G, C, L), device="cuda", generator=gen, dtype=dtype)
+            w = torch.rand(G, C, device="cuda", generator=gen) * 1e-2
+        else:
+            x = torch.randn(G, C, L, device="cuda", generator=gen).to(dtype)
+            w = torch.rand(G, C, device="cuda", generator=gen)
         if C > 1:  # ragged: group g keeps C - (g % C) real children
             for g in range(G):
                 real = C - (g % C)
@@ -194,11 +206,12 @@ def check_tree_aggregate(torch, ta, ref, shapes) -> float:
         torch.cuda.synchronize()
         want = ref.tree_aggregate_groups_ref(x, w)
         err = (out - want).abs()
-        ok = bool((err <= TOL["atol"] + TOL["rtol"] * want.abs()).all())
+        chain = torch.equal(out, ref.tree_aggregate_groups_chain(x, w))
+        ok = chain and bool((err <= TOL["atol"] + TOL["rtol"] * want.abs()).all())
         worst = max(worst, float(err.max()))
-        log(f"  tree_aggregate_groups G={G} C={C} L={L} {str(dtype)[6:]}: "
-            f"max_abs_err={float(err.max()):.3e} (rtol={TOL['rtol']}, atol={TOL['atol']}) "
-            f"{'ok' if ok else 'FAIL'}")
+        log(f"  tree_aggregate_groups G={G} C={C} L={L} {str(dtype)[6:]}: bit-equal to the "
+            f"chain: {chain}; max_abs_err={float(err.max()):.3e} (rtol={TOL['rtol']}, "
+            f"atol={TOL['atol']}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit("tree_aggregate_groups disagrees with its plain version")
     return worst
@@ -306,7 +319,8 @@ def check_compression_kernels(torch, qz, bc, ta, ref) -> dict:
             want = ref.apply_quantized_ref(w, qc, sc)
             note("apply_quantized_broadcast", torch.equal(out, want) and torch.equal(out, step),
                  float((out - want).abs().max()), f"R={R} D={D} bit-equal, = {D} single steps")
-    for G, C, L in ((27, 4, 256), (27, 3, 256), (4096, 4, 256), (3, 5, 333), (1, 16, 131072)):
+    for G, C, L in ((27, 4, 256), (27, 3, 256), (29, 3, 256), (4096, 4, 256), (3, 5, 333),
+                    (1, 16, 131072)):
         q = torch.randint(-128, 128, (G, C, L), device="cuda", generator=gen, dtype=torch.int8)
         w = torch.rand(G, C, device="cuda", generator=gen) * 1e-2
         out = ta.tree_aggregate_groups(q, w)
@@ -314,9 +328,10 @@ def check_compression_kernels(torch, qz, bc, ta, ref) -> dict:
         torch.cuda.synchronize()
         want = ref.tree_aggregate_groups_ref(q, w)
         err = (out - want).abs()
-        ok = torch.equal(out, f32) and bool((err <= TOL["atol"] + TOL["rtol"] * want.abs()).all())
+        ok = (torch.equal(out, f32) and torch.equal(out, ref.tree_aggregate_groups_chain(q, w))
+              and bool((err <= TOL["atol"] + TOL["rtol"] * want.abs()).all()))
         note("tree_aggregate_groups_int8", ok, float(err.max()),
-             f"G={G} C={C} L={L} = f32 path on q.float(), plain within {TOL}")
+             f"G={G} C={C} L={L} = f32 path on q.float() = chain, plain within {TOL}")
     return errs
 
 
@@ -551,6 +566,26 @@ class TrainingTally:
         engine.megabatched_local_train, ops.fused_update_leaves = self._orig
 
 
+class AggShapes:
+    """For one run: every (G, C, L, dtype) the aggregation wrapper was given."""
+
+    def __enter__(self):
+        from repro_torch.kernels import tree_aggregate as ta
+
+        self.shapes, self._ta, self._orig = set(), ta, ta.tree_aggregate_groups
+        orig = self._orig
+
+        def recorded(grads, weights):
+            self.shapes.add((*(int(n) for n in grads.shape), grads.dtype))
+            return orig(grads, weights)
+
+        ta.tree_aggregate_groups = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._ta.tree_aggregate_groups = self._orig
+
+
 def drive_main_path(device: str) -> dict:
     """The README quickstart, then 2 rounds of a CNN app, on ``device``."""
     import torch
@@ -560,9 +595,10 @@ def drive_main_path(device: str) -> dict:
             torch.cuda.synchronize()
 
     rec = {"losses": [], "cnn_losses": [], "levels": [], "round_ms": [], "accs": []}
-    with TrainingTally() as tally:
+    with TrainingTally() as tally, AggShapes() as agg:
         _sync_rounds(device, rec, sync)
     rec["fused_implied"], rec["leaf_tables"] = tally.implied, tally.tables
+    rec["agg_shapes"] = agg.shapes
     return rec
 
 
@@ -687,7 +723,7 @@ def drive_async(device: str, compressed: bool, *, record: bool = False,
         policy = CompressionPolicy(kind="qsgd-int8", error_feedback=True, downlink="delta-qsgd",
                                    downlink_levels=3, chain_cap=3)
     recorder = Recorder()
-    with recorder if record else nullcontext(), TrainingTally() as tally:
+    with recorder if record else nullcontext(), TrainingTally() as tally, AggShapes() as agg:
         res = async_engine.run_async(
             system, [app], applies=ASYNC_APPLIES, buffer_k=4, staleness_alpha=0.5,
             model_bytes=4.0 * L,
@@ -708,14 +744,15 @@ def drive_async(device: str, compressed: bool, *, record: bool = False,
         "L": L,
         "calls": recorder.calls if record else None,
         "replans": [astuple(r) for r in res["scheduler"].replan_log],
-        "fused_implied": tally.implied, "leaf_tables": tally.tables,
+        "fused_implied": tally.implied, "leaf_tables": tally.tables, "agg_shapes": agg.shapes,
     }
 
 
 def replay_on_cpu(torch, ref, calls) -> dict:
     """Every recorded kernel call of a card run, re-run through its plain
     version on the CPU: quantize, dequantize and chain apply bit-equal, the
-    int8 aggregation within TOL.  Returns the number of calls of each."""
+    int8 aggregation bit-equal to its fmaf chain and within TOL of the plain
+    sum.  Returns the number of calls of each."""
     for (x, u), kw, (q, s) in calls["qsgd_quantize"]:
         rq, rs = ref.quantize_ref(x, u, levels=kw["levels"])
         if not (torch.equal(q, rq) and torch.equal(s, rs)):
@@ -727,8 +764,10 @@ def replay_on_cpu(torch, ref, calls) -> dict:
         if not torch.equal(out, ref.apply_quantized_ref(w, q, s)):
             raise SystemExit("replay: apply_quantized_broadcast differs from the card")
     for (g, w), _, out in calls["tree_aggregate_groups"]:
-        want = ref.tree_aggregate_groups_ref(g, torch.as_tensor(w, dtype=torch.float32))
-        if not bool(((out - want).abs() <= TOL["atol"] + TOL["rtol"] * want.abs()).all()):
+        w = torch.as_tensor(w, dtype=torch.float32)
+        want = ref.tree_aggregate_groups_ref(g, w)
+        if not (torch.equal(out, ref.tree_aggregate_groups_chain(g, w))
+                and bool(((out - want).abs() <= TOL["atol"] + TOL["rtol"] * want.abs()).all())):
             raise SystemExit("replay: int8 tree_aggregate_groups differs from the card")
     return {k: len(v) for k, v in calls.items()}
 
@@ -912,20 +951,25 @@ def time_tree_aggregate(torch, ta, ref, G, C, L, dtype) -> dict:
     nbytes = G * C * L * x.element_size() + G * C * 4 + G * L * 4
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = 2 * G * C * L / F32_FLOPS * 1e3
-    before = ta.launches
-    ms = device_ms(torch, lambda: ta.tree_aggregate_groups(x, w))
-    call_ms = eager_ms(torch, lambda: ta.tree_aggregate_groups(x, w))
-    ta.launches = before  # timing launches are not main-path launches
+    kernel = lambda: ta.tree_aggregate_groups(x, w)
+    einsum = lambda: torch.einsum("gc,gcl->gl", w, x)  # a batched GEMV via bmm
+    lib_ms = None
+    with uncounted():  # timing launches are not main-path launches
+        if dtype == torch.float32:  # in turns with its one library call
+            ms, lib_ms = abba_ms(torch, kernel, einsum)
+        else:
+            ms = device_ms(torch, kernel)
+        call_ms = eager_ms(torch, kernel)
     row = {
         "shape": [G, C, L], "dtype": str(dtype)[6:], "ms": ms,
         "plain_ms": device_ms(torch, lambda: ref.tree_aggregate_groups_ref(x, w)),
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
-        "library_ms": None, "eager_call_ms": call_ms, "bytes": nbytes,
-        "GBps": nbytes / (ms * 1e-3) / 1e9,
+        "library_ms": lib_ms, "eager_call_ms": call_ms, "bytes": nbytes,
+        "GBps": nbytes / (ms * 1e-3) / 1e9, "bound_share": max(bound_bytes_ms, bound_ops_ms) / ms,
     }
-    if dtype == torch.float32:  # one library call: einsum (a batched GEMV via bmm)
-        row["library_ms"] = device_ms(torch, lambda: torch.einsum("gc,gcl->gl", w, x))
+    if lib_ms is not None:
+        row["kernel_over_library"] = ms / lib_ms
     else:  # einsum needs one dtype: the bf16 input is widened first (two calls)
         row["einsum_of_widened_ms"] = device_ms(
             torch, lambda: torch.einsum("gc,gcl->gl", w, x.float())
@@ -1325,7 +1369,7 @@ def main() -> int:
     replayed = replay_on_cpu(torch, ref, runs["compressed"]["calls"])
     log(f"[4 async compressed] every card kernel call re-run through its plain version on "
         f"the CPU: {json.dumps(replayed)} calls; quantize, dequantize and chain apply "
-        f"bit-equal, int8 aggregation within {TOL}")
+        f"bit-equal, int8 aggregation bit-equal to its chain and within {TOL}")
 
     cpu_u = drive_async("cpu", False)
     cpu_c = drive_async("cpu", True, record=True)
@@ -1410,10 +1454,19 @@ def main() -> int:
         raise SystemExit("placement: event, churn or replan logs differ from the CPU run")
     perr = compare("placement loss", placed["losses"], cpu_placed["losses"], PATH_TOL)
     log(f"[4 placement] event, churn and replan logs identical to the CPU run; loss max |d| {perr:.3e}")
+    path_shapes = set(gpu["agg_shapes"]).union(*(r["agg_shapes"] for r in (*runs.values(), placed)))
+    later = sorted(path_shapes - {(*sh, f32) for sh in level_shapes}, key=str)
+    level_err = check_tree_aggregate(torch, ta, ref, later)
+    max_err = max(max_err, level_err)
+    log(f"[4 main path] tree_aggregate_groups bit-equal to its chain, max_abs_err={level_err:.3e} "
+        f"over the async and placement runs' {len(later)} other (G, C, L, dtype): "
+        f"{[(*sh[:3], str(sh[3])[6:]) for sh in later]}")
 
     # -- 5. times -------------------------------------------------------------
-    rows = [time_tree_aggregate(torch, ta, ref, g, c, l, f32) for g, c, l in level_shapes]
+    f32_levels = sorted({sh[:3] for sh in path_shapes if sh[3] == f32})  # sync, async, placement
+    rows = [time_tree_aggregate(torch, ta, ref, g, c, l, f32) for g, c, l in f32_levels]
     main_row = max(rows, key=lambda r: r["bytes"])  # the main path's largest level
+    worst_row = max(rows, key=lambda r: r["kernel_over_library"])
     rows += [  # the kernel bench's shape, then a streaming size far past L2
         time_tree_aggregate(torch, ta, ref, 1, 16, 131072, bf16),
         time_tree_aggregate(torch, ta, ref, 1, 16, 131072, f32),
@@ -1471,7 +1524,9 @@ def main() -> int:
         + place_counts["tree_aggregate_groups"],
         max_abs_err=max(max_err, comp_err["tree_aggregate_groups_int8"]), ms=main_row["ms"],
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
-        bound_by=main_row["bound_by"], library_ms=main_row["library_ms"],
+        bound_by=main_row["bound_by"], library_ms=main_row["library_ms"], shape=main_row["shape"],
+        kernel_over_library=main_row["kernel_over_library"],
+        worst_level={k: worst_row[k] for k in ("shape", "ms", "library_ms", "kernel_over_library")},
         int8=dict(int8_row, launches=async_counts["compressed"]["tree_aggregate_groups"]),
     )
     KERNELS[1].update(  # reached through ops.tree_aggregate, which no main path calls

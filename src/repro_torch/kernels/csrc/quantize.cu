@@ -23,13 +23,22 @@
 // 4*R bytes.  Both are far below the card's flop rate; at the main path's
 // R = 27 a call moves 62 KB, so the launch costs more than the bytes.
 //
-// What the design does about it: quantize gives each row to one warp.
-// Lane l owns elements l, l+32, ..., l+224, so every load and store of the
-// warp touches 32 neighbouring elements (coalesced, any alignment), the
-// row max is a 5-step __shfl_xor_sync butterfly in registers, and each
-// input byte crosses the bus once.  No shared memory, no atomics: the
-// result is the same on every run.  Dequantize is one thread per element
-// with a grid-stride loop.
+// What the design does about it: quantize gives each row kRowThreads
+// threads and packs kRowsPerBlock rows into a block, so that the path's
+// R = 27 spreads over 14 SMs, not 4 (64 threads a row, 2 rows a block: the
+// best of tools/sweep_port_kernels.py; rows of 32 or 16 threads were
+// slower).  Thread t of a row loads its x and its uniforms u in the same
+// trip, as 16-byte float4 loads at 4t + k*4*kRowThreads (every warp
+// instruction covers 512 contiguous bytes), takes the row max
+// with a __shfl_xor_sync butterfly (and, past one warp a row, through shared
+// memory), and writes its lattice points as 4-byte char4 stores.  The loop
+// over row blocks is uniform across the block, so every thread reaches each
+// __syncthreads, the ragged last block included.  Bases that rule out
+// 16-byte loads take the scalar kernel: one warp a row, lane l owning
+// elements l, l+32, ..., l+224 (coalesced at any alignment).  The row max is
+// exact in any order, so the reduction's shape does not change a bit.  No
+// atomics: the result is the same on every run.  Dequantize is one thread
+// per element with a grid-stride loop.
 //
 // Plain C interface, loaded with ctypes.  Each entry point launches on the
 // given stream, does not synchronise, allocates nothing, and returns
@@ -42,39 +51,102 @@ namespace {
 
 constexpr int kRow = 256;
 constexpr int kWarp = 32;
-constexpr int kPerLane = kRow / kWarp;  // 8
-constexpr int kThreads = 256;           // 8 warps = 8 rows per block
-constexpr int kRowsPerBlock = kThreads / kWarp;
+constexpr int kRowThreads = 64;   // threads per row (16, 32 or 64)
+constexpr int kRowsPerBlock = 2;
+constexpr int kQuantThreads = kRowThreads * kRowsPerBlock;
+constexpr int kVecs = kRow / (4 * kRowThreads);  // float4 loads per thread and operand
+constexpr int kRowWarps = (kRowThreads + kWarp - 1) / kWarp;
+constexpr int kThreads = 256;     // the scalar quantize and the dequantize kernel
+constexpr int kPerLane = kRow / kWarp;
 constexpr int64_t kMaxBlocks = 1 << 20;
+static_assert(kVecs >= 1 && kRow % (4 * kRowThreads) == 0, "a row is whole float4s per thread");
+static_assert(kQuantThreads % kWarp == 0, "the butterfly's full mask needs whole warps");
 
-__global__ void __launch_bounds__(kThreads)
+// floor(v / s + u) saturated into int8, as JAX's cast does (parity rules 1-2).
+__device__ __forceinline__ signed char lattice(float v, float u, float s) {
+  float f = floorf(__fadd_rn(__fdiv_rn(v, s), u));
+  f = fminf(fmaxf(f, -128.0f), 127.0f);
+  return (signed char)__float2int_rz(f);
+}
+
+__device__ __forceinline__ float absmax4(float m, float4 v) {
+  return fmaxf(fmaxf(fmaxf(m, fabsf(v.x)), fmaxf(fabsf(v.y), fabsf(v.z))), fabsf(v.w));
+}
+
+// 16-byte path: x and u 16-byte aligned, q 4-byte aligned.
+__global__ void __launch_bounds__(kQuantThreads)
 quantize_rows(const float* __restrict__ x, const float* __restrict__ u,
               int8_t* __restrict__ q, float* __restrict__ scale, int64_t R,
               float inv_levels) {
+  __shared__ float part[kRowsPerBlock][kRowWarps];
+  const int t = threadIdx.x % kRowThreads;
+  const int row_in_block = threadIdx.x / kRowThreads;
+  const int64_t n_blocks = (R + kRowsPerBlock - 1) / kRowsPerBlock;
+  for (int64_t b = blockIdx.x; b < n_blocks; b += gridDim.x) {  // uniform over the block
+    const int64_t r = b * kRowsPerBlock + row_in_block;
+    const bool live = r < R;
+    float4 xv[kVecs], uv[kVecs];
+    float m = 0.0f;
+    if (live) {
+      const float4* xr = reinterpret_cast<const float4*>(x + r * kRow);
+      const float4* ur = reinterpret_cast<const float4*>(u + r * kRow);
+#pragma unroll
+      for (int k = 0; k < kVecs; ++k) {
+        xv[k] = xr[t + k * kRowThreads];
+        uv[k] = ur[t + k * kRowThreads];
+      }
+#pragma unroll
+      for (int k = 0; k < kVecs; ++k) m = absmax4(m, xv[k]);
+    }
+#pragma unroll
+    for (int off = (kRowThreads < kWarp ? kRowThreads : kWarp) / 2; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if constexpr (kRowWarps > 1) {
+      if (threadIdx.x % kWarp == 0) part[row_in_block][t / kWarp] = m;
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kRowWarps; ++i) m = fmaxf(m, part[row_in_block][i]);
+      __syncthreads();  // part is rewritten by the next row block
+    }
+    const float s = fmaxf(__fmul_rn(m, inv_levels), 1e-12f);
+    if (live) {
+      char4* qr = reinterpret_cast<char4*>(q + r * kRow);
+#pragma unroll
+      for (int k = 0; k < kVecs; ++k)
+        qr[t + k * kRowThreads] = make_char4(lattice(xv[k].x, uv[k].x, s), lattice(xv[k].y, uv[k].y, s),
+                                             lattice(xv[k].z, uv[k].z, s), lattice(xv[k].w, uv[k].w, s));
+      if (t == 0) scale[r] = s;
+    }
+  }
+}
+
+// Any alignment: one warp a row, 4-byte loads, x and u in the same trip.
+__global__ void __launch_bounds__(kThreads)
+quantize_rows_scalar(const float* __restrict__ x, const float* __restrict__ u,
+                     int8_t* __restrict__ q, float* __restrict__ scale, int64_t R,
+                     float inv_levels) {
   const int lane = threadIdx.x % kWarp;
-  const int64_t warps = (int64_t)gridDim.x * kRowsPerBlock;
-  for (int64_t r = (int64_t)blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp; r < R;
+  const int64_t warps = (int64_t)gridDim.x * (kThreads / kWarp);
+  for (int64_t r = (int64_t)blockIdx.x * (kThreads / kWarp) + threadIdx.x / kWarp; r < R;
        r += warps) {
     const float* xr = x + r * kRow;
-    float v[kPerLane];
+    const float* ur = u + r * kRow;
+    float v[kPerLane], ru[kPerLane];
     float m = 0.0f;
 #pragma unroll
     for (int i = 0; i < kPerLane; ++i) {
       v[i] = xr[lane + i * kWarp];
-      m = fmaxf(m, fabsf(v[i]));
+      ru[i] = ur[lane + i * kWarp];
     }
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) m = fmaxf(m, fabsf(v[i]));
 #pragma unroll
     for (int off = kWarp / 2; off > 0; off >>= 1)
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
     const float s = fmaxf(__fmul_rn(m, inv_levels), 1e-12f);
-    const float* ur = u + r * kRow;
     int8_t* qr = q + r * kRow;
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      float f = floorf(__fadd_rn(__fdiv_rn(v[i], s), ur[lane + i * kWarp]));
-      f = fminf(fmaxf(f, -128.0f), 127.0f);
-      qr[lane + i * kWarp] = (int8_t)__float2int_rz(f);
-    }
+    for (int i = 0; i < kPerLane; ++i) qr[lane + i * kWarp] = lattice(v[i], ru[i], s);
     if (lane == 0) scale[r] = s;
   }
 }
@@ -97,8 +169,16 @@ unsigned blocks_for(int64_t units, int64_t per_block) {
 extern "C" int qsgd_quantize_f32(const float* x, const float* u, int8_t* q, float* scale,
                                  int64_t R, float inv_levels, void* stream) {
   if (R <= 0) return (int)cudaGetLastError();
-  quantize_rows<<<blocks_for(R, kRowsPerBlock), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(x, u, q, scale, R, inv_levels);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(q) % 4 == 0;
+  if (aligned)
+    quantize_rows<<<blocks_for(R, kRowsPerBlock), kQuantThreads, 0, st>>>(x, u, q, scale, R,
+                                                                        inv_levels);
+  else
+    quantize_rows_scalar<<<blocks_for(R, kThreads / kWarp), kThreads, 0, st>>>(x, u, q, scale, R,
+                                                                              inv_levels);
   return (int)cudaGetLastError();
 }
 

@@ -50,6 +50,22 @@ def tree_aggregate_groups_ref(grads: torch.Tensor, weights: torch.Tensor) -> tor
     return (grads.float() * weights.float()[:, :, None]).sum(dim=1)
 
 
+def tree_aggregate_groups_chain(grads: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``tree_aggregate_groups_ref`` as the CUDA kernel sums, bit for bit:
+    each output element is the chain ``acc = fma(w[g, c], x[g, c, l], acc)``
+    in c order from ``acc = 0``, every step rounded once (``fma_f32``).
+
+    (G, C, L) f32, bf16 or int8 x (G, C) -> (G, L) f32.  Exact on any
+    device; the kernels' check on the card, while the wrappers' CPU path
+    keeps ``tree_aggregate_groups_ref``.
+    """
+    x, w = grads.float(), weights.float()
+    acc = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32, device=x.device)
+    for c in range(x.shape[1]):
+        acc = fma_f32(w[:, c : c + 1], x[:, c], acc)
+    return acc
+
+
 def _lattice(xf: torch.Tensor, scale: torch.Tensor, rand: torch.Tensor) -> torch.Tensor:
     """``floor(x / scale + r)`` saturated into int8, as JAX's cast does."""
     return torch.floor(xf / scale + rand.float()).clamp_(-128.0, 127.0).to(torch.int8)

@@ -10,6 +10,10 @@ apply (QSGD lattice points, the row scales folded into the weights).  Dispatch g
 - a CUDA tensor launches ``csrc/tree_aggregate.cu`` (built for sm_90a at
   first use) or raises.
 
+The kernel sums each output element as one fused multiply-add chain in
+child order from zero, so it gives the bits of
+``ref.tree_aggregate_groups_chain`` at every block shape.
+
 Invariants kept from the reference: the kernel produces partial weighted
 *sums*, never means (normalisation happens once, at the tree root), and a
 zero-weight slot with a zero input adds an exact zero, so ragged groups pad
@@ -56,6 +60,12 @@ def _fn(dtype_tag: str):
         fn.restype = ctypes.c_int
         _fns[dtype_tag] = fn
     return fn
+
+
+def child_tile() -> int:
+    """The children whose loads one kernel thread keeps in flight together
+    (the CUDA kernel's ``kChildTile``; builds the kernel)."""
+    return int(_build.load("tree_aggregate").tree_aggregate_child_tile())
 
 
 def _check(grads: torch.Tensor, weights: torch.Tensor) -> None:

@@ -6,8 +6,9 @@ Run on a machine with a CUDA card:
 
 Whether a card is present is decided inside the ``cuda`` fixture, never
 at import, so every pytest worker collects the same tests; without a
-card each test skips with that reason.  Tolerance rtol = atol = 1e-5 for
-the f32 aggregation; the QSGD quantize, dequantize, chain-apply, fused
+card each test skips with that reason.  The aggregation gives the bits
+of ``ref.tree_aggregate_groups_chain`` (its fmaf chain) and lies within
+rtol = atol = 1e-5 of ``tree_aggregate_groups_ref``; the QSGD quantize, dequantize, chain-apply, fused
 update and policy update kernels must give the same bits as their plain
 versions (the policy update also the same rho and pi~ on every node).
 """
@@ -51,7 +52,77 @@ def test_kernel_matches_plain_version(cuda, G, C, L, dtype):
     torch.cuda.synchronize()
     assert ta.launches == before + 1
     assert out.dtype == torch.float32 and out.shape == (G, L)
+    assert torch.equal(out, ref.tree_aggregate_groups_chain(x, w))
     torch.testing.assert_close(out, ref.tree_aggregate_groups_ref(x, w), **TOL)
+
+
+def _level(G, C, L, dtype, device, seed, ragged=True):
+    """(G, C, L) children of ``dtype`` and (G, C) f32 weights; with
+    ``ragged``, group g keeps C - (g % C) real children, the rest zero rows
+    at zero weight.  int8 rows take the compressed apply's small weights."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if dtype == torch.int8:
+        x = torch.randint(-128, 128, (G, C, L), device=device, generator=gen, dtype=torch.int8)
+        w = torch.rand(G, C, device=device, generator=gen) * 1e-2
+    else:
+        x = torch.randn(G, C, L, device=device, generator=gen).to(dtype)
+        w = torch.rand(G, C, device=device, generator=gen)
+    if ragged and C > 1:
+        for g in range(min(G, C)):
+            x[g::C, C - g:] = 0
+            w[g::C, C - g:] = 0
+    return x, w
+
+
+def _check_level(x, w):
+    before = ta.launches
+    out = ta.tree_aggregate_groups(x, w)
+    torch.cuda.synchronize()
+    assert ta.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (x.shape[0], x.shape[2])
+    assert torch.equal(out, ref.tree_aggregate_groups_chain(x, w))
+    torch.testing.assert_close(out, ref.tree_aggregate_groups_ref(x, w), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("G", [1, 5])
+@pytest.mark.parametrize("children", ["tile-1", "tile", "tile+1", "2*tile+3", "64"])
+def test_kernel_bit_equal_to_chain_at_child_tile_edges(cuda, children, G, dtype):
+    """C around the kernel's child tile: the tail tile's masked loads and the
+    chain across tiles keep the c-ordered fmaf chain bit for bit."""
+    tile = ta.child_tile()
+    C = {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1, "2*tile+3": 2 * tile + 3,
+         "64": 64}[children]
+    _check_level(*_level(G, max(C, 1), 4096, dtype, cuda, seed=G * 100 + C))
+
+
+MAIN_PATH_LEVELS = [
+    # the quickstart MLP's sync levels (L = 6792), the CNN app's (L = 8848),
+    # the async apply (K = 4 commits), the compressed apply's int8 level
+    (3, 3, 6792, torch.float32), (7, 1, 6792, torch.float32), (9, 3, 6792, torch.float32),
+    (1, 12, 6792, torch.float32), (6, 1, 6792, torch.float32), (5, 1, 8848, torch.float32),
+    (7, 2, 8848, torch.float32), (8, 3, 8848, torch.float32), (1, 11, 8848, torch.float32),
+    (1, 4, 6792, torch.float32), (1, 16, 131072, torch.bfloat16), (1, 16, 131072, torch.float32),
+    (27, 4, 256, torch.int8), (27, 3, 256, torch.int8),
+    (29, 3, 256, torch.int8),  # 16-lane rows packed: a ragged last block
+    (5, 4, 333, torch.int8),   # L % 16 != 0: the scalar path
+    (4096, 4, 256, torch.int8),
+]
+
+
+@pytest.mark.parametrize("G,C,L,dtype", MAIN_PATH_LEVELS)
+def test_kernel_bit_equal_to_chain_at_main_path_levels(cuda, G, C, L, dtype):
+    _check_level(*_level(G, C, L, dtype, cuda, seed=G + C + L))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("G,C,L", [(2, 3, 1001), (3, 4, 256), (1, 12, 6792)])
+def test_misaligned_views_bit_equal_to_chain(cuda, G, C, L, dtype):
+    """A base one element past a 16-byte boundary takes the scalar path."""
+    x, w = _level(G, C, L + 1, dtype, cuda, seed=L)
+    view = x.reshape(-1)[1 : 1 + G * C * L].view(G, C, L)
+    assert view.data_ptr() % 16 != 0
+    _check_level(view, w)
 
 
 def test_misaligned_rows_take_the_scalar_path(cuda):
@@ -109,6 +180,32 @@ def test_quantize_kernel_bit_equal_to_plain_version(cuda, R, levels):
     assert torch.equal(s, rs) and torch.equal(q, rq)
     if levels == 127:
         assert int(q[0, 0]) == 127
+
+
+@pytest.mark.parametrize("levels", [127, 7, 3])
+@pytest.mark.parametrize("R", [1, 2, 3, 7, 8, 9, 27, 4096, 70001])
+def test_quantize_row_blocks_bit_equal_on_views(cuda, R, levels):
+    """Row counts around the kernel's rows per block (ragged last blocks),
+    with the row that saturates at 128 and the zero row, on the tensors as
+    allocated and on views one element (the scalar path) and four elements
+    (16-byte aligned, offset) into a larger buffer."""
+    x, u = _rows(R, cuda, seed=7 * R + levels)
+    rq, rs = ref.quantize_ref(x, u, levels=levels)
+    for shift in (0, 1, 4):
+        xb = torch.empty(R * 256 + shift, device=cuda)
+        ub = torch.empty(R * 256 + shift, device=cuda)
+        xv, uv = xb[shift:].view(R, 256), ub[shift:].view(R, 256)
+        xv.copy_(x)
+        uv.copy_(u)
+        before = qz.launches["qsgd_quantize"]
+        q, s = qz.qsgd_quantize(xv, uv, levels=levels)
+        torch.cuda.synchronize()
+        assert qz.launches["qsgd_quantize"] == before + 1
+        assert torch.equal(s, rs) and torch.equal(q, rq), f"shift {shift}"
+    if levels == 127:
+        assert int(q[0, 0]) == 127
+    if R > 1:  # the zero row: the 1e-12 floor, all-zero lattice points
+        assert not q[-1].any()
 
 
 @pytest.mark.parametrize("R", ROWS)
@@ -169,6 +266,7 @@ def test_int8_aggregate_equals_f32_path(cuda, G, C, L):
     torch.cuda.synchronize()
     assert ta.launches == before + 1
     assert torch.equal(out, ta.tree_aggregate_groups(q.float(), w))
+    assert torch.equal(out, ref.tree_aggregate_groups_chain(q, w))
     torch.testing.assert_close(out, ref.tree_aggregate_groups_ref(q, w), **TOL)
 
 

@@ -14,6 +14,7 @@ cast, one rounding per fused multiply-add).  The policy update is held
 within atol 1e-5 (tests/test_kernels.py's tolerance) on candidate sets
 without ties: XLA's f32 row sums have an order of their own.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,6 +149,60 @@ def test_tree_aggregate_pytree_matches_jax():
     )
     np.testing.assert_allclose(got["z"].numpy(), np.asarray(want["z"]), **TOL)
     np.testing.assert_allclose(got["y"]["q"].numpy(), np.asarray(want["y"]["q"]), **TOL)
+
+
+CHAIN_CASES = [
+    # (G, C, L, dtype, ragged)
+    (3, 5, 333, "f32", True),    # ragged groups: zero rows at zero weight
+    (4, 3, 256, "bf16", False),
+    (27, 4, 256, "i8", False),   # the compressed apply's level
+    (3, 4, 257, "i8", True),
+    (5, 1, 1029, "f32", False),  # C = 1
+    (2, 1, 64, "bf16", False),
+    (2, 17, 300, "f32", True),   # C = 17: a ragged fifth child tile of 4
+    (1, 17, 2048, "bf16", False),
+    (3, 17, 256, "i8", True),
+]
+
+
+def _chain_inputs(G, C, L, dtype, ragged, seed):
+    """The same (G, C, L) values in both frameworks and (G, C) f32 weights;
+    int8 lattices take the compressed apply's small weights."""
+    g, w = _groups(G, C, L, ragged, seed)
+    if dtype != "i8":
+        return (*_both(g, dtype), w)
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-128, 128, (G, C, L)).astype(np.int8)
+    q[g == 0] = 0  # the ragged slots' zero rows
+    w = (w * 1e-2).astype(np.float32)
+    return jnp.asarray(q), torch.from_numpy(q), w
+
+
+@pytest.mark.parametrize("G,C,L,dtype,ragged", CHAIN_CASES)
+def test_tree_aggregate_groups_chain_matches_jax_and_plain(G, C, L, dtype, ragged):
+    """The kernel's exact chain agrees with the JAX package's compiled
+    einsum and with the plain version within the f32 reduction tolerance."""
+    jg, tg, w = _chain_inputs(G, C, L, dtype, ragged, seed=G * 1000 + C * 10 + L)
+    got = tref.tree_aggregate_groups_chain(tg, torch.from_numpy(w))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (G, L)
+    want = np.asarray(jta.tree_aggregate_groups_jnp(jg, jnp.asarray(w)))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    torch.testing.assert_close(got, tref.tree_aggregate_groups_ref(tg, torch.from_numpy(w)), **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "i8"])
+def test_tree_aggregate_groups_chain_is_exact(dtype):
+    """C = 1 is one rounded product; zero-weight padding slots change no
+    bit; int8 gives the bits of its f32 widening."""
+    _, tg, w = _chain_inputs(4, 5, 129, dtype, False, seed=9)
+    tw = torch.from_numpy(w)
+    one = tref.tree_aggregate_groups_chain(tg[:, :1], tw[:, :1])
+    assert torch.equal(one, tg[:, 0].float() * tw[:, :1])
+    padded = torch.cat([tg, torch.zeros_like(tg[:, :3])], dim=1)
+    tw_padded = torch.cat([tw, torch.zeros(4, 3)], dim=1)
+    chain = tref.tree_aggregate_groups_chain(tg, tw)
+    assert torch.equal(tref.tree_aggregate_groups_chain(padded, tw_padded), chain)
+    assert torch.equal(tref.tree_aggregate_groups_chain(tg.float(), tw), chain)
 
 
 @pytest.mark.parametrize("n", [0, 1, 2, 3, 5, 17, 1024, 1025])
@@ -431,7 +486,10 @@ def test_fused_update_pytree_bit_exact_against_jax(jax_mode, lr, mu, wd, mix, do
                                   ("f",): "bf16"},
               "mixed": {("b",): "bf16", ("c", "d"): "bf16"}}[mix]
     p, g, p0 = (_tree(TREE_SHAPES, rng, dtypes) for _ in range(3))
-    want = jops.fused_update_pytree(_to(p, "jax"), _to(g, "jax"), _to(p0, "jax"), lr=lr, mu=mu, wd=wd)
+    # JAX may read p's numpy buffers in place and computes asynchronously;
+    # the torch leaves share those buffers, so wait before donate writes them
+    want = jax.block_until_ready(
+        jops.fused_update_pytree(_to(p, "jax"), _to(g, "jax"), _to(p0, "jax"), lr=lr, mu=mu, wd=wd))
     tp = _to(p, "torch")
     got = tops.fused_update_pytree(tp, _to(g, "torch"), _to(p0, "torch"), lr=lr, mu=mu, wd=wd, donate=donate)
     if donate:

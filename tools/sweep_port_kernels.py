@@ -1,8 +1,33 @@
 #!/usr/bin/env python3
-"""Build variants of two of the port's CUDA kernels and time each on one card.
+"""Build variants of four of the port's CUDA kernels and time each on one card.
 
-    python3 tools/sweep_port_kernels.py
+    python3 tools/sweep_port_kernels.py [tree_aggregate] [quantize] [fused_update] [policy_update]
 
+(no argument: all four).
+
+- ``tree_aggregate_groups`` (``csrc/tree_aggregate.cu``) at (design, child
+  tile, most and fewest threads per block, blocks a level should span) in
+  VARIANTS_AGG.  Design "a" is the committed one (a tile's loads into
+  registers, then its fmaf chain); "b" stages each tile through a shared
+  memory slab with ``cp.async`` (DESIGN_B), vector paths only; "c" issues
+  the next tile's loads before a tile's chain (DESIGN_C); "d" runs a tile
+  of n < CT children as straight-line code for exactly n, chosen by a
+  uniform branch, with no predicated loads (DESIGN_D); "e" is "a" with a
+  running child pointer that the compiler may not fold back into (c0 +
+  j) * L products (DESIGN_E); "f" is "d" with that pointer (DESIGN_F).
+  A child tile of 1 with 256 threads always and 16-byte int8 loads is the
+  former one-child-at-a-time kernel's schedule.  Each variant is held bit-equal to
+  ``ref.tree_aggregate_groups_chain`` at every main-path level and at C
+  around its tile, then timed at every main-path f32 level (the sync
+  quickstart's and CNN's, the async apply's (1, 4, 6792)), in turns with
+  ``torch.einsum`` (a b b a), at the bench's (1, 16, 131072) and (1, 16,
+  2^22) f32, and at the compressed apply's int8 (27, 4, 256) and the
+  bench's (4096, 4, 256) (groups per block reported; int8 rows also at 16-
+  and 4-byte loads, I8_SPEC);
+- ``qsgd_quantize`` (``csrc/quantize.cu``) at (threads per row, rows per
+  block) in VARIANTS_QUANT, bit-equal at R in (1, 27, 4096, 70001) x levels
+  (127, 3), timed at the path's R = 27 and the bench's 4096 beside
+  ``qsgd_dequantize`` at R = 27;
 - ``fused_update`` (``csrc/fused_update.cu``) at (threads per block,
   16-byte loads per thread and operand, leaves a launch's parameter table
   holds) in VARIANTS_FUSED: at 2^24 f32
@@ -15,10 +40,11 @@
   resident waves, 0 meaning one block per 8 nodes) in VARIANTS_POLICY, at
   the planners' shapes on all-ones and partial masks.
 
-Each variant is the committed source with one constant changed, built by
-nvcc with the port's flags into ``build/sweep/``, checked bit-equal to the
-plain version, and called through the port's own wrapper.  One JSON line
-per variant; the card's name and power limit first.  Needs a CUDA card.
+Each variant is the committed source with its constants changed, built
+by nvcc with the port's flags into ``build/sweep/`` (all of a kernel's
+variants at once), checked bit-equal to the plain version, and called
+through the port's own wrapper.  One JSON line per variant; the card's
+name and power limit first.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -36,13 +62,202 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 VARIANTS_FUSED = [(256, 1, 64), (256, 1, 8), (128, 1, 64), (512, 1, 64), (128, 2, 64), (256, 2, 64),
                   (128, 4, 64)]
 VARIANTS_POLICY = [(4, 1), (1, 1), (4, 2), (4, 0)]
+# (design, child tile, max threads, min threads, target blocks, int8 bytes per load);
+# the first is the committed one
+VARIANTS_AGG = [("a", 4, 256, 64, 132, 8), ("a", 4, 256, 64, 132, 16), ("a", 4, 256, 64, 132, 4),
+                ("a", 4, 256, 32, 132, 8), ("a", 4, 256, 256, 1, 8), ("a", 2, 256, 64, 132, 8),
+                ("a", 6, 256, 64, 132, 8), ("a", 8, 256, 64, 132, 8), ("a", 1, 256, 256, 1, 16),
+                ("b", 4, 256, 64, 132, 8), ("b", 8, 256, 64, 132, 8), ("c", 4, 256, 64, 132, 8),
+                ("d", 4, 256, 64, 132, 8), ("d", 12, 256, 64, 132, 8), ("e", 4, 256, 64, 132, 8),
+                ("e", 12, 256, 64, 132, 8), ("f", 4, 256, 64, 132, 8), ("f", 12, 256, 64, 132, 8)]
+# (threads per row, rows per block); the first is the committed one
+VARIANTS_QUANT = [(64, 2), (64, 1), (64, 4), (32, 1), (32, 2), (32, 4), (32, 8), (16, 2), (16, 4)]
+AGG_LEVELS = [(3, 3, 6792), (7, 1, 6792), (9, 3, 6792), (1, 12, 6792), (6, 1, 6792), (5, 1, 8848),
+              (7, 2, 8848), (8, 3, 8848), (1, 11, 8848), (1, 4, 6792)]
 MLP_STEP = [1024, 1024, 128, 32768, 65536, 8192]
 CNN_STEP = [2304, 73728, 65536]
+DESIGN_B = """// One tile of up to CT children staged through shared memory (design b):
+// cp.async copies each of the thread's vectors into its own slot of
+// a (CT, threads) slab, one wait, then the fmaf chain reads them back.
+template <typename T, int V, int CT>
+__device__ __forceinline__ void tile_sum(float (&acc)[V], const T* __restrict__ xp,
+                                         const float* __restrict__ wp, int64_t L, int64_t n) {
+  using VT = Vec<T, V>;
+  float wc[CT];
+  if constexpr (V == 1) {
+    typename VT::Raw raw[CT];
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+      if (j < n) { raw[j] = VT::load(xp + j * L); wc[j] = __ldg(wp + j); }
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+      if (j < n) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[k] = fmaf(wc[j], VT::get(raw[j], k), acc[k]);
+      }
+  } else {
+    __shared__ typename VT::Raw slab[CT][kMaxThreads];
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+      if (j < n) {
+        const unsigned dst = (unsigned)__cvta_generic_to_shared(&slab[j][threadIdx.x]);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\\n"
+                     :: "r"(dst), "l"(xp + j * L), "n"(sizeof(typename VT::Raw)));
+        wc[j] = __ldg(wp + j);
+      }
+    asm volatile("cp.async.commit_group;\\n" ::);
+    asm volatile("cp.async.wait_group 0;\\n" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+      if (j < n) {
+        const typename VT::Raw r = slab[j][threadIdx.x];
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[k] = fmaf(wc[j], VT::get(r, k), acc[k]);
+      }
+  }
+}
+
+"""
+
+DESIGN_D = """// One tile of up to CT children without predicates (design d): a uniform
+// branch on the tile's child count picks straight-line code for exactly n.
+template <typename T, int V, int N>
+__device__ __forceinline__ void tile_exact(float (&acc)[V], const T* __restrict__ xp,
+                                           const float* __restrict__ wp, int64_t L) {
+  using VT = Vec<T, V>;
+  typename VT::Raw raw[N];
+  float wc[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    raw[j] = VT::load(xp + j * L);
+    wc[j] = __ldg(wp + j);
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] = fmaf(wc[j], VT::get(raw[j], k), acc[k]);
+  }
+}
+
+template <typename T, int V, int CT>
+__device__ __forceinline__ void tile_sum(float (&acc)[V], const T* __restrict__ xp,
+                                         const float* __restrict__ wp, int64_t L, int64_t n) {
+  if constexpr (CT > 1) {
+    if (n < CT) {
+      tile_sum<T, V, CT - 1>(acc, xp, wp, L, n);
+      return;
+    }
+  }
+  tile_exact<T, V, CT>(acc, xp, wp, L);
+}
+
+"""
+DESIGN_E = """// One tile of up to CT children, addressed by a running pointer (design
+// e): one 64-bit add a child, kept opaque to the compiler so that it does
+// not rebuild each address as a (c0 + j) * L product; read-only loads.
+template <typename P>
+__device__ __forceinline__ P opaque(P p) {
+  uintptr_t u = reinterpret_cast<uintptr_t>(p);
+  asm("" : "+l"(u));
+  return reinterpret_cast<P>(u);
+}
+
+template <typename T, int V, int CT>
+__device__ __forceinline__ void tile_sum(float (&acc)[V], const T* __restrict__ xp,
+                                         const float* __restrict__ wp, int64_t L, int64_t n) {
+  using VT = Vec<T, V>;
+  typename VT::Raw raw[CT];
+  float wc[CT];
+#pragma unroll
+  for (int j = 0; j < CT; ++j) {
+    if (j < n) {
+      raw[j] = __ldg(reinterpret_cast<const typename VT::Raw*>(xp));
+      wc[j] = __ldg(wp + j);
+    }
+    xp = opaque(xp + L);
+  }
+#pragma unroll
+  for (int j = 0; j < CT; ++j) {
+    if (j < n) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[k] = fmaf(wc[j], VT::get(raw[j], k), acc[k]);
+    }
+  }
+}
+
+"""
+DESIGN_F = """// Exact-count tiles (design d) addressed by a running pointer (design e).
+template <typename P>
+__device__ __forceinline__ P opaque(P p) {
+  uintptr_t u = reinterpret_cast<uintptr_t>(p);
+  asm("" : "+l"(u));
+  return reinterpret_cast<P>(u);
+}
+
+template <typename T, int V, int N>
+__device__ __forceinline__ void tile_exact(float (&acc)[V], const T* __restrict__ xp,
+                                           const float* __restrict__ wp, int64_t L) {
+  using VT = Vec<T, V>;
+  typename VT::Raw raw[N];
+  float wc[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    raw[j] = __ldg(reinterpret_cast<const typename VT::Raw*>(xp));
+    wc[j] = __ldg(wp + j);
+    xp = opaque(xp + L);
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] = fmaf(wc[j], VT::get(raw[j], k), acc[k]);
+  }
+}
+
+template <typename T, int V, int CT>
+__device__ __forceinline__ void tile_sum(float (&acc)[V], const T* __restrict__ xp,
+                                         const float* __restrict__ wp, int64_t L, int64_t n) {
+  if constexpr (CT > 1) {
+    if (n < CT) {
+      tile_sum<T, V, CT - 1>(acc, xp, wp, L, n);
+      return;
+    }
+  }
+  tile_exact<T, V, CT>(acc, xp, wp, L);
+}
+
+"""
+DESIGN_C = """// The chain over all C children, software-pipelined (design c): the next
+// tile's loads are issued before this tile's fmaf chain.
+template <typename T, int V, int CT>
+__device__ __forceinline__ void chain_sum(float (&acc)[V], const T* __restrict__ xp,
+                                          const float* __restrict__ wp, int64_t L, int64_t C) {
+  using VT = Vec<T, V>;
+  typename VT::Raw cur[CT], nxt[CT];
+  float wcur[CT], wnxt[CT];
+#pragma unroll
+  for (int j = 0; j < CT; ++j)
+    if (j < C) { cur[j] = VT::load(xp + j * L); wcur[j] = __ldg(wp + j); }
+  for (int64_t c0 = 0; c0 < C; c0 += CT) {
+    const int64_t n = C - c0;
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+      if (CT + j < n) { nxt[j] = VT::load(xp + (c0 + CT + j) * L); wnxt[j] = __ldg(wp + c0 + CT + j); }
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+      if (j < n) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[k] = fmaf(wcur[j], VT::get(cur[j], k), acc[k]);
+      }
+#pragma unroll
+    for (int j = 0; j < CT; ++j) { cur[j] = nxt[j]; wcur[j] = wnxt[j]; }
+  }
+}
+
+"""
 
 
-def build(name: str, tag: str, edits: dict) -> str:
-    """The committed csrc/<name>.cu with ``edits`` (old -> new) applied,
-    built into build/sweep/lib<name>-<tag>.so; returns its path."""
+def edited(name: str, edits: dict) -> str:
+    """The committed csrc/<name>.cu with ``edits`` (old -> new) applied."""
     from repro_torch.kernels import _build
 
     src = (_build.CSRC / f"{name}.cu").read_text()
@@ -50,14 +265,165 @@ def build(name: str, tag: str, edits: dict) -> str:
         if old not in src:
             raise SystemExit(f"{name}.cu no longer holds {old!r}")
         src = src.replace(old, new)
+    return src
+
+
+def build_sources(name: str, sources: dict) -> dict:
+    """Each variant source (tag -> text) built into build/sweep/<name>-<tag>.so
+    by its own nvcc, all started together; returns tag -> path."""
+    from repro_torch.kernels import _build
+
     out_dir = os.path.join(ROOT, "build", "sweep")
     os.makedirs(out_dir, exist_ok=True)
-    cu, so = (os.path.join(out_dir, f"{name}-{tag}{ext}") for ext in (".cu", ".so"))
-    with open(cu, "w") as f:
-        f.write(src)
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, cu], check=True,
-                   capture_output=True, text=True)
-    return so
+    procs = {}
+    for tag, src in sources.items():
+        cu, so = (os.path.join(out_dir, f"{name}-{tag}{ext}") for ext in (".cu", ".so"))
+        with open(cu, "w") as f:
+            f.write(src)
+        procs[tag] = (so, subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, cu],
+                                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for tag, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name}-{tag}: {log}")
+    if failed:
+        raise SystemExit("nvcc failed on " + "\n".join(failed))
+    return {tag: so for tag, (so, _) in procs.items()}
+
+
+def build(name: str, tag: str, edits: dict) -> str:
+    """One variant: ``edited`` source built by ``build_sources``; its path."""
+    return build_sources(name, {tag: edited(name, edits)})[tag]
+
+
+I8_VEC = {4: "int", 16: "int4"}  # int8 vectors the committed source (8 bytes) does not hold
+I8_SPEC = """template <>
+struct Vec<int8_t, {n}> {{
+  using Raw = {raw};
+  __device__ static Raw load(const int8_t* p) {{ return *reinterpret_cast<const {raw}*>(p); }}
+  __device__ static float get(const Raw& r, int k) {{
+    return (float)reinterpret_cast<const signed char*>(&r)[k];
+  }}
+}};
+
+"""
+
+
+def agg_source(design: str, tile: int, max_threads: int, min_threads: int, target: int,
+               i8_bytes: int) -> str:
+    edits = {
+        "constexpr int kChildTile = 4;": f"constexpr int kChildTile = {tile};",
+        "constexpr int kMaxThreads = 256;": f"constexpr int kMaxThreads = {max_threads};",
+        "constexpr int kMinThreads = 64;": f"constexpr int kMinThreads = {min_threads};",
+        "constexpr int kTargetBlocks = 132;": f"constexpr int kTargetBlocks = {target};",
+    }
+    if i8_bytes != 8:  # other int8 loads: other lanes per 256-element row
+        store = "template <int V>\n__device__ __forceinline__ void store("
+        edits[store] = I8_SPEC.format(n=i8_bytes, raw=I8_VEC[i8_bytes]) + store
+        edits["launch<int8_t, 8>("] = f"launch<int8_t, {i8_bytes}>("
+    src = edited("tree_aggregate", edits)
+    if design == "b":
+        a, b = src.index("// One tile of up to CT children"), src.index("// The chain over all C")
+        src = src[:a] + DESIGN_B + src[b:]
+    if design == "e":
+        a, b = src.index("// One tile of up to CT children"), src.index("// The chain over all C")
+        src = src[:a] + DESIGN_E + src[b:]
+    if design == "f":
+        a, b = src.index("// One tile of up to CT children"), src.index("// The chain over all C")
+        src = src[:a] + DESIGN_F + src[b:]
+    if design == "d":
+        a, b = src.index("// One tile of up to CT children"), src.index("// The chain over all C")
+        src = src[:a] + DESIGN_D + src[b:]
+    if design == "c":
+        a, b = src.index("// The chain over all C"), src.index("// Block = (blockDim.x")
+        src = src[:a] + DESIGN_C + src[b:]
+    return src
+
+
+def agg_layout(G: int, n_vec: int, max_threads: int, min_threads: int, target: int):
+    """The entry point's block choice: (threads, rows per block, blocks)."""
+    def shape(threads):
+        p = 1
+        while p < threads and p < n_vec:
+            p *= 2
+        rows = threads // p
+        return threads, rows, -(-G // rows) * min(-(-n_vec // p), 65535)
+
+    s = shape(max_threads)
+    while s[0] > min_threads and s[2] < target:
+        s = shape(s[0] // 2)
+    return s
+
+
+def agg_inputs(torch, G, C, L, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if dtype == torch.int8:
+        x = torch.randint(-128, 128, (G, C, L), device="cuda", generator=gen, dtype=dtype)
+        return x, torch.rand(G, C, device="cuda", generator=gen) * 1e-2
+    return (torch.randn(G, C, L, device="cuda", generator=gen).to(dtype),
+            torch.rand(G, C, device="cuda", generator=gen))
+
+
+def agg_variant(torch, ta, ref, cs, so: str, spec: tuple) -> dict:
+    design, tile, max_threads, min_threads, target, i8_bytes = spec
+    lib = ctypes.CDLL(so)
+    for tag in ("f32", "bf16", "i8"):  # every call of this variant goes through the port's wrapper
+        fn = getattr(lib, f"tree_aggregate_groups_{tag}")
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        ta._fns[tag] = fn
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    checks = ([(*lv, f32) for lv in AGG_LEVELS]
+              + [(27, 4, 256, i8), (29, 3, 256, i8), (5, 4, 333, i8), (1, 16, 131072, bf16)]
+              + [(G, C, 4096, dt) for C in sorted({max(tile - 1, 1), tile, tile + 1, 2 * tile + 3, 64})
+                 for G in (1, 5) for dt in (f32, bf16, i8)])
+    for G, C, L, dtype in checks:
+        x, w = agg_inputs(torch, G, C, L, dtype, seed=G + C + L)
+        out = ta.tree_aggregate_groups(x, w)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref.tree_aggregate_groups_chain(x, w)):
+            raise SystemExit(f"tree_aggregate_groups variant {spec} differs from its chain at "
+                             f"{(G, C, L, dtype)}")
+    row = {"kernel": "tree_aggregate_groups", "design": design, "child_tile": tile,
+           "max_threads": max_threads, "min_threads": min_threads, "target_blocks": target,
+           "int8_bytes_per_load": i8_bytes}
+    for G, C, L in AGG_LEVELS + [(1, 16, 131072), (1, 16, 1 << 22)]:
+        x, w = agg_inputs(torch, G, C, L, f32, seed=1)
+        a, b = cs.abba_ms(torch, lambda: ta.tree_aggregate_groups(x, w),
+                          lambda: torch.einsum("gc,gcl->gl", w, x))
+        row[f"({G}, {C}, {L})"] = {"us": a * 1e3, "einsum_us": b * 1e3, "ratio": a / b,
+                                   "blocks": agg_layout(G, L // 4, max_threads, min_threads, target)}
+    for G in (27, 4096):
+        x, w = agg_inputs(torch, G, 4, 256, i8, seed=1)
+        threads, rows, blocks = agg_layout(G, 256 // i8_bytes, max_threads, min_threads, target)
+        row[f"({G}, 4, 256) int8"] = {
+            "us": cs.device_ms(torch, lambda: ta.tree_aggregate_groups(x, w)) * 1e3,
+            "threads": threads, "groups_per_block": rows, "blocks": blocks}
+    return row
+
+
+def quant_variant(torch, qz, ref, cs, so: str, spec: tuple) -> dict:
+    lib = ctypes.CDLL(so)
+    fq, fd = lib.qsgd_quantize_f32, lib.qsgd_dequantize_i8
+    fq.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_float, ctypes.c_void_p]
+    fd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    fq.restype = fd.restype = ctypes.c_int
+    qz._fns["qsgd_quantize_f32"], qz._fns["qsgd_dequantize_i8"] = fq, fd
+    for R in (1, 27, 4096, 70001):
+        for levels in (127, 3):
+            x, u = cs.qsgd_rows(torch, R, seed=R + levels)
+            q, s = qz.qsgd_quantize(x, u, levels=levels)
+            rq, rs = ref.quantize_ref(x, u, levels=levels)
+            if not (torch.equal(q, rq) and torch.equal(s, rs)):
+                raise SystemExit(f"qsgd_quantize variant {spec} differs at R={R} levels={levels}")
+    row = {"kernel": "qsgd_quantize", "threads_per_row": spec[0], "rows_per_block": spec[1]}
+    for R in (27, 4096):
+        x, u = cs.qsgd_rows(torch, R, seed=7)
+        row[f"R={R} us"] = cs.device_ms(torch, lambda: qz.qsgd_quantize(x, u)) * 1e3
+    q, s = qz.qsgd_quantize(*cs.qsgd_rows(torch, 27, seed=7))
+    row["dequantize R=27 us"] = cs.device_ms(torch, lambda: qz.qsgd_dequantize(q, s)) * 1e3
+    return row
 
 
 def fused_variant(torch, fu, ref, cs, threads: int, loads: int, leaves: int) -> dict:
@@ -128,13 +494,30 @@ def main() -> int:
     from repro_torch.core import pathplan
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import policy_update as pu
+    from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import ref
+    from repro_torch.kernels import tree_aggregate as ta
 
+    kernels = sys.argv[1:] or ["tree_aggregate", "quantize", "fused_update", "policy_update"]
     print(cs.nvidia_smi_line(), flush=True)
-    for threads, loads, leaves in VARIANTS_FUSED:
-        print(json.dumps(fused_variant(torch, fu, ref, cs, threads, loads, leaves)), flush=True)
-    for b, w in VARIANTS_POLICY:
-        print(json.dumps(policy_variant(torch, pu, ref, pathplan, cs, b, w)), flush=True)
+    if "tree_aggregate" in kernels:
+        sos = build_sources("tree_aggregate", {"-".join(map(str, v)): agg_source(*v)
+                                               for v in VARIANTS_AGG})
+        for v in VARIANTS_AGG:
+            print(json.dumps(agg_variant(torch, ta, ref, cs, sos["-".join(map(str, v))], v)), flush=True)
+    if "quantize" in kernels:
+        sos = build_sources("quantize", {f"r{t}-b{b}": edited("quantize", {
+            "constexpr int kRowThreads = 64;": f"constexpr int kRowThreads = {t};",
+            "constexpr int kRowsPerBlock = 2;": f"constexpr int kRowsPerBlock = {b};",
+        }) for t, b in VARIANTS_QUANT})
+        for t, b in VARIANTS_QUANT:
+            print(json.dumps(quant_variant(torch, qz, ref, cs, sos[f"r{t}-b{b}"], (t, b))), flush=True)
+    if "fused_update" in kernels:
+        for threads, loads, leaves in VARIANTS_FUSED:
+            print(json.dumps(fused_variant(torch, fu, ref, cs, threads, loads, leaves)), flush=True)
+    if "policy_update" in kernels:
+        for b, w in VARIANTS_POLICY:
+            print(json.dumps(policy_variant(torch, pu, ref, pathplan, cs, b, w)), flush=True)
     return 0
 
 
