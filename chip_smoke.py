@@ -14,9 +14,12 @@ the CPU):
    at ragged shapes, C=1, G=1 and the kernel bench's C=16, L=131072 in
    bf16 and f32, bit-equal to its fmaf chain (``ref.
    tree_aggregate_groups_chain``) and within TOL of the plain sum; QSGD
-   quantize (levels 127, 3, 7; a row that reaches 128 and a zero row),
-   dequantize and the broadcast chain apply (D = 1..3, and D-deep = D
-   single steps) bit-equal at R = 1, 27, 4096; the int8 aggregation
+   quantize without and with the EF residual (levels 127, 3, 7; a row that
+   reaches 128 and a zero row; the residual instance on a misaligned view
+   too, and its q and s equal to the other instance's), dequantize (C = 256,
+   300 and 7, a misaligned view) and the broadcast chain apply (D = 1..5,
+   D-deep = D single steps, misaligned views at D = 1 and 5) bit-equal at
+   R = 1, 27, 4096; the int8 aggregation
    bit-equal to its chain and to the f32 path on the widened input; the fused
    FedProx update bit-equal at L = 1, 1000, 2^17 (bf16 and f32) and 2^24,
    at (mu, wd) = (0, 0), (0.01, 0), (0.1, 0.01), in place and on a
@@ -38,8 +41,11 @@ the CPU):
    b. slice B: the quickstart app through ``run_async`` (12 applies,
       K = 4, staleness alpha 0.5, heterogeneous compute, churn) with
       QSGD-int8 commits under error feedback and delta-QSGD broadcasts
-      (levels 3, chain cap 3), then the same without compression; every
-      kernel call of the compressed card run is recorded and re-run
+      (levels 3, chain cap 3), then the same without compression, then 3
+      compressed applies with a ``downlink="qsgd-int8"`` broadcast (whose
+      dequantize is the only ``qsgd_dequantize`` call site a run reaches:
+      EF commits take their residual from the quantize launch); every
+      kernel call of the compressed card runs is recorded and re-run
       through the plain versions on the CPU (bit-equal; the aggregation
       to its chain); the same seeds
       on the CPU: identical event and churn traces, fp-tight losses and
@@ -67,7 +73,8 @@ the CPU):
    events) beside its bound, its plain version and one PyTorch call
    computing the same function where there is one (timed in turns, a b b
    a, with the fused update and with every f32 aggregation level: einsum),
-   at the main paths' shapes and at the kernel bench's; the fused update
+   at the main paths' shapes and at the kernel bench's (the QSGD kernels
+   and the chain apply also at 65,536 rows, past L2); the fused update
    on one local step's leaf table; the policy update on all-ones and
    partial masks; the round and apply times on the
    host clock; the host time of a planner episode at N = 128 and 10,000;
@@ -110,6 +117,7 @@ PATH_TOL = {"rtol": 1e-4, "atol": 1e-5}
 ASYNC_LOSS_ATOL = 5e-3
 PERTURB = 1e-5
 ASYNC_APPLIES = 12
+QSGD_DOWNLINK_APPLIES = 3
 # planner, card vs CPU.  Both runs draw the same uniforms (a CPU generator)
 # and every step of the game is an IEEE-exact f32 operation or an f64 sum of
 # few f32 terms, except the logs of line 5, which only pick the argmin among
@@ -163,7 +171,7 @@ KERNELS = [
         "replaces": "src/repro/kernels/policy_update.py:60",
     },
 ]
-COUNTED = ("tree_aggregate_groups", "qsgd_quantize", "qsgd_dequantize",
+COUNTED = ("tree_aggregate_groups", "qsgd_quantize", "qsgd_quantize_residual", "qsgd_dequantize",
            "apply_quantized_broadcast", "fused_update", "policy_update")
 
 
@@ -225,8 +233,7 @@ def counts() -> dict:
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import tree_aggregate as ta
 
-    return {"tree_aggregate_groups": ta.launches, "qsgd_quantize": qz.launches["qsgd_quantize"],
-            "qsgd_dequantize": qz.launches["qsgd_dequantize"],
+    return {"tree_aggregate_groups": ta.launches, **qz.launches,
             "apply_quantized_broadcast": bc.launches, "fused_update": fu.launches,
             "policy_update": pu.launches}
 
@@ -239,8 +246,8 @@ def set_counts(c: dict) -> None:
     from repro_torch.kernels import tree_aggregate as ta
 
     ta.launches = c["tree_aggregate_groups"]
-    qz.launches["qsgd_quantize"] = c["qsgd_quantize"]
-    qz.launches["qsgd_dequantize"] = c["qsgd_dequantize"]
+    for name in qz.launches:
+        qz.launches[name] = c[name]
     bc.launches = c["apply_quantized_broadcast"]
     fu.launches = c["fused_update"]
     pu.launches = c["policy_update"]
@@ -272,11 +279,20 @@ def qsgd_rows(torch, R: int, seed: int):
     return x, u
 
 
+def offset_view(torch, t, shift: int):
+    """A copy of ``t`` as a view ``shift`` elements into a larger buffer."""
+    buf = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+    view = buf[shift:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def check_compression_kernels(torch, qz, bc, ta, ref) -> dict:
-    """QSGD quantize, dequantize and the chain apply bit-equal to their plain
-    versions; the int8 aggregation bit-equal to the f32 path on q.float()
-    and within TOL of its plain version.  Returns max |err| per kernel."""
-    errs = {"qsgd_quantize": 0.0, "qsgd_dequantize": 0.0,
+    """QSGD quantize (both instances), dequantize and the chain apply
+    bit-equal to their plain versions, vector and scalar paths; the int8
+    aggregation bit-equal to the f32 path on q.float() and within TOL of
+    its plain version.  Returns max |err| per kernel."""
+    errs = {"qsgd_quantize": 0.0, "qsgd_quantize_residual": 0.0, "qsgd_dequantize": 0.0,
             "apply_quantized_broadcast": 0.0, "tree_aggregate_groups_int8": 0.0}
 
     def note(name, ok, err, what):
@@ -285,14 +301,17 @@ def check_compression_kernels(torch, qz, bc, ta, ref) -> dict:
         if not ok:
             raise SystemExit(f"{name} disagrees with its plain version at {what}")
 
+    def diff(a, b) -> float:
+        return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
     gen = torch.Generator(device="cuda").manual_seed(3)
     for R in (1, 27, 4096):
         for levels in (127, 3, 7):
             x, u = qsgd_rows(torch, R, seed=R * 131 + levels)
             q, s = qz.qsgd_quantize(x, u, levels=levels)
             torch.cuda.synchronize()
-            rq, rs = ref.quantize_ref(x, u, levels=levels)
-            err = max(float((q.int() - rq.int()).abs().max()), float((s - rs).abs().max()))
+            rq, rs, rr = ref.quantize_residual_ref(x, u, levels=levels)
+            err = max(diff(q, rq), diff(s, rs))
             raw = float(torch.floor(x[0, 0] / s[0, 0] + u[0, 0]))
             ok = torch.equal(q, rq) and torch.equal(s, rs)
             if levels == 127:  # the row that overflows a wrapping cast saturates
@@ -300,25 +319,42 @@ def check_compression_kernels(torch, qz, bc, ta, ref) -> dict:
             note("qsgd_quantize", ok, err,
                  f"R={R} levels={levels} bit-equal (row 0: floor={raw:.0f} -> q={int(q[0, 0])}; "
                  f"last row scale={float(s[-1, 0]):.3e})")
-        q = torch.randint(-128, 128, (R, 256), device="cuda", generator=gen, dtype=torch.int8)
-        s = torch.rand(R, 1, device="cuda", generator=gen) * 0.1
-        out = qz.qsgd_dequantize(q, s)
-        torch.cuda.synchronize()
-        want = ref.dequantize_ref(q, s)
-        note("qsgd_dequantize", torch.equal(out, want), float((out - want).abs().max()),
-             f"R={R} bit-equal")
-        for D in (1, 2, 3):
-            w = torch.randn(R, 256, device="cuda", generator=gen)
-            qc = torch.randint(-127, 128, (D, R, 256), device="cuda", generator=gen, dtype=torch.int8)
-            sc = torch.rand(D, R, 1, device="cuda", generator=gen) * 0.05
-            out = bc.apply_quantized_broadcast(w, qc, sc)
-            step = w
-            for d in range(D):
-                step = bc.apply_quantized_broadcast(step, qc[d : d + 1], sc[d : d + 1])
+            for shift in (0, 1):  # 1: a 4-byte offset, the scalar kernel
+                xv, uv = (offset_view(torch, t, shift) if shift else t for t in (x, u))
+                q2, s2, r2 = qz.qsgd_quantize_residual(xv, uv, levels=levels)
+                torch.cuda.synchronize()
+                ok = (torch.equal(q2, rq) and torch.equal(s2, rs) and torch.equal(r2, rr)
+                      and torch.equal(q2, q) and torch.equal(s2, s))
+                if R > 1:  # the zero row: no lattice point, no residual
+                    ok = ok and not q2[-1].any() and not r2[-1].any()
+                note("qsgd_quantize_residual", ok, max(diff(r2, rr), diff(q2, rq)),
+                     f"R={R} levels={levels} offset={shift} q, s, residual bit-equal; q and s "
+                     f"= the no-residual instance's")
+        for C, shift in ((256, 0), (256, 1), (300, 0), (7, 0)):  # 1: a 1-byte offset
+            q = torch.randint(-128, 128, (R, C), device="cuda", generator=gen, dtype=torch.int8)
+            s = torch.rand(R, 1, device="cuda", generator=gen) * 0.1
+            qv = offset_view(torch, q, shift) if shift else q
+            out = qz.qsgd_dequantize(qv, s)
             torch.cuda.synchronize()
-            want = ref.apply_quantized_ref(w, qc, sc)
-            note("apply_quantized_broadcast", torch.equal(out, want) and torch.equal(out, step),
-                 float((out - want).abs().max()), f"R={R} D={D} bit-equal, = {D} single steps")
+            want = ref.dequantize_ref(q, s)
+            note("qsgd_dequantize", torch.equal(out, want), diff(out, want),
+                 f"R={R} C={C} offset={shift} bit-equal")
+        for D in (1, 2, 3, 4, 5):
+            for shift in ((0, 0), (1, 3)) if D in (1, 5) else ((0, 0),):  # w, q offsets
+                w = torch.randn(R, 256, device="cuda", generator=gen)
+                qc = torch.randint(-127, 128, (D, R, 256), device="cuda", generator=gen,
+                                   dtype=torch.int8)
+                sc = torch.rand(D, R, 1, device="cuda", generator=gen) * 0.05
+                wv = offset_view(torch, w, shift[0]) if shift[0] else w
+                qv = offset_view(torch, qc, shift[1]) if shift[1] else qc
+                out = bc.apply_quantized_broadcast(wv, qv, sc)
+                step = wv
+                for d in range(D):
+                    step = bc.apply_quantized_broadcast(step, qv[d : d + 1], sc[d : d + 1])
+                torch.cuda.synchronize()
+                want = ref.apply_quantized_ref(w, qc, sc)
+                note("apply_quantized_broadcast", torch.equal(out, want) and torch.equal(out, step),
+                     diff(out, want), f"R={R} D={D} offsets={shift} bit-equal, = {D} single steps")
     for G, C, L in ((27, 4, 256), (27, 3, 256), (29, 3, 256), (4096, 4, 256), (3, 5, 333),
                     (1, 16, 131072)):
         q = torch.randint(-128, 128, (G, C, L), device="cuda", generator=gen, dtype=torch.int8)
@@ -673,8 +709,8 @@ class Recorder:
     """Wraps the kernel wrappers of ``repro_torch.kernels.ops`` for one run:
     every call's inputs and outputs, copied to the host, in call order."""
 
-    NAMES = ("qsgd_quantize", "qsgd_dequantize", "apply_quantized_broadcast",
-             "tree_aggregate_groups")
+    NAMES = ("qsgd_quantize", "qsgd_quantize_residual", "qsgd_dequantize",
+             "apply_quantized_broadcast", "tree_aggregate_groups")
 
     def __init__(self):
         self.calls = {n: [] for n in self.NAMES}
@@ -701,10 +737,12 @@ class Recorder:
 
 
 def drive_async(device: str, compressed: bool, *, record: bool = False,
-                perturb: float = 0.0, placement=None) -> dict:
+                perturb: float = 0.0, placement=None, downlink: str = "delta-qsgd",
+                applies: int = ASYNC_APPLIES) -> dict:
     """Slice B: the quickstart app through ``run_async`` on ``device``;
     ``perturb`` scales each start weight by (1 + perturb * N(0, 1));
-    ``placement`` is passed on (slice C's live re-placement)."""
+    ``placement`` is passed on (slice C's live re-placement); ``downlink``
+    is the compressed policy's broadcast kind."""
     import torch
 
     from repro_torch.convert import params_to_numpy
@@ -720,12 +758,12 @@ def drive_async(device: str, compressed: bool, *, record: bool = False,
     L = sum(int(v.numel()) for v in app.params.values())
     policy = None
     if compressed:  # bench_fairness.downlink_compare's policy, with EF on
-        policy = CompressionPolicy(kind="qsgd-int8", error_feedback=True, downlink="delta-qsgd",
+        policy = CompressionPolicy(kind="qsgd-int8", error_feedback=True, downlink=downlink,
                                    downlink_levels=3, chain_cap=3)
     recorder = Recorder()
     with recorder if record else nullcontext(), TrainingTally() as tally, AggShapes() as agg:
         res = async_engine.run_async(
-            system, [app], applies=ASYNC_APPLIES, buffer_k=4, staleness_alpha=0.5,
+            system, [app], applies=applies, buffer_k=4, staleness_alpha=0.5,
             model_bytes=4.0 * L,
             compute_ms=async_engine.worker_compute_fn(base_ms=40, spread=6, seed=0),
             churn=ChurnModel(period_ms=500, downtime_ms=1500, seed=0, max_fail_events=2),
@@ -750,13 +788,18 @@ def drive_async(device: str, compressed: bool, *, record: bool = False,
 
 def replay_on_cpu(torch, ref, calls) -> dict:
     """Every recorded kernel call of a card run, re-run through its plain
-    version on the CPU: quantize, dequantize and chain apply bit-equal, the
-    int8 aggregation bit-equal to its fmaf chain and within TOL of the plain
-    sum.  Returns the number of calls of each."""
+    version on the CPU: quantize (both instances: the EF residual too),
+    dequantize and chain apply bit-equal, the int8 aggregation bit-equal to
+    its fmaf chain and within TOL of the plain sum.  Returns the number of
+    calls of each."""
     for (x, u), kw, (q, s) in calls["qsgd_quantize"]:
         rq, rs = ref.quantize_ref(x, u, levels=kw["levels"])
         if not (torch.equal(q, rq) and torch.equal(s, rs)):
             raise SystemExit(f"replay: qsgd_quantize (levels {kw['levels']}) differs from the card")
+    for (x, u), kw, out in calls["qsgd_quantize_residual"]:
+        if not all(map(torch.equal, out, ref.quantize_residual_ref(x, u, levels=kw["levels"]))):
+            raise SystemExit(f"replay: qsgd_quantize_residual (levels {kw['levels']}) differs "
+                             f"from the card")
     for (q, s), _, out in calls["qsgd_dequantize"]:
         if not torch.equal(out, ref.dequantize_ref(q, s)):
             raise SystemExit("replay: qsgd_dequantize differs from the card")
@@ -772,18 +815,21 @@ def replay_on_cpu(torch, ref, calls) -> dict:
     return {k: len(v) for k, v in calls.items()}
 
 
-def async_launches_expected(run: dict, compressed: bool) -> dict:
+def async_launches_expected(run: dict, compressed: bool, downlink: str = "delta-qsgd") -> dict:
     """The launches a run's commits and applies imply: per apply, one
-    aggregation; compressed, one quantize per commit plus one for the
-    broadcast delta, one dequantize per commit (EF residual) and one chain
-    apply (the broadcast state)."""
+    aggregation; compressed, one quantize per commit (the residual instance:
+    it writes the EF residual, so no dequantize follows) plus one for the
+    broadcast, and per apply one chain apply (delta-qsgd: the broadcast
+    state) or one dequantize (qsgd-int8: the dequantized broadcast)."""
     commits, applies = sum(run["arrivals"]), len(run["arrivals"])
     train = {"fused_update": run["fused_implied"], "policy_update": 0}
     if not compressed:
-        return {"tree_aggregate_groups": applies, "qsgd_quantize": 0,
+        return {"tree_aggregate_groups": applies, "qsgd_quantize": 0, "qsgd_quantize_residual": 0,
                 "qsgd_dequantize": 0, "apply_quantized_broadcast": 0, **train}
+    delta = downlink == "delta-qsgd"
     return {"tree_aggregate_groups": applies, "qsgd_quantize": commits + applies,
-            "qsgd_dequantize": commits, "apply_quantized_broadcast": applies, **train}
+            "qsgd_quantize_residual": commits, "qsgd_dequantize": 0 if delta else applies,
+            "apply_quantized_broadcast": applies if delta else 0, **train}
 
 
 def demo_env(congestion, hops: int = 8, bw=(20.0, 100.0)):
@@ -1026,34 +1072,40 @@ def _time_row(torch, fn, plain, nbytes: float, ops: float, library=None, *, call
 
 
 def time_compression_kernels(torch, qz, bc, ta, ref, R: int, K: int = 4) -> dict:
-    """The slice-B kernels at R rows of 256 (the path's R = 27, or the
-    kernel bench's 4096): quantize at levels 127, dequantize, a chain
-    apply of depth 1, and the int8 aggregation of K commits."""
+    """The slice-B kernels at R rows of 256 (the path's R = 27, the kernel
+    bench's 4096, or 65,536 rows whose 84-151 MB do not fit the 50 MB L2):
+    quantize at levels 127 without and with the EF residual, dequantize, a
+    chain apply of depth 1, and the int8 aggregation of K commits."""
     x, u = qsgd_rows(torch, R, seed=7)
     q, s = qz.qsgd_quantize(x, u)
     w = torch.randn(R, 256, device="cuda")
-    q1, s1 = q[None].contiguous(), s[None].contiguous()
+    q1, s1 = q[None], s[None]
     gq = torch.randint(-128, 128, (R, K, 256), device="cuda", dtype=torch.int8)
     gw = torch.rand(R, K, device="cuda") * 1e-2
     n = R * 256
+    reps = dict(calls=10, replays=5) if R > 4096 else {}
     with uncounted():
         return {
             "qsgd_quantize": _time_row(  # abs, max, div, add, floor, 2 clamps
                 torch, lambda: qz.qsgd_quantize(x, u), lambda: ref.quantize_ref(x, u),
-                9 * n + 4 * R, 7 * n, shape=[R, 256]),
+                9 * n + 4 * R, 7 * n, shape=[R, 256], **reps),
+            "qsgd_quantize_residual": _time_row(  # and a multiply and a subtraction
+                torch, lambda: qz.qsgd_quantize_residual(x, u),
+                lambda: ref.quantize_residual_ref(x, u), 13 * n + 4 * R, 9 * n, shape=[R, 256],
+                **reps),
             "qsgd_dequantize": _time_row(
                 torch, lambda: qz.qsgd_dequantize(q, s), lambda: ref.dequantize_ref(q, s),
-                5 * n + 4 * R, n, library=lambda: torch.mul(q, s), shape=[R, 256]),
+                5 * n + 4 * R, n, library=lambda: torch.mul(q, s), shape=[R, 256], **reps),
             "apply_quantized_broadcast": _time_row(  # D = 1: one addcmul computes it
                 torch, lambda: bc.apply_quantized_broadcast(w, q1, s1),
                 lambda: ref.apply_quantized_ref(w, q1, s1), 8 * n + (n + 4 * R), 2 * n,
-                library=lambda: torch.addcmul(w, q, s), shape=[1, R, 256]),
+                library=lambda: torch.addcmul(w, q, s), shape=[1, R, 256], **reps),
             "tree_aggregate_groups_int8": _time_row(
                 torch, lambda: ta.tree_aggregate_groups(gq, gw),
                 lambda: ref.tree_aggregate_groups_ref(gq, gw),
                 R * K * 256 + 4 * R * K + 4 * R * 256, 2 * R * K * 256, shape=[R, K, 256],
                 einsum_of_widened_ms=device_ms(
-                    torch, lambda: torch.einsum("gc,gcl->gl", gw, gq.float()))),
+                    torch, lambda: torch.einsum("gc,gcl->gl", gw, gq.float()), **reps), **reps),
         }
 
 
@@ -1228,7 +1280,7 @@ def time_async(torch) -> dict:
         "device_idle_share_of_applies": 1.0 - busy_ms / float(np.sum(prof_ms)),
         "top_device": [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in top],
         "kernel_device_ms": {
-            "qsgd_quantize": kernel_ms("::quantize_rows"),
+            "qsgd_quantize": kernel_ms("::quantize_rows"),  # both instances
             "qsgd_dequantize": kernel_ms("::dequantize_rows"),
             "apply_quantized_broadcast": kernel_ms("apply_chain"),
             "tree_aggregate_groups": kernel_ms("group_sum"),
@@ -1368,8 +1420,26 @@ def main() -> int:
         runs[tag] = run
     replayed = replay_on_cpu(torch, ref, runs["compressed"]["calls"])
     log(f"[4 async compressed] every card kernel call re-run through its plain version on "
-        f"the CPU: {json.dumps(replayed)} calls; quantize, dequantize and chain apply "
-        f"bit-equal, int8 aggregation bit-equal to its chain and within {TOL}")
+        f"the CPU: {json.dumps(replayed)} calls; quantize (EF residuals included), dequantize "
+        f"and chain apply bit-equal, int8 aggregation bit-equal to its chain and within {TOL}")
+    # the full-model QSGD downlink: each apply's broadcast runs qsgd_dequantize
+    tag = "compressed-qsgd-downlink"
+    set_counts(dict.fromkeys(COUNTED, 0))
+    t0 = time.perf_counter()
+    run = drive_async("cuda", True, record=True, downlink="qsgd-int8", applies=QSGD_DOWNLINK_APPLIES)
+    torch.cuda.synchronize()
+    async_counts[tag] = got = counts()
+    want = async_launches_expected(run, True, "qsgd-int8")
+    log(f"[4 async {tag}] losses: {[round(l, 5) for l in run['losses']]}; launches "
+        f"{json.dumps(got)}, implied by {sum(run['arrivals'])} commits over "
+        f"{len(run['arrivals'])} applies: {json.dumps(want)}; {time.perf_counter() - t0:.2f} s wall")
+    if got != want or len(run["losses"]) != QSGD_DOWNLINK_APPLIES or not np.all(np.isfinite(run["losses"])):
+        raise SystemExit(f"async {tag}: launches {got} differ from {want}, or applies or losses are off")
+    leaf_tables |= run["leaf_tables"]
+    runs[tag] = run
+    replayed = replay_on_cpu(torch, ref, run["calls"])
+    log(f"[4 async {tag}] every card kernel call re-run through its plain version on the CPU: "
+        f"{json.dumps(replayed)} calls, bit-equal (the aggregation to its chain)")
 
     cpu_u = drive_async("cpu", False)
     cpu_c = drive_async("cpu", True, record=True)
@@ -1383,7 +1453,7 @@ def main() -> int:
     log(f"[4 async uncompressed] traces identical to the CPU run; max abs diff "
         f"{json.dumps(aerr)} ({PATH_TOL})")
     first = runs["compressed"]["arrivals"][0]
-    lat = [[out[0] for _, kw, out in run["calls"]["qsgd_quantize"] if kw["levels"] == 127][:first]
+    lat = [[out[0] for _, _, out in run["calls"]["qsgd_quantize_residual"]][:first]
            for run in (runs["compressed"], cpu_c)]
     steps = torch.stack([(a.int() - b.int()).abs() for a, b in zip(*lat)])
     dloss = np.abs(np.subtract(runs["compressed"]["losses"], cpu_c["losses"]))
@@ -1476,7 +1546,7 @@ def main() -> int:
     bench_row = rows[-4]  # (1, 16, 131072) bf16: kernel 2's bench shape
     for r in rows:
         log(f"[5 times] tree_aggregate_groups {json.dumps(r)}")
-    comp_rows = {R: time_compression_kernels(torch, qz, bc, ta, ref, R) for R in (27, 4096)}
+    comp_rows = {R: time_compression_kernels(torch, qz, bc, ta, ref, R) for R in (27, 4096, 65536)}
     for R, by_kernel in comp_rows.items():
         for name, r in by_kernel.items():
             log(f"[5 times] {name} R={R} {json.dumps(r)}")
@@ -1519,8 +1589,7 @@ def main() -> int:
     int8_row = {k: path["tree_aggregate_groups_int8"][k]
                 for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "einsum_of_widened_ms")}
     KERNELS[0].update(
-        launches=launches + async_counts["compressed"]["tree_aggregate_groups"]
-        + async_counts["uncompressed"]["tree_aggregate_groups"]
+        launches=launches + sum(c["tree_aggregate_groups"] for c in async_counts.values())
         + place_counts["tree_aggregate_groups"],
         max_abs_err=max(max_err, comp_err["tree_aggregate_groups_int8"]), ms=main_row["ms"],
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
@@ -1534,13 +1603,22 @@ def main() -> int:
         bound_ms=bench_row["bound_ms"], bound_by=bench_row["bound_by"],
         library_ms=bench_row["library_ms"],
     )
-    for entry in KERNELS[2:5]:
-        r = path[entry["name"]]
+    brief = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for entry in KERNELS[2:5]:  # launches: both compressed runs of phase 4b
+        name = entry["name"]
+        r = path[name]
         entry.update(
-            launches=async_counts["compressed"][entry["name"]], max_abs_err=comp_err[entry["name"]],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"],
+            launches=sum(async_counts[t][name] for t in ("compressed", "compressed-qsgd-downlink")),
+            max_abs_err=comp_err[name], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            larger={R: {k: comp_rows[R][name][k] for k in brief} for R in (4096, 65536)},
         )
+    KERNELS[2]["residual_instance"] = dict(  # the EF commits' launches, counted in both
+        launches=sum(async_counts[t]["qsgd_quantize_residual"]
+                     for t in ("compressed", "compressed-qsgd-downlink")),
+        max_abs_err=comp_err["qsgd_quantize_residual"],
+        rows={R: {k: comp_rows[R]["qsgd_quantize_residual"][k] for k in brief}
+              for R in (27, 4096, 65536)})
     step = fused_rows[0]  # one MLP local step's table, the launch the paths make most
     KERNELS[5].update(
         launches=sum(c["fused_update"] for c in (sync_counts, *async_counts.values(), place_counts)),
@@ -1556,6 +1634,9 @@ def main() -> int:
         plain_ms=demo["plain_ms"], bound_ms=demo["bound_ms"], bound_by=demo["bound_by"],
         library_ms=None, shape=demo["shape"], masks=demo["masks"],
     )
+    idle = [e["name"] for e in KERNELS if e["name"] != "tree_aggregate" and not e["launches"]]
+    if idle:  # tree_aggregate is reached through ops.tree_aggregate, which no main path calls
+        raise SystemExit(f"kernels of the main paths launched no time there: {idle}")
     log(smi)
     log(json.dumps({"kernels": KERNELS}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

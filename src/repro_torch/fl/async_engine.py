@@ -16,9 +16,10 @@ a full buffer of staleness-0 commits and alpha = 0 the applied update
 equals the synchronous round's aggregate to fp tolerance.
 
 Under an enabled ``CompressionPolicy`` each commit is quantized on the
-app's device (``quantize_delta``: the ``qsgd_quantize`` kernel), error
-feedback keeps the residual through ``QuantizedDelta.dequantize`` (the
-``qsgd_dequantize`` kernel), ``ApplyBuffered`` aggregates the int8
+app's device (``quantize_delta``: the ``qsgd_quantize`` kernel); error
+feedback takes the residual from that same launch under qsgd-int8 at
+256-value chunks (``quantize_delta_with_residual``), and through
+``QuantizedDelta.dequantize`` otherwise; ``ApplyBuffered`` aggregates the int8
 lattices (the int8 ``tree_aggregate_groups``), and a delta-qsgd downlink
 folds each version delta into the reference reconstruction with the
 ``apply_quantized_broadcast`` kernel.
@@ -43,6 +44,7 @@ from .compression import (
     as_policy,
     quantize_broadcast_delta,
     quantize_delta,
+    quantize_delta_with_residual,
 )
 from ..pytree import leaves, tree_map
 
@@ -156,19 +158,25 @@ class AsyncTrainer:
 
     def _commit_payload(self, ai: int, w: int, seq: int, d, policy):
         """The wire payload of one commit: the delta itself, or its
-        quantization (EF residual folded in first, and carried after)."""
+        quantization (EF residual folded in first, and carried after).
+
+        Under qsgd-int8 at 256-value chunks the residual comes from the
+        quantize launch itself (``quantize_delta_with_residual``); other
+        kinds and chunk widths dequantize the payload and subtract, as the
+        reference does (topk's residual is of the dense target, not of the
+        sparsified grid it quantizes)."""
         if policy is None or not policy.enabled:
             return d
-        target = d
-        if policy.error_feedback:
-            r = self._ef[ai].get(w)
-            if r is not None:
-                target = tree_map(lambda a, b: a.float() + b, d, r)
-        payload = quantize_delta(target, policy, (COMMIT_LANE, ai, seq))
-        if policy.error_feedback:
-            self._ef[ai][w] = tree_map(
-                lambda a, b: a.float() - b, target, payload.dequantize()
-            )
+        key = (COMMIT_LANE, ai, seq)
+        if not policy.error_feedback:
+            return quantize_delta(d, policy, key)
+        r = self._ef[ai].get(w)
+        target = d if r is None else tree_map(lambda a, b: a.float() + b, d, r)
+        if policy.kind == "qsgd-int8" and int(policy.chunk) == 256:
+            payload, self._ef[ai][w] = quantize_delta_with_residual(target, policy, key)
+            return payload
+        payload = quantize_delta(target, policy, key)
+        self._ef[ai][w] = tree_map(lambda a, b: a.float() - b, target, payload.dequantize())
         return payload
 
     def apply(

@@ -17,7 +17,10 @@ async scheduler's ``app_compression`` knob:
 
 With 256-value chunks, quantization runs the ``qsgd_quantize`` kernel;
 other chunk widths take the plain eager arithmetic, as the reference does
-(``kernels.ref.quantize_ref_truediv``).
+(``kernels.ref.quantize_ref_truediv``).  Error feedback under qsgd-int8 at
+256-value chunks takes its residual from the quantize launch itself
+(``quantize_delta_with_residual``); ``dequantize_delta`` and
+``QuantizedDelta.dequantize`` run the ``qsgd_dequantize`` kernel.
 
 Rounding uniforms: the reference folds (seed, lane, app, commit number or
 version) into a threefry key, which PyTorch cannot reproduce.  The port
@@ -293,16 +296,20 @@ def _flatten_grid(delta, chunk: int):
     return padded.view(rows, chunk), flat, n, like
 
 
+def _grid_uniforms(x2d: torch.Tensor, policy: CompressionPolicy, key) -> torch.Tensor:
+    """The rounding uniforms of one (rows, chunk) grid: ``rounding_uniforms``
+    for ``key`` = (lane, app, n), or 0.5 everywhere for None."""
+    if key is None:
+        return torch.full(tuple(x2d.shape), 0.5, dtype=torch.float32, device=x2d.device)
+    return rounding_uniforms(policy, *key, tuple(x2d.shape), x2d.device)
+
+
 def _qsgd_grid(x2d: torch.Tensor, policy: CompressionPolicy, key, levels: int):
     """QSGD-quantize one (rows, chunk) grid: the kernel when the chunking
     matches its 256-value row, the eager arithmetic otherwise.  ``key`` is
     (lane, app, n) for ``rounding_uniforms``, or None for 0.5."""
-    rows, chunk = x2d.shape
-    if key is None:
-        rand = torch.full((rows, chunk), 0.5, dtype=torch.float32, device=x2d.device)
-    else:
-        rand = rounding_uniforms(policy, *key, (rows, chunk), x2d.device)
-    if chunk == 256:
+    rand = _grid_uniforms(x2d, policy, key)
+    if x2d.shape[1] == 256:
         return kops.qsgd_quantize(x2d, rand, levels=levels)
     return qsgd_quantize(x2d, levels=levels, rand=rand)
 
@@ -343,6 +350,35 @@ def quantize_delta(delta, policy: CompressionPolicy, key=None) -> QuantizedDelta
         q=q, scale=s, length=n, like=like, levels=int(policy.levels), chunk=chunk,
         wire_nbytes=wire,
     )
+
+
+def quantize_delta_with_residual(target, policy: CompressionPolicy, key=None):
+    """``quantize_delta`` under a qsgd-int8 policy of 256-value chunks, and
+    the error-feedback residual ``target - dequantize`` from the same
+    kernel launch (``qsgd_quantize_residual``).
+
+    Returns (the ``QuantizedDelta`` that ``quantize_delta`` gives, the
+    residual pytree in f32: views of the grid's first n values).  The grid
+    is ``ravel(target)`` padded with zeros, so its first n residuals are the
+    reference's ``target - deq`` leaf by leaf.  Other policies have no such
+    grid (topk quantizes the sparsified target; signsgd has no QSGD lattice;
+    other chunk widths take the eager arithmetic) and are refused."""
+    if policy.kind != "qsgd-int8" or int(policy.chunk) != 256:
+        raise ValueError(
+            f"the fused residual needs kind 'qsgd-int8' at chunk 256, got "
+            f"{policy.kind!r} at chunk {policy.chunk!r}"
+        )
+    x2d, _, n, like = _flatten_grid(target, 256)
+    rand = _grid_uniforms(x2d, policy, key)
+    q, s, res = kops.qsgd_quantize_residual(x2d, rand, levels=int(policy.levels))
+    qd = QuantizedDelta(q=q, scale=s, length=n, like=like, levels=int(policy.levels), chunk=256)
+    return qd, unravel_like(res.view(-1)[:n], like)
+
+
+def dequantize_delta(qd: QuantizedDelta) -> Any:
+    """The delta pytree a ``QuantizedDelta`` carries, dequantized
+    (``qsgd_dequantize`` kernel)."""
+    return qd.dequantize()
 
 
 # -- downlink: version deltas + fused chain application ------------------------
@@ -389,8 +425,11 @@ def apply_delta_chain(params, deltas: list) -> Any:
     w2d = torch.zeros(rows * chunk, dtype=torch.float32, device=flat.device)
     w2d[: flat.numel()] = flat
     w2d = w2d.view(rows, chunk)
-    q = torch.stack([d.q for d in deltas])          # (D, rows, chunk) int8
-    s = torch.stack([d.scale for d in deltas])      # (D, rows, 1) f32
+    if len(deltas) == 1:  # views, no copies
+        q, s = qd0.q[None], qd0.scale[None]
+    else:
+        q = torch.stack([d.q for d in deltas])      # (D, rows, chunk) int8
+        s = torch.stack([d.scale for d in deltas])  # (D, rows, 1) f32
     if chunk == 256:
         out = kops.apply_quantized_broadcast(w2d, q, s)
     else:

@@ -106,6 +106,12 @@ def qsgd_quantize(x: torch.Tensor, rand: torch.Tensor, *, levels: int = 127):
     return _q.qsgd_quantize(x.contiguous(), rand.contiguous(), levels=levels)
 
 
+def qsgd_quantize_residual(x: torch.Tensor, rand: torch.Tensor, *, levels: int = 127):
+    """``qsgd_quantize`` that also returns the EF residual ``x - q * scale``
+    (R, 256) f32, written by the same launch."""
+    return _q.qsgd_quantize_residual(x.contiguous(), rand.contiguous(), levels=levels)
+
+
 def qsgd_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """int8 (R, C) x f32 (R, 1) -> f32 (R, C)."""
     return _q.qsgd_dequantize(q.contiguous(), scale.contiguous())

@@ -105,6 +105,14 @@ def dequantize_ref(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale.float()
 
 
+def quantize_residual_ref(x: torch.Tensor, rand: torch.Tensor, levels: int = 127):
+    """``quantize_ref`` and the error-feedback residual ``x - q * scale``:
+    (q, scale, residual f32 (R, C)).  Two roundings, ``fl(q * s)`` then
+    the subtraction, as the reference dequantizes and then subtracts."""
+    q, scale = quantize_ref(x, rand, levels)
+    return q, scale, x.float() - dequantize_ref(q, scale)
+
+
 def apply_quantized_ref(w: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """Fused dequantize-and-apply of a broadcast delta chain.
 

@@ -26,7 +26,9 @@ can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import ctypes.util
 
+import numpy as np
 import torch
 
 from . import _build
@@ -36,17 +38,41 @@ launches = 0  # CUDA kernel launches since the last reset (a plain int)
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "i8"}
 _fns: dict[str, ctypes._CFuncPtr] = {}
+_libm: list = []  # libm's powf, loaded at first use
+
+
+def _powf():
+    """The C math library's ``powf``, loaded once through ctypes."""
+    if not _libm:
+        name = ctypes.util.find_library("m")
+        if name is None:
+            raise RuntimeError("the C math library (libm) was not found: staleness_weights "
+                               "needs its powf for bit parity with XLA's pow")
+        fn = ctypes.CDLL(name).powf
+        fn.argtypes = [ctypes.c_float, ctypes.c_float]
+        fn.restype = ctypes.c_float
+        _libm.append(fn)
+    return _libm[0]
 
 
 def staleness_weights(weights, staleness, alpha: float, *, device=None) -> torch.Tensor:
     """FedBuff-style staleness discount ``w_i / (1 + s_i)^alpha`` in f32.
 
-    alpha = 0 (or all-zero staleness) leaves the weights as they are, so
-    the async apply reproduces the synchronous weighted mean.
+    Bit-equal to the JAX package's: XLA's f32 ``pow`` on the CPU gives
+    the bits of the C library's ``powf``, which ``torch.pow`` and numpy's
+    f32 ``power`` miss by an ulp on some values (ROADMAP §3).  So
+    ``p = powf(fl32(1 + s), fl32(-alpha))`` is computed on the host, one
+    call per weight (K is a buffer's size), and ``w * p`` in f32 on
+    ``device``.  alpha = 0 (or all-zero staleness) leaves the weights as
+    they are, so the async apply reproduces the synchronous weighted mean.
     """
     w = torch.as_tensor(weights, dtype=torch.float32, device=device)
-    s = torch.as_tensor(staleness, dtype=torch.float32, device=w.device)
-    return w * (1.0 + s) ** (-float(alpha))
+    s = torch.as_tensor(staleness, dtype=torch.float32).cpu().numpy()
+    base = np.float32(1.0) + s  # f32 sums, as XLA forms them
+    exp = float(np.float32(-float(alpha)))
+    powf = _powf()
+    p = np.array([powf(float(b), exp) for b in base.reshape(-1)], np.float32).reshape(s.shape)
+    return w * torch.from_numpy(p).to(w.device)
 
 
 def _fn(dtype_tag: str):

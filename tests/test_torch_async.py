@@ -12,8 +12,13 @@
   reference run's recorded commit targets and broadcast states are
   replayed through the port's ``quantize_delta`` and
   ``_broadcast_state``; every lattice, scale and reconstruction is
-  bit-equal.  Run end to end under the reference's uniforms, the traces
-  are identical and the losses agree to rtol 1e-4 / atol 1e-5.
+  bit-equal.  The reference's commits (raw deltas, uniforms, worker
+  drops) replayed through the port's trainer leave the reference's
+  payloads and carried EF residuals after every commit, bit for bit
+  (signSGD within rtol 1e-6 of its scale, rule 4), the fused residual
+  route taken exactly under qsgd-int8 at 256-value chunks.  Run end to end
+  under the reference's uniforms, the traces are identical and the losses
+  agree to rtol 1e-4 / atol 1e-5.
 
 Small sizes: 150-node overlay, 4 workers per app, at most 6 applies.
 """
@@ -38,6 +43,7 @@ from repro_torch.fl import async_engine as tae
 from repro_torch.fl import compression as tc
 from repro_torch.fl import rounds as trounds
 from repro_torch.fl import selection as tsel
+from repro_torch.pytree import leaves as tleaves
 
 TRAIN = dict(rtol=1e-4, atol=1e-5)
 POLICY = dict(kind="qsgd-int8", error_feedback=True, downlink="delta-qsgd",
@@ -281,6 +287,102 @@ def test_compressed_round_replayed_through_the_port_is_bit_equal(monkeypatch):
             np.testing.assert_array_equal(got[k].numpy(), held[k])
     assert sorted(trainer._delta_cache[0]) == sorted(
         v for _, _, v, _, _ in broadcasts)[-POLICY["chain_cap"]:]
+
+
+def _record_reference_ef(monkeypatch, policy_kw):
+    """Run the reference's compressed async round under ``policy_kw``,
+    logging in order what its trainer did to the EF state: ("commit",
+    worker, raw delta, uniforms, payload, residual after) and ("drop",
+    worker)."""
+    log, raw, trainer = [], [], []
+    real_train = jae.engine.fused_local_training
+    real_q, real_apply, real_drop = jae.quantize_delta, jae.AsyncTrainer.apply, jae.AsyncTrainer.drop
+    pending = {}
+
+    def train(groups):
+        out = real_train(groups)
+        raw.extend(jax.tree.map(np.array, d) for deltas, _, _ in out for d in deltas)
+        return out
+
+    def quantize(target, policy, key=None):
+        qd = real_q(target, policy, key)
+        pending["u"] = np.array(jax.random.uniform(key, qd.q.shape, jnp.float32))
+        pending["qd"] = qd
+        return qd
+
+    def apply(self, *a, **kw):
+        trainer[:] = [self]
+        return real_apply(self, *a, **kw)
+
+    def drop(self, ai, w):
+        log.append(("drop", w))
+        return real_drop(self, ai, w)
+
+    (js, japps), (ts, tapps) = _pair()
+    real_commit = js.CommitDelta
+
+    def commit(app_id, w, payload, **kw):
+        ef = jax.tree.map(np.array, trainer[0]._ef[0][w])
+        log.append(("commit", w, raw.pop(0), pending["u"], pending["qd"], ef))
+        return real_commit(app_id, w, payload, **kw)
+
+    monkeypatch.setattr(jae.engine, "fused_local_training", train)
+    monkeypatch.setattr(jae, "quantize_delta", quantize)
+    monkeypatch.setattr(jae.AsyncTrainer, "apply", apply)
+    monkeypatch.setattr(jae.AsyncTrainer, "drop", drop)
+    monkeypatch.setattr(js, "CommitDelta", commit)
+    res = _run(jae, jsim, js, japps, compression=jc.CompressionPolicy(**policy_kw))
+    assert not raw
+    return log, res["trainer"], (ts, tapps)
+
+
+@pytest.mark.parametrize("kind,fused", [
+    (dict(kind="qsgd-int8"), True),
+    (dict(kind="qsgd-int8", chunk=100, levels=7), False),
+    (dict(kind="topk", topk_frac=0.05), False),
+    (dict(kind="signsgd", chunk=64), False),
+])
+def test_ef_residuals_carried_bit_equal_after_every_commit(monkeypatch, kind, fused):
+    """The reference's commits replayed through the port's trainer in the
+    same order (raw deltas, uniforms and drops): after every commit the
+    payload and the carried residual are the reference's bits.  qsgd-int8 at
+    256-value chunks takes its residual from the quantize launch, the other
+    grids dequantize and subtract.  signSGD's scale is a 256-term sum in
+    XLA's own order (ROADMAP §3 rule 4): its signs are exact, its scale and
+    residuals within rtol 1e-6 of the scale."""
+    policy_kw = dict(POLICY, **kind)
+    log, jtrainer, (ts, tapps) = _record_reference_ef(monkeypatch, policy_kw)
+    policy = tc.CompressionPolicy(**policy_kw)
+    rand, routes = {}, []
+    monkeypatch.setattr(tc, "rounding_uniforms", lambda *a: torch.from_numpy(rand["u"]))
+    real_fused = tae.quantize_delta_with_residual
+    monkeypatch.setattr(tae, "quantize_delta_with_residual",
+                        lambda *a: routes.append(1) or real_fused(*a))
+    trainer = tae.AsyncTrainer(ts, tapps, compression=policy)
+    commits = [e for e in log if e[0] == "commit"]
+    assert len(commits) >= 6 and any(e[0] == "drop" for e in log)
+    for entry in log:
+        if entry[0] == "drop":
+            trainer.drop(0, entry[1])
+            continue
+        _, w, d, u, jqd, jef = entry
+        rand["u"] = u
+        payload = trainer._commit_payload(0, w, 0, jax.tree.map(torch.from_numpy, d), policy)
+        np.testing.assert_array_equal(payload.q.numpy(), np.asarray(jqd.q))
+        got, want = tleaves(trainer._ef[0][w]), jax.tree.leaves(jef)
+        assert len(got) == len(want) > 0
+        if kind["kind"] == "signsgd":
+            s_max = float(np.abs(np.asarray(jqd.scale)).max())
+            np.testing.assert_allclose(payload.scale.numpy(), np.asarray(jqd.scale), rtol=1e-6, atol=0)
+            for g, x in zip(got, want):
+                np.testing.assert_allclose(g.numpy(), x, rtol=0, atol=1e-6 * s_max)
+            continue
+        np.testing.assert_array_equal(payload.scale.numpy(), np.asarray(jqd.scale))
+        for g, x in zip(got, want):
+            assert g.dtype == torch.float32 and tuple(g.shape) == x.shape
+            np.testing.assert_array_equal(g.numpy().view(np.int32), x.view(np.int32))
+    assert len(routes) == (len(commits) if fused else 0)
+    assert sorted(trainer._ef[0]) == sorted(jtrainer._ef[0])
 
 
 def test_run_async_compressed_matches_reference(monkeypatch):

@@ -7,8 +7,8 @@ reproduce, so the ``jax_draws`` fixture replaces the port's one draw
 function, ``rounding_uniforms``, with the reference's draws for the same
 (lane, app, n).  Under those shared uniforms:
 
-- policy wire math, lattices, scales, ``nbytes`` and chain applies are
-  bit-exact;
+- policy wire math, lattices, scales, ``nbytes``, dequantized deltas,
+  the fused route's EF residuals and chain applies are bit-exact;
 - the signSGD scale is a 256-term f32 sum whose order XLA chooses, so it
   is held to rtol 1e-6 (its signs are exact);
 - aggregates are f32 reductions: rtol = atol = 1e-5.
@@ -195,6 +195,61 @@ def test_dequantize_and_unflatten_match_jax(jax_draws, chunk):
             a, b = a[k], b[k]
         assert tuple(b.shape) == a.shape
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+@pytest.mark.parametrize("keyed", [True, False])
+@pytest.mark.parametrize("levels", [127, 7, 3])
+def test_quantize_delta_with_residual_is_quantize_delta_plus_reference_residual(
+        jax_draws, levels, keyed):
+    """The fused route's payload is ``quantize_delta``'s; its residual is the
+    reference's ``target - deq`` (numpy fl(q * s), then XLA's subtraction)."""
+    tp = tc.CompressionPolicy(kind="qsgd-int8", levels=levels, seed=3, error_feedback=True)
+    jp = _jpol(tp)
+    d = _delta(levels * 5)
+    key, jkey = ((tc.COMMIT_LANE, 0, 4), jc.commit_key(jp, 0, 4)) if keyed else (None, None)
+    tq, res = tc.quantize_delta_with_residual(_to_t(d), tp, key)
+    plain = tc.quantize_delta(_to_t(d), tp, key)
+    _assert_payload_equal(tq, plain)
+    assert tq.wire_nbytes is None and tq.like.keys() == plain.like.keys()
+    jq = jc.quantize_delta(_to_j(d), jp, jkey)
+    _assert_payload_equal(tq, jq)
+    want = jax.tree.map(lambda a, b: jnp.asarray(a, jnp.float32)
+                        - jnp.asarray(np.asarray(b), jnp.float32), _to_j(d), jq.dequantize())
+    got_leaves, want_leaves = jax.tree.leaves(res), jax.tree.leaves(want)
+    assert len(got_leaves) == len(want_leaves) == 3
+    for g, w in zip(got_leaves, want_leaves):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        np.testing.assert_array_equal(g.numpy().view(np.int32), np.asarray(w).view(np.int32))
+
+
+@pytest.mark.parametrize("kw", [dict(kind="signsgd"), dict(kind="topk"),
+                                dict(kind="qsgd-int8", chunk=100)])
+def test_quantize_delta_with_residual_refuses_other_grids(kw):
+    with pytest.raises(ValueError, match="qsgd-int8"):
+        tc.quantize_delta_with_residual(_to_t(_delta(0)), tc.CompressionPolicy(**kw))
+
+
+@pytest.mark.parametrize("chunk", [256, 100])
+def test_dequantize_delta_roundtrip_pytree_and_padding(jax_draws, chunk):
+    """tests/test_compression.py's round trip, and the reference's bits."""
+    rng = np.random.default_rng(0)
+    delta = {"a": rng.normal(size=(13, 7)).astype(np.float32),
+             "b": rng.normal(size=(5,)).astype(np.float32)}
+    tp = tc.CompressionPolicy(kind="qsgd-int8", chunk=chunk)
+    jp = _jpol(tp)
+    qd = tc.quantize_delta(_to_t(delta), tp, (tc.COMMIT_LANE, 0, 1))
+    assert qd.length == 13 * 7 + 5
+    back = tc.dequantize_delta(qd)
+    assert set(back) == {"a", "b"}
+    assert tuple(back["a"].shape) == (13, 7) and tuple(back["b"].shape) == (5,)
+    s_max = max(np.abs(v).max() for v in delta.values()) / tp.levels
+    if chunk == 256:  # one 96-element delta -> one row, one shared scale
+        for k in delta:
+            assert np.abs(back[k].numpy() - delta[k]).max() < s_max + 1e-6
+    assert not qd.q.reshape(-1)[qd.length:].any()  # zero padding quantizes to 0
+    want = jc.dequantize_delta(jc.quantize_delta(_to_j(delta), jp, jc.commit_key(jp, 0, 1)))
+    for k in delta:
+        np.testing.assert_array_equal(back[k].numpy(), np.asarray(want[k]))
 
 
 # -- downlink ------------------------------------------------------------------------

@@ -8,9 +8,11 @@ Whether a card is present is decided inside the ``cuda`` fixture, never
 at import, so every pytest worker collects the same tests; without a
 card each test skips with that reason.  The aggregation gives the bits
 of ``ref.tree_aggregate_groups_chain`` (its fmaf chain) and lies within
-rtol = atol = 1e-5 of ``tree_aggregate_groups_ref``; the QSGD quantize, dequantize, chain-apply, fused
-update and policy update kernels must give the same bits as their plain
-versions (the policy update also the same rho and pi~ on every node).
+rtol = atol = 1e-5 of ``tree_aggregate_groups_ref``; the QSGD quantize
+(with and without the EF residual), dequantize, chain-apply, fused update
+and policy update kernels must give the same bits as their plain versions
+(the policy update also the same rho and pi~ on every node), on their
+vector and scalar paths.
 """
 import pytest
 import torch
@@ -218,6 +220,104 @@ def test_dequantize_kernel_bit_equal_to_plain_version(cuda, R):
     torch.cuda.synchronize()
     assert qz.launches["qsgd_dequantize"] == before + 1
     assert torch.equal(out, ref.dequantize_ref(q, s))
+
+
+@pytest.mark.parametrize("levels", [127, 7, 3])
+@pytest.mark.parametrize("R", [1, 2, 27, 4096, 70001])
+def test_quantize_residual_instance_bit_equal_on_views(cuda, R, levels):
+    """The residual instance against ``ref.quantize_residual_ref`` (the
+    row that saturates at 127, the zero row), on views 0, 1 (the scalar
+    path) and 4 elements into a buffer; its q and s are the no-residual
+    instance's; each call counts one quantize launch, of the residual
+    instance."""
+    x, u = _rows(R, cuda, seed=11 * R + levels)
+    rq, rs, rr = ref.quantize_residual_ref(x, u, levels=levels)
+    for shift in (0, 1, 4):
+        xb, ub = torch.empty(R * 256 + shift, device=cuda), torch.empty(R * 256 + shift, device=cuda)
+        xv, uv = xb[shift:].view(R, 256), ub[shift:].view(R, 256)
+        xv.copy_(x)
+        uv.copy_(u)
+        before = dict(qz.launches)
+        q, s, r = qz.qsgd_quantize_residual(xv, uv, levels=levels)
+        torch.cuda.synchronize()
+        assert qz.launches == {**before, "qsgd_quantize": before["qsgd_quantize"] + 1,
+                               "qsgd_quantize_residual": before["qsgd_quantize_residual"] + 1}
+        assert torch.equal(q, rq) and torch.equal(s, rs) and torch.equal(r, rr), f"shift {shift}"
+        q2, s2 = qz.qsgd_quantize(xv, uv, levels=levels)
+        assert torch.equal(q2, q) and torch.equal(s2, s)
+    if levels == 127:
+        assert int(q[0, 0]) == 127
+    if R > 1:
+        assert not q[-1].any() and not r[-1].any()
+
+
+@pytest.mark.parametrize("shift", [0, 1, 8])
+@pytest.mark.parametrize("C", [256, 8, 1000, 300, 7])
+@pytest.mark.parametrize("R", [1, 27, 4096])
+def test_dequantize_vector_and_scalar_paths(cuda, R, C, shift):
+    """Widths that are and are not whole 8-byte vectors, on q views 0, 1
+    (scalar path) and 8 bytes into a buffer."""
+    gen = torch.Generator(device=cuda).manual_seed(R + C + shift)
+    qb = torch.randint(-128, 128, (R * C + shift,), device=cuda, generator=gen, dtype=torch.int8)
+    q = qb[shift:].view(R, C)
+    s = torch.rand(R, 1, device=cuda, generator=gen) * 0.1
+    before = qz.launches["qsgd_dequantize"]
+    out = qz.qsgd_dequantize(q, s)
+    torch.cuda.synchronize()
+    assert qz.launches["qsgd_dequantize"] == before + 1
+    assert torch.equal(out, ref.dequantize_ref(q, s))
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("D", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("R", [1, 27, 4096])
+def test_chain_apply_depths_on_views(cuda, R, D, misaligned):
+    """Every unrolled depth and the loop past it, bit-equal and equal to D
+    single steps, on aligned tensors and on views 1 element into w and 3
+    bytes into q (the scalar path)."""
+    gen = torch.Generator(device=cuda).manual_seed(R * D + misaligned)
+    off = (1, 3) if misaligned else (0, 0)
+    w = torch.randn(R * 256 + off[0], device=cuda, generator=gen)[off[0]:].view(R, 256)
+    q = torch.randint(-127, 128, (D * R * 256 + off[1],), device=cuda, generator=gen,
+                      dtype=torch.int8)[off[1]:].view(D, R, 256)
+    s = torch.rand(D, R, 1, device=cuda, generator=gen) * 0.05
+    before = bc.launches
+    out = bc.apply_quantized_broadcast(w, q, s)
+    torch.cuda.synchronize()
+    assert bc.launches == before + 1
+    assert torch.equal(out, ref.apply_quantized_ref(w, q, s))
+    step = w
+    for d in range(D):
+        step = bc.apply_quantized_broadcast(step, q[d : d + 1], s[d : d + 1])
+    assert torch.equal(out, step)
+
+
+def test_fused_ef_route_on_card_launches_no_dequantize(cuda):
+    """An EF commit under qsgd-int8 at chunk 256 on the card: one quantize
+    launch of the residual instance, no dequantize launch, and the CPU
+    path's bits; ``dequantize_delta`` launches the dequantize once."""
+    from repro_torch.fl import compression as comp
+
+    gen = torch.Generator().manual_seed(0)
+    delta = {"w": torch.randn(40, 70, generator=gen), "b": torch.randn(13, generator=gen)}
+    policy = comp.CompressionPolicy(kind="qsgd-int8", error_feedback=True)
+    key = (comp.COMMIT_LANE, 0, 5)
+    cpu_qd, cpu_res = comp.quantize_delta_with_residual(delta, policy, key)
+    before = dict(qz.launches)
+    qd, res = comp.quantize_delta_with_residual({k: v.to(cuda) for k, v in delta.items()},
+                                                policy, key)
+    torch.cuda.synchronize()
+    assert qz.launches == {"qsgd_quantize": before["qsgd_quantize"] + 1,
+                           "qsgd_quantize_residual": before["qsgd_quantize_residual"] + 1,
+                           "qsgd_dequantize": before["qsgd_dequantize"]}
+    assert torch.equal(qd.q.cpu(), cpu_qd.q) and torch.equal(qd.scale.cpu(), cpu_qd.scale)
+    for k in delta:
+        assert torch.equal(res[k].cpu(), cpu_res[k])
+    back = comp.dequantize_delta(qd)
+    torch.cuda.synchronize()
+    assert qz.launches["qsgd_dequantize"] == before["qsgd_dequantize"] + 1
+    for k in delta:
+        assert torch.equal(back[k].cpu(), comp.dequantize_delta(cpu_qd)[k])
 
 
 @pytest.mark.parametrize("D", [1, 2, 3])

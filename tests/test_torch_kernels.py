@@ -108,12 +108,41 @@ def test_zero_weight_slots_add_exact_zeros():
     assert torch.equal(a, b)
 
 
+def _assert_bits_equal(got: np.ndarray, want: np.ndarray):
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 @pytest.mark.parametrize("alpha", [0.0, 0.5, 1.0])
 def test_staleness_weights_match_jax(alpha):
     w = np.array([1.0, 30.0, 7.5, 2.0])
     s = np.array([0, 1, 3, 10])
     want = np.asarray(jta.staleness_weights(w, s, alpha))
-    np.testing.assert_allclose(tta.staleness_weights(w, s, alpha).numpy(), want, **TOL)
+    _assert_bits_equal(tta.staleness_weights(w, s, alpha).numpy(), want)
+
+
+@pytest.mark.parametrize("w", [1.7, 1.0, 0.37])
+@pytest.mark.parametrize("alpha", [0.0, 0.1, 0.25, 0.3, 0.5, 0.75, 1.0, 1.5, 2.0])
+def test_staleness_weights_bit_equal_to_jax(alpha, w):
+    """libm's powf gives XLA's pow bits, where torch.pow misses by an ulp."""
+    s = np.arange(200)
+    ws = np.full(200, w)
+    want = np.asarray(jta.staleness_weights(ws, s, alpha))
+    _assert_bits_equal(tta.staleness_weights(ws, s, alpha).numpy(), want)
+
+
+def test_staleness_weights_bit_equal_to_jax_at_long_staleness():
+    s = np.arange(20_000)
+    ws = np.full(20_000, 1.7)
+    want = np.asarray(jta.staleness_weights(ws, s, 0.5))
+    _assert_bits_equal(tta.staleness_weights(ws, s, 0.5).numpy(), want)
+
+
+def test_staleness_weights_raise_without_libm(monkeypatch):
+    monkeypatch.setattr(tta.ctypes.util, "find_library", lambda name: None)
+    monkeypatch.setattr(tta, "_libm", [])
+    with pytest.raises(RuntimeError, match="libm"):
+        tta.staleness_weights([1.0], [2], 0.5)
 
 
 @pytest.mark.parametrize("K", [1, 3, 6])
@@ -285,6 +314,23 @@ def test_qsgd_quantize_bit_exact_against_jax(jax_mode, R, levels):
         assert s[-1, 0] == np.float32(1e-12) and not q[-1].any()
 
 
+@pytest.mark.parametrize("levels", [127, 7, 3])
+@pytest.mark.parametrize("R", [1, 27, 64])
+def test_quantize_residual_bit_exact_against_jax_quantize_then_numpy_dequantize(jax_mode, R, levels):
+    """The reference's EF residual: JAX's qsgd_quantize, fl(q * s) in numpy,
+    then the subtraction in XLA."""
+    x, r = _qsgd_inputs(R, seed=R * 77 + levels)
+    jq, js = jops.qsgd_quantize(jnp.asarray(x), jnp.asarray(r), levels=levels)
+    deq = np.asarray(jq).astype(np.float32) * np.asarray(js).astype(np.float32)
+    want = np.asarray(jnp.asarray(x, jnp.float32) - jnp.asarray(deq, jnp.float32))
+    q, s, res = tops.qsgd_quantize_residual(torch.from_numpy(x), torch.from_numpy(r), levels=levels)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    _assert_bits_equal(res.numpy(), want)
+    q2, s2 = tops.qsgd_quantize(torch.from_numpy(x), torch.from_numpy(r), levels=levels)
+    assert torch.equal(q, q2) and torch.equal(s, s2)
+
+
 @pytest.mark.parametrize("levels", [127, 3])
 @pytest.mark.parametrize("chunk", [100, 7])
 def test_quantize_truediv_bit_exact_against_eager_jax(chunk, levels):
@@ -366,6 +412,8 @@ def test_int8_aggregate_equals_f32_path_on_widened_input():
         (lambda: tq.qsgd_quantize(torch.zeros(2, 256).double(), torch.zeros(2, 256)), TypeError),
         (lambda: tq.qsgd_quantize(torch.zeros(2, 256), torch.zeros(2, 256), levels=128), ValueError),
         (lambda: tq.qsgd_quantize(torch.zeros(256, 2).t(), torch.zeros(2, 256)), ValueError),
+        (lambda: tq.qsgd_quantize_residual(torch.zeros(2, 100), torch.zeros(2, 100)), ValueError),
+        (lambda: tq.qsgd_quantize_residual(torch.zeros(2, 256), torch.zeros(2, 256), levels=0), ValueError),
         (lambda: tq.qsgd_dequantize(torch.zeros(2, 256), torch.zeros(2, 1)), TypeError),
         (lambda: tq.qsgd_dequantize(torch.zeros(2, 256, dtype=torch.int8), torch.zeros(2)), ValueError),
         (lambda: tbc.apply_quantized_broadcast(
@@ -388,6 +436,9 @@ def test_new_cpu_paths_are_the_plain_versions_and_count_no_launch():
     qq, sc = tq.qsgd_quantize(x, r, levels=7)
     rq, rs = tref.quantize_ref(x, r, levels=7)
     assert torch.equal(qq, rq) and torch.equal(sc, rs)
+    for got, want in zip(tq.qsgd_quantize_residual(x, r, levels=7),
+                         tref.quantize_residual_ref(x, r, levels=7)):
+        assert torch.equal(got, want)
     assert torch.equal(tq.qsgd_dequantize(qq, sc), tref.dequantize_ref(qq, sc))
     assert torch.equal(tbc.apply_quantized_broadcast(w, q, s), tref.apply_quantized_ref(w, q, s))
     tta.tree_aggregate_groups(q.permute(1, 0, 2).contiguous(), torch.ones(5, 2))

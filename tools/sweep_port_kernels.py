@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
-"""Build variants of four of the port's CUDA kernels and time each on one card.
+"""Build variants of the port's CUDA kernels and time each on one card.
 
-    python3 tools/sweep_port_kernels.py [tree_aggregate] [quantize] [fused_update] [policy_update]
+    python3 tools/sweep_port_kernels.py [tree_aggregate] [quantize] [dequantize] [broadcast]
+                                        [fused_update] [policy_update] [--sass-against DIR]
 
-(no argument: all four).
+(no kernel named: all six).  ``--sass-against DIR`` also builds DIR's
+``src/repro_torch/kernels/csrc/quantize.cu`` (an unpacked earlier tree) and
+says whether each of its quantize kernels compiles to the same SASS
+(``cuobjdump -sass``, addresses and names stripped) as the committed
+file's instance without the EF residual.
 
 - ``tree_aggregate_groups`` (``csrc/tree_aggregate.cu``) at (design, child
   tile, most and fewest threads per block, blocks a level should span) in
@@ -25,9 +30,23 @@
   bench's (4096, 4, 256) (groups per block reported; int8 rows also at 16-
   and 4-byte loads, I8_SPEC);
 - ``qsgd_quantize`` (``csrc/quantize.cu``) at (threads per row, rows per
-  block) in VARIANTS_QUANT, bit-equal at R in (1, 27, 4096, 70001) x levels
-  (127, 3), timed at the path's R = 27 and the bench's 4096 beside
-  ``qsgd_dequantize`` at R = 27;
+  block) in VARIANTS_QUANT, both instances (without and with the EF
+  residual) bit-equal at R in (1, 27, 4096, 70001) x levels (127, 3) and
+  timed at R in ROWS: the path's 27, the bench's 4096 and 65,536 rows,
+  whose bytes do not fit the 50 MB L2;
+- ``qsgd_dequantize`` (``csrc/quantize.cu``) at (int8 bytes a lane loads
+  at once, lanes per row, rows per block) in VARIANTS_ROWS (a lane of a
+  256-wide row owns 256 / (bytes x lanes) vectors, ``lanes`` apart; 8
+  bytes at 32 lanes is one 8-byte load and two float4 stores 32 bytes
+  apart), and the former design (one thread an
+  element with a grid-stride loop and a 64-bit division, FORMER_DQ),
+  bit-equal at R in (1, 27, 4096) on 256-wide rows, a width that is not
+  whole vectors and a misaligned view, timed at R in ROWS beside
+  ``torch.mul``;
+- ``apply_quantized_broadcast`` (``csrc/broadcast.cu``) at the same
+  (bytes, lanes, rows per block) and its former design (FORMER_APPLY),
+  bit-equal at D = 1..5 and on a misaligned view, timed at D = 1 and R in
+  ROWS beside ``torch.addcmul``, and at D = 3, R = 4096;
 - ``fused_update`` (``csrc/fused_update.cu``) at (threads per block,
   16-byte loads per thread and operand, leaves a launch's parameter table
   holds) in VARIANTS_FUSED: at 2^24 f32
@@ -51,6 +70,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -71,7 +91,13 @@ VARIANTS_AGG = [("a", 4, 256, 64, 132, 8), ("a", 4, 256, 64, 132, 16), ("a", 4, 
                 ("d", 4, 256, 64, 132, 8), ("d", 12, 256, 64, 132, 8), ("e", 4, 256, 64, 132, 8),
                 ("e", 12, 256, 64, 132, 8), ("f", 4, 256, 64, 132, 8), ("f", 12, 256, 64, 132, 8)]
 # (threads per row, rows per block); the first is the committed one
-VARIANTS_QUANT = [(64, 2), (64, 1), (64, 4), (32, 1), (32, 2), (32, 4), (32, 8), (16, 2), (16, 4)]
+VARIANTS_QUANT = [(64, 2), (64, 1), (64, 4), (32, 2), (32, 4)]
+# (int8 bytes a lane loads at once, lanes per row, rows per block) of the
+# dequantize and the chain apply; the first is the committed one; "former"
+# is the per-element design
+VARIANTS_ROWS = [(4, 64, 2), (4, 64, 1), (4, 64, 4), (4, 64, 8), (4, 32, 2), (4, 32, 4),
+                 (8, 32, 2), (8, 32, 4), (8, 16, 4), (16, 16, 4), (16, 16, 8), "former"]
+ROWS = (27, 4096, 65536)
 AGG_LEVELS = [(3, 3, 6792), (7, 1, 6792), (9, 3, 6792), (1, 12, 6792), (6, 1, 6792), (5, 1, 8848),
               (7, 2, 8848), (8, 3, 8848), (1, 11, 8848), (1, 4, 6792)]
 MLP_STEP = [1024, 1024, 128, 32768, 65536, 8192]
@@ -256,6 +282,54 @@ __device__ __forceinline__ void chain_sum(float (&acc)[V], const T* __restrict__
 """
 
 
+FORMER_DQ = """// The former dequantize (design "former"): one thread an element.
+__global__ void __launch_bounds__(kThreads)
+dequantize_elements(const int8_t* __restrict__ q, const float* __restrict__ scale,
+                    float* __restrict__ out, int64_t n, int64_t C) {
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride)
+    out[i] = __fmul_rn((float)q[i], __ldg(scale + i / C));
+}
+
+"""
+FORMER_DQ_ENTRY = """extern "C" int qsgd_dequantize_i8(const int8_t* q, const float* scale, float* out,
+                                  int64_t R, int64_t C, void* stream) {
+  const int64_t n = R * C;
+  if (n <= 0) return (int)cudaGetLastError();
+  dequantize_elements<<<blocks_for(n, kThreads), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(q, scale, out, n, C);
+  return (int)cudaGetLastError();
+}
+"""
+FORMER_APPLY = """// The former chain apply (design "former"): one thread an element.
+__global__ void __launch_bounds__(kThreads)
+apply_elements(const float* __restrict__ w, const int8_t* __restrict__ q,
+               const float* __restrict__ s, float* __restrict__ out, int64_t D,
+               int64_t R, int64_t C) {
+  const int64_t n = R * C;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
+    const int64_t r = i / C;
+    float acc = w[i];
+    for (int64_t d = 0; d < D; ++d)
+      acc = __fmaf_rn((float)q[d * n + i], __ldg(s + d * R + r), acc);
+    out[i] = acc;
+  }
+}
+
+"""
+FORMER_APPLY_ENTRY = """extern "C" int apply_quantized_broadcast_f32(const float* w, const int8_t* q,
+                                             const float* s, float* out, int64_t D,
+                                             int64_t R, int64_t C, void* stream) {
+  const int64_t n = R * C;
+  if (n <= 0) return (int)cudaGetLastError();
+  apply_elements<<<blocks_for(n, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      w, q, s, out, D, R, C);
+  return (int)cudaGetLastError();
+}
+"""
+
+
 def edited(name: str, edits: dict) -> str:
     """The committed csrc/<name>.cu with ``edits`` (old -> new) applied."""
     from repro_torch.kernels import _build
@@ -403,26 +477,148 @@ def agg_variant(torch, ta, ref, cs, so: str, spec: tuple) -> dict:
     return row
 
 
-def quant_variant(torch, qz, ref, cs, so: str, spec: tuple) -> dict:
+def use_quantize_lib(qz, so: str) -> None:
+    """Route the port's quantize wrappers to the library at ``so``."""
     lib = ctypes.CDLL(so)
-    fq, fd = lib.qsgd_quantize_f32, lib.qsgd_dequantize_i8
+    fq, fr, fd = lib.qsgd_quantize_f32, lib.qsgd_quantize_residual_f32, lib.qsgd_dequantize_i8
     fq.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_float, ctypes.c_void_p]
+    fr.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_float, ctypes.c_void_p]
     fd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
-    fq.restype = fd.restype = ctypes.c_int
-    qz._fns["qsgd_quantize_f32"], qz._fns["qsgd_dequantize_i8"] = fq, fd
+    fq.restype = fr.restype = fd.restype = ctypes.c_int
+    qz._fns.update(qsgd_quantize_f32=fq, qsgd_quantize_residual_f32=fr, qsgd_dequantize_i8=fd)
+
+
+def reps(R: int) -> dict:
+    return dict(calls=10, replays=5) if R > 4096 else {}
+
+
+def quant_variant(torch, qz, ref, cs, so: str, spec: tuple) -> dict:
+    use_quantize_lib(qz, so)
     for R in (1, 27, 4096, 70001):
         for levels in (127, 3):
             x, u = cs.qsgd_rows(torch, R, seed=R + levels)
+            rq, rs, rr = ref.quantize_residual_ref(x, u, levels=levels)
             q, s = qz.qsgd_quantize(x, u, levels=levels)
-            rq, rs = ref.quantize_ref(x, u, levels=levels)
-            if not (torch.equal(q, rq) and torch.equal(s, rs)):
+            q2, s2, r2 = qz.qsgd_quantize_residual(x, u, levels=levels)
+            if not all(map(torch.equal, (q, s, q2, s2, r2), (rq, rs, rq, rs, rr))):
                 raise SystemExit(f"qsgd_quantize variant {spec} differs at R={R} levels={levels}")
     row = {"kernel": "qsgd_quantize", "threads_per_row": spec[0], "rows_per_block": spec[1]}
-    for R in (27, 4096):
+    for R in ROWS:
         x, u = cs.qsgd_rows(torch, R, seed=7)
-        row[f"R={R} us"] = cs.device_ms(torch, lambda: qz.qsgd_quantize(x, u)) * 1e3
-    q, s = qz.qsgd_quantize(*cs.qsgd_rows(torch, 27, seed=7))
-    row["dequantize R=27 us"] = cs.device_ms(torch, lambda: qz.qsgd_dequantize(q, s)) * 1e3
+        row[f"R={R} us"] = cs.device_ms(torch, lambda: qz.qsgd_quantize(x, u), **reps(R)) * 1e3
+        row[f"residual R={R} us"] = cs.device_ms(
+            torch, lambda: qz.qsgd_quantize_residual(x, u), **reps(R)) * 1e3
+    return row
+
+
+def rows_source(name: str, spec) -> str:
+    """A dequantize (``name`` "quantize") or chain-apply ("broadcast")
+    variant: (bytes a lane loads, lanes per row, rows per block) or the
+    former design."""
+    if spec == "former":
+        src = edited(name, {})
+        kernel, entry = (FORMER_DQ, FORMER_DQ_ENTRY) if name == "quantize" else (
+            FORMER_APPLY, FORMER_APPLY_ENTRY)
+        head = 'extern "C" int qsgd_dequantize_i8' if name == "quantize" else 'extern "C" int apply_'
+        src = src[: src.index(head)] + entry
+        return src.replace("unsigned blocks_for(", kernel + "unsigned blocks_for(", 1)
+    nbytes, lanes, rows = spec
+    tag = "Dq" if name == "quantize" else ""
+    return edited(name, {f"constexpr int k{tag}Bytes = 4;": f"constexpr int k{tag}Bytes = {nbytes};",
+                         f"constexpr int k{tag}Lanes = 64;": f"constexpr int k{tag}Lanes = {lanes};",
+                         f"constexpr int k{tag}RowsPerBlock = 2;":
+                             f"constexpr int k{tag}RowsPerBlock = {rows};"})
+
+
+def spec_tag(spec) -> str:
+    return spec if isinstance(spec, str) else "b{}-l{}-r{}".format(*spec)
+
+
+def dequant_variant(torch, qz, ref, cs, so: str, spec) -> dict:
+    use_quantize_lib(qz, so)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for R in (1, 27, 4096):
+        for C, shift in ((256, 0), (256, 1), (300, 0)):
+            q = torch.randint(-128, 128, (R, C), device="cuda", generator=gen, dtype=torch.int8)
+            s = torch.rand(R, 1, device="cuda", generator=gen) * 0.1
+            qv = cs.offset_view(torch, q, shift) if shift else q
+            if not torch.equal(qz.qsgd_dequantize(qv, s), ref.dequantize_ref(q, s)):
+                raise SystemExit(f"qsgd_dequantize variant {spec} differs at R={R} C={C} +{shift}")
+    row = {"kernel": "qsgd_dequantize", "design": spec_tag(spec)}
+    for R in ROWS:
+        q = torch.randint(-128, 128, (R, 256), device="cuda", generator=gen, dtype=torch.int8)
+        s = torch.rand(R, 1, device="cuda", generator=gen) * 0.1
+        row[f"R={R} us"] = cs.device_ms(torch, lambda: qz.qsgd_dequantize(q, s), **reps(R)) * 1e3
+        row[f"R={R} mul us"] = cs.device_ms(torch, lambda: torch.mul(q, s), **reps(R)) * 1e3
+    return row
+
+
+def apply_variant(torch, bc, ref, cs, so: str, spec) -> dict:
+    fn = ctypes.CDLL(so).apply_quantized_broadcast_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bc._fn_cache[:] = [fn]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def chain(D, R):
+        return (torch.randn(R, 256, device="cuda", generator=gen),
+                torch.randint(-127, 128, (D, R, 256), device="cuda", generator=gen, dtype=torch.int8),
+                torch.rand(D, R, 1, device="cuda", generator=gen) * 0.05)
+
+    for R in (1, 27, 4096):
+        for D in (1, 2, 3, 4, 5):
+            w, q, s = chain(D, R)
+            want = ref.apply_quantized_ref(w, q, s)
+            views = [(w, q)] + ([(cs.offset_view(torch, w, 1), cs.offset_view(torch, q, 3))]
+                                if D in (1, 5) else [])
+            if not all(torch.equal(bc.apply_quantized_broadcast(wv, qv, s), want) for wv, qv in views):
+                raise SystemExit(f"apply_quantized_broadcast variant {spec} differs at R={R} D={D}")
+    row = {"kernel": "apply_quantized_broadcast", "design": spec_tag(spec)}
+    for R in ROWS:
+        w, q, s = chain(1, R)
+        row[f"D=1 R={R} us"] = cs.device_ms(
+            torch, lambda: bc.apply_quantized_broadcast(w, q, s), **reps(R)) * 1e3
+        row[f"D=1 R={R} addcmul us"] = cs.device_ms(
+            torch, lambda: torch.addcmul(w, q[0], s[0]), **reps(R)) * 1e3
+    w, q, s = chain(3, 4096)
+    row["D=3 R=4096 us"] = cs.device_ms(torch, lambda: bc.apply_quantized_broadcast(w, q, s)) * 1e3
+    return row
+
+
+def sass_functions(so: str) -> dict:
+    """Mangled name -> SASS instruction lines of each quantize kernel in
+    ``so``, addresses, comments and the function's own name stripped."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            funcs[name] = []
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4}\*/\s*(.*?)\s*;", line)
+        if name and ins:
+            funcs[name].append(ins.group(1))
+    return {k: v for k, v in funcs.items() if "quantize_rows" in k and "dequantize" not in k}
+
+
+def sass_against(parent: str) -> dict:
+    """Whether the committed quantize kernels without the residual compile
+    to the SASS of ``parent``'s (an unpacked earlier tree)."""
+    with open(os.path.join(parent, "src", "repro_torch", "kernels", "csrc", "quantize.cu")) as f:
+        sos = build_sources("quantize", {"committed": edited("quantize", {}), "parent": f.read()})
+    ours, theirs = sass_functions(sos["committed"]), sass_functions(sos["parent"])
+    row = {"kernel": "qsgd_quantize", "sass_against": parent}
+    for pname, pcode in theirs.items():
+        scalar = "scalar" in pname
+        mname = next(k for k in ours if ("scalar" in k) == scalar and "ILb0E" in k)  # <false>
+        row["scalar" if scalar else "vector"] = {
+            "parent": pname, "no_residual_instance": mname, "parent_instructions": len(pcode),
+            "instructions": len(ours[mname]), "same_sass": ours[mname] == pcode}
     return row
 
 
@@ -492,14 +688,24 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from repro_torch.core import pathplan
+    from repro_torch.kernels import broadcast as bc
     from repro_torch.kernels import fused_update as fu
     from repro_torch.kernels import policy_update as pu
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import ref
     from repro_torch.kernels import tree_aggregate as ta
 
-    kernels = sys.argv[1:] or ["tree_aggregate", "quantize", "fused_update", "policy_update"]
+    args = sys.argv[1:]
+    parent = None
+    if "--sass-against" in args:
+        i = args.index("--sass-against")
+        parent = args[i + 1]
+        del args[i : i + 2]
+    kernels = args or ["tree_aggregate", "quantize", "dequantize", "broadcast", "fused_update",
+                       "policy_update"]
     print(cs.nvidia_smi_line(), flush=True)
+    if parent is not None:
+        print(json.dumps(sass_against(parent)), flush=True)
     if "tree_aggregate" in kernels:
         sos = build_sources("tree_aggregate", {"-".join(map(str, v)): agg_source(*v)
                                                for v in VARIANTS_AGG})
@@ -512,6 +718,17 @@ def main() -> int:
         }) for t, b in VARIANTS_QUANT})
         for t, b in VARIANTS_QUANT:
             print(json.dumps(quant_variant(torch, qz, ref, cs, sos[f"r{t}-b{b}"], (t, b))), flush=True)
+    if "dequantize" in kernels:
+        sos = build_sources("quantize", {f"dq-{spec_tag(v)}": rows_source("quantize", v)
+                                         for v in VARIANTS_ROWS})
+        for v in VARIANTS_ROWS:
+            print(json.dumps(dequant_variant(torch, qz, ref, cs, sos[f"dq-{spec_tag(v)}"], v)),
+                  flush=True)
+    if "broadcast" in kernels:
+        sos = build_sources("broadcast", {spec_tag(v): rows_source("broadcast", v)
+                                          for v in VARIANTS_ROWS})
+        for v in VARIANTS_ROWS:
+            print(json.dumps(apply_variant(torch, bc, ref, cs, sos[spec_tag(v)], v)), flush=True)
     if "fused_update" in kernels:
         for threads, loads, leaves in VARIANTS_FUSED:
             print(json.dumps(fused_variant(torch, fu, ref, cs, threads, loads, leaves)), flush=True)
