@@ -69,6 +69,32 @@ the CPU):
       event, churn and replan logs identical to the CPU run's.  Then the
       aggregation bit-equal to its chain at every (G, C, L, dtype) that the
       async and placement runs gave it;
+   d. FedAvg, DP and LM serving.  The quickstart MLP's per-worker deltas
+      (one round's local training): ``fl/aggregation``'s fedavg and
+      pairwise_accumulate within TOL of ``ops.tree_aggregate_pytree`` (one
+      launch of the kernel's G = 1 entry ``tree_aggregate``, made by this
+      check: fedavg itself is plain tensor ops, as in the reference),
+      fedavg on the
+      card bit-equal to the CPU's, ``fl/dp.dp_sanitize`` on the card within
+      TOL of the CPU's under the same injected draws.  Then
+      ``launch/serve``'s functions (``make_batch``, ``generate``: one
+      prefill and LM_GEN - 1 greedy decodes at batch 4, prompt 32) on
+      tinyllama-1.1b at full width and depth (22 layers, bf16) and on
+      qwen3-8b at full width cut to 4 layers, weights from
+      ``lm.init_params`` with a seeded CPU generator: every decode's
+      logits within LM_BF16_REL of the largest logit magnitude of the
+      train-mode forward over the same positions, the tokens their argmax;
+      then the same tinyllama run with each of DECODE_FAULTS planted in the
+      decode step, each of which must read above that bound;
+      tinyllama at full width and 2 layers in f32 (TF32 off), card against
+      CPU: prefill logits within LM_F32_REL of the largest logit, the first
+      4 greedy tokens identical while the CPU's top-2 margin exceeds that
+      bound.  Prefill ms, decode ms/token (host clock after synchronize),
+      the decode bound (weight bytes over HBM's rate), a decode step's idle
+      share, device ops and top five ops under torch.profiler, and the
+      chunked attention core beside ``scaled_dot_product_attention`` at
+      the prefill shape (a yardstick only).  The serving path launches
+      none of the seven kernels: its counters must read 0;
 5. times: each kernel's device time (a CUDA graph of calls between CUDA
    events) beside its bound, its plain version and one PyTorch call
    computing the same function where there is one (timed in turns, a b b
@@ -126,6 +152,25 @@ QSGD_DOWNLINK_APPLIES = 3
 # at 1 and far below any flipped index's effect (>= 1e-3 on a policy).
 PLANNER_TOL = 1e-6
 FUSED_HYPER = ((0.2, 0.0, 0.0), (0.2, 0.01, 0.0), (0.05, 0.1, 0.01))  # (lr, mu, wd)
+# LM serving (phase 4d): batch, prompt and generated tokens of launch/serve
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 32, 16
+# bf16 decode logits against the train forward over the same positions, as a
+# share of the largest logit magnitude (the bf16 counterpart of the f32
+# 5e-4 of tests/test_models_smoke.py).  Set at 2^-4 before the first card
+# run; the sound runs read 2^-6.0 (tinyllama) and 2^-6.9 (qwen3-8b, 4
+# layers), bit for bit in every run, and two of DECODE_FAULTS 2^-3.6, under
+# 2x above 2^-4, so the bound sits at 2^-5: 2x over the sound reading and
+# 2.6x under the faults'
+LM_BF16_REL = 2.0**-5
+# Decode faults planted (by patching attention at run time) in the bf16
+# tinyllama run, each of which the bound must reject: the cache written and
+# read at cache_index - 1, the step's k/v write lost to later steps (written
+# to a copy), and the step's own position masked out of its attention
+DECODE_FAULTS = ("cache_index - 1", "k/v write dropped", "own position masked")
+# f32 at 2 layers, card (TF32 off) against the CPU: share of the largest logit
+LM_F32_REL = 1e-4
+LM_F32_TOKENS = 4
+QWEN_LAYERS = 4  # qwen3-8b's depth, cut from 36 (PERF.md §4)
 
 KERNELS = [
     {
@@ -171,8 +216,8 @@ KERNELS = [
         "replaces": "src/repro/kernels/policy_update.py:60",
     },
 ]
-COUNTED = ("tree_aggregate_groups", "qsgd_quantize", "qsgd_quantize_residual", "qsgd_dequantize",
-           "apply_quantized_broadcast", "fused_update", "policy_update")
+COUNTED = ("tree_aggregate_groups", "qsgd_quantize", "qsgd_quantize_residual",
+           "qsgd_dequantize", "apply_quantized_broadcast", "fused_update", "policy_update")
 
 
 def log(*a):
@@ -1289,6 +1334,336 @@ def time_async(torch) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 4d: FedAvg / DP on the card, then the LM serving path
+
+
+def drive_fl_modules(torch, ops, system, app) -> dict:
+    """``fl/aggregation`` and ``fl/dp`` on the quickstart MLP's per-worker
+    deltas (one round's local training, made outside the counted run):
+    fedavg and pairwise_accumulate against the aggregation kernel's G = 1
+    entry (``ops.tree_aggregate_pytree``; its launch, read as the change in
+    the aggregation kernel's count around that call, is the check's), and
+    dp_sanitize on the card against the CPU under the same injected draws."""
+    from repro_torch.fl import aggregation as agg
+    from repro_torch.fl import dp, engine
+    from repro_torch.kernels import tree_aggregate as ta
+    from repro_torch.pytree import leaves
+
+    workers = [w for w in sorted(app.handle.tree.members) if w in app.data]
+    with uncounted():
+        deltas, weights, _ = engine.local_training(app, workers)
+        torch.cuda.synchronize()
+    wn = (torch.tensor(weights) / sum(weights)).tolist()
+    gen = torch.Generator().manual_seed(7)
+    draws = [torch.randn(tuple(t.shape), generator=gen) for t in leaves(deltas[0])]
+    set_counts(dict.fromkeys(COUNTED, 0))
+    avg = agg.fedavg(deltas, weights)
+    acc = None
+    for d, w in zip(deltas, wn):
+        acc = agg.pairwise_accumulate(acc, d, w)
+    before = ta.launches
+    kernel = ops.tree_aggregate_pytree(deltas, wn)
+    g1_launches = ta.launches - before
+    noised = dp.dp_sanitize(deltas[0], draws, clip=1.0, sigma=0.1)
+    torch.cuda.synchronize()
+    got = counts()
+    cpu = [{k: v.cpu() for k, v in d.items()} for d in deltas]
+    avg_cpu = agg.fedavg(cpu, weights)
+    noised_cpu = dp.dp_sanitize(cpu[0], draws, clip=1.0, sigma=0.1)
+
+    def worst(a, b, tol):
+        errs = []
+        for x, y in zip(leaves(a), leaves(b)):
+            torch.testing.assert_close(x.cpu(), y.cpu(), **tol)
+            errs.append(float((x.cpu() - y.cpu()).abs().max()))
+        return max(errs)
+
+    return {
+        "workers": len(deltas), "L": sum(int(t.numel()) for t in leaves(deltas[0])),
+        "launches": got, "tree_aggregate_launches": g1_launches,
+        "fedavg_vs_kernel": worst(avg, kernel, TOL),
+        "pairwise_vs_kernel": worst(acc, kernel, TOL),
+        "fedavg_card_vs_cpu": worst(avg, avg_cpu, dict(rtol=0, atol=0)),
+        "dp_card_vs_cpu": worst(noised, noised_cpu, TOL),
+        "dp_global_norm": float(dp.global_norm(noised)),
+    }
+
+
+class LogitsRecorder:
+    """Keeps the last position's logits of every prefill and decode forward
+    that the serving steps make (``lm.forward`` wrapped for one run)."""
+
+    def __enter__(self):
+        from repro_torch.models import lm
+
+        self._lm, self._orig, self.logits = lm, lm.forward, []
+
+        def recorded(*args, **kw):
+            out = self._orig(*args, **kw)
+            if kw.get("mode") in ("prefill", "decode"):
+                self.logits.append(out[0][:, -1].float())
+            return out
+
+        lm.forward = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._lm.forward = self._orig
+
+
+def serve_on_card(torch, cfg, *, seed: int = 0) -> dict:
+    """One model through ``launch/serve``'s functions on the card: weights
+    from ``lm.init_params`` (seeded CPU generator), a random prompt, one
+    prefill and LM_GEN - 1 greedy decodes; the decode logits held against
+    the train-mode forward over the same LM_PROMPT + LM_GEN - 1 positions
+    within LM_BF16_REL of its largest logit magnitude."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.pytree import leaves
+
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator().manual_seed(seed), cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = serve.make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator().manual_seed(seed + 1), "cuda")
+    res, err, scale = decode_vs_forward(torch, params, cfg, batch)
+    toks = res["tokens"]
+    if err >= LM_BF16_REL * scale:
+        raise SystemExit(f"{cfg.name}: decode logits differ from the train forward by {err:.4g} "
+                         f"(bound {LM_BF16_REL} x {scale:.4g})")
+    timed = serve.generate(params, cfg, batch, LM_GEN)  # warm: the times reported
+    return {"params": params, "batch": batch, "init_s": init_s, "tokens": toks,
+            "decode_vs_forward_max_abs": err, "max_abs_logit": scale,
+            "decode_vs_forward_rel": err / scale, "first_run": res, "timed": timed,
+            "weight_bytes": sum(t.numel() * t.element_size() for t in leaves(params))}
+
+
+def decode_vs_forward(torch, params, cfg, batch) -> tuple:
+    """``serve.generate`` for LM_GEN tokens, then the train-mode forward over
+    the LM_PROMPT + LM_GEN - 1 positions its steps read: the run, the
+    largest difference between each step's logits and the forward's, and
+    the forward's largest logit magnitude."""
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    with LogitsRecorder() as rec, torch.no_grad():
+        res = serve.generate(params, cfg, batch, LM_GEN)
+        seq = torch.cat([batch["tokens"], res["tokens"][:, :-1]], dim=1)
+        full = lm.forward(params, cfg, tokens=seq, mode="train")[0].float()
+    torch.cuda.synchronize()
+    steps = torch.stack(rec.logits, dim=1)  # (B, LM_GEN, V): prefill's last, then each decode
+    want = full[:, LM_PROMPT - 1:]
+    if steps.shape != want.shape or not bool(torch.isfinite(steps).all()):
+        raise SystemExit(f"{cfg.name}: serving logits {tuple(steps.shape)} are not finite or not "
+                         f"of the forward's shape {tuple(want.shape)}")
+    if not torch.equal(res["tokens"], steps.argmax(-1).to(torch.int32)):
+        raise SystemExit(f"{cfg.name}: the greedy tokens are not their logits' argmax")
+    return res, float((steps - want).abs().max()), float(want.abs().max())
+
+
+@contextmanager
+def planted_decode_fault(kind: str):
+    """One of DECODE_FAULTS in ``models/attention``'s decode step, for the
+    length of the block (the module's functions are restored after)."""
+    from repro_torch.models import attention
+
+    fwd, dec = attention.gqa_forward, attention.decode_attention
+
+    def faulty_forward(p, cfg, x, *, mode, cache=None, cache_index=None, **kw):
+        if mode == "decode" and kind == "cache_index - 1":
+            cache_index = int(cache_index) - 1
+        if mode == "decode" and kind == "k/v write dropped":
+            out, _ = fwd(p, cfg, x, mode=mode, cache={k: v.clone() for k, v in cache.items()},
+                         cache_index=cache_index, **kw)
+            return out, cache
+        return fwd(p, cfg, x, mode=mode, cache=cache, cache_index=cache_index, **kw)
+
+    def own_position_masked(q, k, v, mask):
+        m = mask.clone()
+        m[:, int(mask[0].nonzero()[-1])] = False
+        return dec(q, k, v, m)
+
+    attention.gqa_forward = faulty_forward
+    if kind == "own position masked":
+        attention.decode_attention = own_position_masked
+    try:
+        yield
+    finally:
+        attention.gqa_forward, attention.decode_attention = fwd, dec
+
+
+def planted_faults(torch, cfg, params, batch) -> dict:
+    """The decode-vs-forward reading of each of DECODE_FAULTS, as a share of
+    the largest logit; each must exceed LM_BF16_REL."""
+    out = {}
+    for kind in DECODE_FAULTS:
+        with planted_decode_fault(kind):
+            _, err, scale = decode_vs_forward(torch, params, cfg, batch)
+        out[kind] = err / scale
+    passed = [k for k, rel in out.items() if not rel > LM_BF16_REL]
+    if passed:
+        raise SystemExit(f"{cfg.name}: LM_BF16_REL = {LM_BF16_REL} passes the planted decode "
+                         f"faults {passed}: {out}")
+    return out
+
+
+def profile_decode(torch, cfg, params, batch, n: int = 8) -> dict:
+    """``n`` steps of ``serve.decode`` under torch.profiler (each
+    synchronised, as the serving loop is): the device's busy and idle share
+    of a step, its device ops per step and its top five device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    B, P = batch["tokens"].shape
+    cache, tok = serve.start(params, cfg, batch, lm.init_cache(cfg, B, P + n + 1, device="cuda"))
+    cache, toks, _ = serve.decode(params, cfg, cache, tok, P, 1)  # warm-up step
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve.decode(params, cfg, cache, toks[-1], P + 1, n)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / n
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    return {
+        "step_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_ops_per_step": sum(e.count for e in dev) / n,
+        "top_device": [(e.key[:70], e.count // n, e.self_device_time_total / 1e3 / n) for e in top],
+    }
+
+
+def serve_times(cfg, run: dict, smi: str) -> dict:
+    """Prefill ms, decode ms/token (mean of decodes 2..), and the decode
+    step's bound: the bytes it must read (every weight but the embedding
+    table, of which it gathers B rows, plus the cache) over HBM's rate."""
+    timed = run["timed"]
+    dec = timed["decode_ms"]
+    p = run["params"]
+    emb = p["embed"].numel() * p["embed"].element_size()
+    cache_bytes = (2 * cfg.num_layers * LM_BATCH * (LM_PROMPT + LM_GEN) * cfg.num_kv_heads
+                   * cfg.head_dim * p["embed"].element_size())
+    read = run["weight_bytes"] - emb + LM_BATCH * cfg.d_model * p["embed"].element_size() + cache_bytes
+    return {
+        "arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype, "batch": LM_BATCH,
+        "prompt": LM_PROMPT, "generated": LM_GEN, "prefill_ms": timed["prefill_ms"],
+        "decode_ms_per_token": float(np.mean(dec[1:])), "decode_ms": dec,
+        "first_run_prefill_ms": run["first_run"]["prefill_ms"],
+        "weight_bytes": run["weight_bytes"],
+        "bound_ms_all_weights": run["weight_bytes"] / HBM_BYTES_PER_S * 1e3,
+        "bound_ms_decode_step": read / HBM_BYTES_PER_S * 1e3,
+        "init_s": run["init_s"], "card": smi,
+    }
+
+
+def f32_card_vs_cpu(torch) -> dict:
+    """tinyllama-1.1b at full width and 2 layers in f32 (TF32 off), the same
+    weights on the card and on the CPU: prefill logits within LM_F32_REL of
+    the largest logit magnitude, and the first LM_F32_TOKENS greedy tokens
+    identical up to the first step whose CPU top-2 margin is within that
+    bound (after such a step a row's inputs may rightly differ)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.pytree import tree_map
+
+    cfg = configs.get_config("tinyllama-1.1b").replace(num_layers=2, dtype="float32",
+                                                       param_dtype="float32")
+    params = lm.init_params(torch.Generator().manual_seed(2), cfg)
+    batch = serve.make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator().manual_seed(3), "cpu")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with LogitsRecorder() as rec, torch.no_grad():
+            res = serve.generate(p, cfg, b, LM_F32_TOKENS)
+        runs[dev] = (res["tokens"].cpu(), [l.cpu() for l in rec.logits])
+    (tc, lc), (tg, lg) = runs["cpu"], runs["cuda"]
+    scale = float(lc[0].abs().max())
+    bound = LM_F32_REL * scale
+    err = float((lg[0] - lc[0]).abs().max())
+    top2 = torch.stack([l.topk(2, dim=-1).values for l in lc], dim=1)  # (B, steps, 2)
+    margin = top2[..., 0] - top2[..., 1]
+    compared = 0
+    for r in range(LM_BATCH):
+        for j in range(LM_F32_TOKENS):
+            if tg[r, j] != tc[r, j]:
+                raise SystemExit(f"f32 card vs CPU: row {r} step {j} token {int(tg[r, j])} vs "
+                                 f"{int(tc[r, j])} at a CPU top-2 margin {float(margin[r, j]):.3g}")
+            compared += 1
+            if float(margin[r, j]) <= bound:
+                break
+    if err > bound:
+        raise SystemExit(f"f32 card vs CPU: prefill logits differ by {err:.3g} > {bound:.3g}")
+    return {"prefill_logits_max_abs": err, "max_abs_logit": scale, "rel": err / scale,
+            "bound": bound, "tokens_compared": compared, "tokens": tc.tolist(),
+            "min_top2_margin": float(margin.min())}
+
+
+def chunked_vs_sdpa(torch, cfg) -> dict:
+    """The port's chunked attention core at the prefill shape beside one
+    ``scaled_dot_product_attention`` call (a yardstick only: the path runs
+    the chunked core), host cost included."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shape = (LM_BATCH, LM_PROMPT, cfg.num_heads, cfg.head_dim)
+    q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(cfg.adtype) for _ in range(3))
+    chunked = lambda: attention.chunked_attention(q, k, v, chunk_q=cfg.attn_chunk,
+                                                  chunk_kv=cfg.attn_chunk)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    err = float((chunked().float() - sdpa().transpose(1, 2).float()).abs().max())
+    return {"shape": list(shape), "dtype": cfg.dtype, "chunked_ms": eager_ms(torch, chunked),
+            "sdpa_ms": eager_ms(torch, sdpa), "max_abs_diff": err}
+
+
+def drive_lm(torch, smi: str) -> dict:
+    """Phase 4d's LM part: b, c and d of the module docstring."""
+    from repro_torch import configs
+
+    bf16_rr = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False  # f32 accumulation
+    try:
+        return _drive_lm(torch, smi, bf16_rr)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = bf16_rr
+
+
+def _drive_lm(torch, smi: str, bf16_rr: bool) -> dict:
+    from repro_torch import configs
+
+    out = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "allow_bf16_reduced_precision_reduction": False, "default_bf16_rr": bf16_rr}
+    set_counts(dict.fromkeys(COUNTED, 0))
+    tiny = configs.get_config("tinyllama-1.1b")
+    run = serve_on_card(torch, tiny)
+    out["tinyllama"] = serve_times(tiny, run, smi)
+    out["tinyllama"].update(decode_vs_forward_max_abs=run["decode_vs_forward_max_abs"],
+                            decode_vs_forward_rel=run["decode_vs_forward_rel"],
+                            tokens_row0=run["tokens"][0].tolist())
+    qwen = configs.get_config("qwen3-8b").replace(num_layers=QWEN_LAYERS)
+    qrun = serve_on_card(torch, qwen, seed=10)
+    out["qwen3"] = serve_times(qwen, qrun, smi)
+    out["qwen3"].update(decode_vs_forward_max_abs=qrun["decode_vs_forward_max_abs"],
+                        decode_vs_forward_rel=qrun["decode_vs_forward_rel"])
+    del qrun
+    torch.cuda.synchronize()
+    out["launches"] = counts()
+    out["f32_2layer"] = f32_card_vs_cpu(torch)
+    with uncounted():
+        out["tinyllama_planted_faults"] = planted_faults(torch, tiny, run["params"], run["batch"])
+        out["tinyllama_decode_profile"] = profile_decode(torch, tiny, run["params"], run["batch"])
+        out["attention_at_prefill_shape"] = chunked_vs_sdpa(torch, tiny)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+
 def main() -> int:
     import torch
 
@@ -1532,6 +1907,45 @@ def main() -> int:
         f"over the async and placement runs' {len(later)} other (G, C, L, dtype): "
         f"{[(*sh[:3], str(sh[3])[6:]) for sh in later]}")
 
+    # -- 4d. FedAvg / DP on the card, then the LM serving path ------------------
+    fl_mod = drive_fl_modules(torch, ops, *gpu["live"])
+    fl_want = {**dict.fromkeys(COUNTED, 0), "tree_aggregate_groups": 1}
+    log(f"[4d fl modules] {json.dumps(fl_mod)} (TOL {TOL}; fedavg card vs CPU bit-equal)")
+    if fl_mod["launches"] != fl_want or fl_mod["tree_aggregate_launches"] != 1:
+        raise SystemExit(f"fl modules: launches {fl_mod['launches']} differ from {fl_want}, or "
+                         f"the G = 1 call made {fl_mod['tree_aggregate_launches']}, not 1")
+    g1_shape = (1, fl_mod["workers"], fl_mod["L"])
+    g1_err = check_tree_aggregate(torch, ta, ref, [(*g1_shape, f32)])
+    log(f"[4d fl modules] tree_aggregate at the phase's {g1_shape}: bit-equal to its chain, "
+        f"max_abs_err={g1_err:.3e} against the plain version")
+    lm_run = drive_lm(torch, smi)
+    for name in ("tinyllama", "qwen3"):
+        r = lm_run[name]
+        log(f"[4d serve] {name} {r['layers']} layers {r['dtype']} B={LM_BATCH} prompt {LM_PROMPT} "
+            f"+ {LM_GEN} generated: prefill {r['prefill_ms']:.3f} ms (first call "
+            f"{r['first_run_prefill_ms']:.3f}), decode {r['decode_ms_per_token']:.3f} ms/token "
+            f"(mean of decodes 2-{LM_GEN - 1}, host clock after synchronize); bound "
+            f"{r['bound_ms_all_weights']:.4f} ms/token for {r['weight_bytes'] / 1e9:.4f} GB of "
+            f"weights at {HBM_BYTES_PER_S / 1e12} TB/s ({r['bound_ms_decode_step']:.4f} ms for the "
+            f"bytes a decode step reads); decode vs train forward max |d| "
+            f"{r['decode_vs_forward_max_abs']:.4g} = {r['decode_vs_forward_rel']:.4g} of the largest "
+            f"logit (bound {LM_BF16_REL}); init {r['init_s']:.1f} s; card: {smi}")
+        log(f"[4d serve] {name} {json.dumps({k: v for k, v in r.items() if k != 'card'})}")
+    log(f"[4d serve] tinyllama decode vs train forward with a planted fault, as a share of the "
+        f"largest logit (each must exceed {LM_BF16_REL}; the sound run read "
+        f"{lm_run['tinyllama']['decode_vs_forward_rel']:.4g}): "
+        f"{json.dumps(lm_run['tinyllama_planted_faults'])}")
+    log(f"[4d serve] tinyllama decode step under torch.profiler: "
+        f"{json.dumps(lm_run['tinyllama_decode_profile'])}")
+    log(f"[4d serve] f32, 2 layers, card vs CPU: {json.dumps(lm_run['f32_2layer'])} "
+        f"(bound {LM_F32_REL} of the largest logit, TF32 {lm_run['allow_tf32']})")
+    log(f"[4d serve] attention at the prefill shape: {json.dumps(lm_run['attention_at_prefill_shape'])}")
+    log(f"[4d serve] bf16 GEMMs with allow_bf16_reduced_precision_reduction=False (default "
+        f"{lm_run['default_bf16_rr']}); peak memory {lm_run['peak_mem_gb']:.2f} GB; launches "
+        f"{json.dumps(lm_run['launches'])} (the serving path runs none of the seven kernels)")
+    if lm_run["launches"] != dict.fromkeys(COUNTED, 0):
+        raise SystemExit(f"serving path: launches {lm_run['launches']}, expected none")
+
     # -- 5. times -------------------------------------------------------------
     f32_levels = sorted({sh[:3] for sh in path_shapes if sh[3] == f32})  # sync, async, placement
     rows = [time_tree_aggregate(torch, ta, ref, g, c, l, f32) for g, c, l in f32_levels]
@@ -1544,6 +1958,8 @@ def main() -> int:
         time_tree_aggregate(torch, ta, ref, 1, 16, 1 << 22, f32),
     ]
     bench_row = rows[-4]  # (1, 16, 131072) bf16: kernel 2's bench shape
+    g1_row = time_tree_aggregate(torch, ta, ref, *g1_shape, f32)  # phase 4d's G = 1 call
+    log(f"[5 times] tree_aggregate (G = 1, phase 4d) {json.dumps(g1_row)}")
     for r in rows:
         log(f"[5 times] tree_aggregate_groups {json.dumps(r)}")
     comp_rows = {R: time_compression_kernels(torch, qz, bc, ta, ref, R) for R in (27, 4096, 65536)}
@@ -1590,7 +2006,7 @@ def main() -> int:
                 for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "einsum_of_widened_ms")}
     KERNELS[0].update(
         launches=launches + sum(c["tree_aggregate_groups"] for c in async_counts.values())
-        + place_counts["tree_aggregate_groups"],
+        + place_counts["tree_aggregate_groups"] + fl_mod["launches"]["tree_aggregate_groups"],
         max_abs_err=max(max_err, comp_err["tree_aggregate_groups_int8"]), ms=main_row["ms"],
         plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
         bound_by=main_row["bound_by"], library_ms=main_row["library_ms"], shape=main_row["shape"],
@@ -1598,10 +2014,12 @@ def main() -> int:
         worst_level={k: worst_row[k] for k in ("shape", "ms", "library_ms", "kernel_over_library")},
         int8=dict(int8_row, launches=async_counts["compressed"]["tree_aggregate_groups"]),
     )
-    KERNELS[1].update(  # reached through ops.tree_aggregate, which no main path calls
-        launches=0, max_abs_err=max_err, ms=bench_row["ms"], plain_ms=bench_row["plain_ms"],
-        bound_ms=bench_row["bound_ms"], bound_by=bench_row["bound_by"],
-        library_ms=bench_row["library_ms"],
+    KERNELS[1].update(  # phase 4d's check of fedavg: no path of the port calls it
+        launches=fl_mod["tree_aggregate_launches"], launches_from="phase 4d check of fedavg",
+        max_abs_err=max(max_err, g1_err),
+        ms=g1_row["ms"], plain_ms=g1_row["plain_ms"], bound_ms=g1_row["bound_ms"],
+        bound_by=g1_row["bound_by"], library_ms=g1_row["library_ms"], shape=g1_row["shape"],
+        bench={k: bench_row[k] for k in ("shape", "dtype", "ms", "plain_ms", "bound_ms", "library_ms")},
     )
     brief = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for entry in KERNELS[2:5]:  # launches: both compressed runs of phase 4b
@@ -1634,8 +2052,8 @@ def main() -> int:
         plain_ms=demo["plain_ms"], bound_ms=demo["bound_ms"], bound_by=demo["bound_by"],
         library_ms=None, shape=demo["shape"], masks=demo["masks"],
     )
-    idle = [e["name"] for e in KERNELS if e["name"] != "tree_aggregate" and not e["launches"]]
-    if idle:  # tree_aggregate is reached through ops.tree_aggregate, which no main path calls
+    idle = [e["name"] for e in KERNELS if not e["launches"]]
+    if idle:
         raise SystemExit(f"kernels of the main paths launched no time there: {idle}")
     log(smi)
     log(json.dumps({"kernels": KERNELS}))

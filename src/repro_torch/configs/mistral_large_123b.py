@@ -1,0 +1,18 @@
+"""mistral-large-123b [dense]: 88L d_model=12288 96H (GQA kv=8) d_ff=28672
+vocab=32768  [hf:mistralai/Mistral-Large-Instruct-2407; unverified]."""
+from ..config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mistral-large-123b",
+    family="dense",
+    num_layers=88,
+    d_model=12288,
+    num_heads=96,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=28672,
+    vocab_size=32768,
+    rope_theta=1e6,
+    optimizer="adafactor",  # 123B: factored states; see DESIGN.md §6
+    param_dtype="float32",
+)

@@ -1,0 +1,16 @@
+"""tinyllama-1.1b [dense]: 22L d_model=2048 32H (GQA kv=4) d_ff=5632
+vocab=32000 — llama2-arch small [arXiv:2401.02385; hf]."""
+from ..config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="tinyllama-1.1b",
+    family="dense",
+    num_layers=22,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=4,
+    head_dim=64,
+    d_ff=5632,
+    vocab_size=32000,
+    rope_theta=1e4,
+)

@@ -50,7 +50,7 @@ def tree_aggregate_groups(grads: torch.Tensor, weights) -> torch.Tensor:
 def tree_aggregate(grads: torch.Tensor, weights) -> torch.Tensor:
     """(C, L) x (C,) -> (L,) f32 weighted sum: the G = 1 case of the kernel."""
     w = torch.as_tensor(weights, dtype=torch.float32, device=grads.device)
-    return tree_aggregate_groups(grads[None], w[None])[0]
+    return _ta.tree_aggregate(grads.contiguous(), w.contiguous())
 
 
 def _stack_pytrees(updates: list) -> torch.Tensor:

@@ -20,6 +20,9 @@ zero-weight slot with a zero input adds an exact zero, so ragged groups pad
 with zero rows and zero weights.  ``staleness_weights`` is the whole of the
 async change to the math: it discounts each buffered commit's weight.
 
+``tree_aggregate`` answers to the reference's Pallas ``tree_aggregate``
+(the G = 1 case: (C, L) x (C,) -> (L,) f32) and launches the same kernel.
+
 ``launches`` counts kernel launches (never plain-version calls), so a run
 can show that its main path went through the kernel.
 """
@@ -131,3 +134,12 @@ def tree_aggregate_groups(grads: torch.Tensor, weights: torch.Tensor) -> torch.T
         raise RuntimeError(f"tree_aggregate_groups launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def tree_aggregate(grads: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """(C, L) f32/bf16/int8 x (C,) f32 -> (L,) f32 weighted sum: one group
+    of ``tree_aggregate_groups``."""
+    if grads.dim() != 2 or weights.dim() != 1:
+        raise ValueError(f"grads must be (C, L) and weights (C,), got {tuple(grads.shape)} "
+                         f"and {tuple(weights.shape)}")
+    return tree_aggregate_groups(grads[None], weights[None])[0]

@@ -1,0 +1,257 @@
+"""Attention for the dense decoder: chunked-causal (flash-style) GQA with a
+KV cache.
+
+Answers to the GQA half of ``repro/models/attention.py``:
+
+- ``chunked_attention`` is the forward of the reference's ``_flash``
+  core (``_flash_fwd_impl``), plain PyTorch in the reference's chunk
+  order: for each query chunk, an online softmax over every key chunk in
+  turn, masked chunks included, with f32 scores and accumulators.  It is
+  forward only, for serving; the flash backward comes with training;
+- ``decode_attention`` is the reference's single-token attention over the
+  whole cache under a length mask;
+- ``gqa_forward`` runs the train, prefill and decode modes.
+
+Numerics kept from the reference: scores and the PV product take bf16 (or
+f32) inputs and accumulate in f32 (XLA's ``preferred_element_type``), so
+the inputs are widened to f32 first; the probabilities are rounded to the
+value dtype before the PV product; heads are kv-major (``h = kv * G +
+g``), so the train path repeats each kv head G times in place
+(``repeat_interleave``), not tiled.
+
+One deliberate divergence (ROADMAP §3, parity rule 9): the reference
+writes the decode step's key and value with ``dynamic_update_slice``,
+which clamps an out-of-range ``cache_index`` and silently overwrites the
+cache's last slot; the port raises ``IndexError``.  The port's decode
+writes the cache in place and returns it (the reference's server donates
+its cache buffer to the same end).
+
+MLA, cross-attention and the flash backward are still to port (ROADMAP
+§1 item 4).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import nn
+from .nn import apply_rope, dense_init, rms_norm
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# chunked flash-style attention core
+
+
+def _mask_chunk(q_pos, k_pos, causal, window):
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    return mask
+
+
+def _flash_fwd(q, k, v, causal, q_offset, window, scale):
+    """q: (nq, B, Cq, KV, G, Dk); k, v: (nk, B, Ck, KV, D) -> (nq, B, Cq, KV, G, Dv)."""
+    nq, B, Cq, KV, G = q.shape[:5]
+    nk, Ck, Dv = k.shape[0], k.shape[2], v.shape[-1]
+    dev = q.device
+    outs = []
+    for iq in range(nq):
+        q_i = q[iq].float()
+        q_pos = q_offset + iq * Cq + torch.arange(Cq, dtype=torch.int32, device=dev)
+        acc = torch.zeros((B, Cq, KV, G, Dv), dtype=torch.float32, device=dev)
+        m = torch.full((B, Cq, KV, G), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, Cq, KV, G), dtype=torch.float32, device=dev)
+        for ik in range(nk):
+            k_pos = ik * Ck + torch.arange(Ck, dtype=torch.int32, device=dev)
+            s = torch.einsum("bqkgd,bckd->bqkgc", q_i, k[ik].float()) * scale
+            mask = _mask_chunk(q_pos, k_pos, causal, window)
+            s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bqkgc,bckd->bqkgd", p.to(v.dtype).float(), v[ik].float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
+    return torch.stack(outs)
+
+
+def chunked_attention(
+    q: torch.Tensor,  # (B, Sq, H, Dk)
+    k: torch.Tensor,  # (B, Skv, KV, Dk)
+    v: torch.Tensor,  # (B, Skv, KV, Dv)
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    chunk_q: int = 512,
+    chunk_kv: int = 512,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Memory-efficient attention; returns (B, Sq, H, Dv).
+
+    ``q_offset`` is the absolute position of q[0]; the GQA group size is
+    H // KV.  The sequence lengths must divide into the chunks.
+    """
+    B, Sq, H, Dk = q.shape
+    Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dk)
+
+    chunk_q = min(chunk_q, Sq)
+    chunk_kv = min(chunk_kv, Skv)
+    nq, nk = Sq // chunk_q, Skv // chunk_kv
+    assert nq * chunk_q == Sq and nk * chunk_kv == Skv, (Sq, Skv, chunk_q, chunk_kv)
+
+    qc = q.reshape(B, nq, chunk_q, KV, G, Dk).transpose(0, 1)
+    kc = k.reshape(B, nk, chunk_kv, KV, Dk).transpose(0, 1)  # (nk, B, Ck, KV, Dk)
+    vc = v.reshape(B, nk, chunk_kv, KV, Dv).transpose(0, 1)  # (nk, B, Ck, KV, Dv)
+    out = _flash_fwd(qc, kc, vc, causal, int(q_offset), window, scale)
+    return out.transpose(0, 1).reshape(B, Sq, H, Dv)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, Dk)
+    k_cache: torch.Tensor,  # (B, S, KV, Dk)
+    v_cache: torch.Tensor,  # (B, S, KV, Dv)
+    length_mask: torch.Tensor,  # (B, S) bool: True for valid positions
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Single-token attention over the cache."""
+    B, _, H, Dk = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dk)
+    qg = q.reshape(B, KV, G, Dk).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * scale
+    s = torch.where(length_mask[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.clamp(l, min=1e-30)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())
+    return out.reshape(B, 1, H, -1).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA block
+
+
+def padded_heads(cfg) -> tuple[int, int]:
+    """(H_padded, G_padded): query heads padded per KV group to a multiple
+    of ``tp_pad_multiple`` (llava's H = 56 on a 16-way axis in the
+    reference's sharding; padded heads are masked out of the output
+    projection, so the math matches the unpadded model exactly)."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    mult = getattr(cfg, "tp_pad_multiple", 1)
+    G = H // KV
+    if mult <= 1 or (H % mult == 0 and G >= 1):
+        return H, G
+    G_pad = G
+    while (KV * G_pad) % mult:
+        G_pad += 1
+    return KV * G_pad, G_pad
+
+
+def head_mask(cfg, device=None) -> torch.Tensor | None:
+    """(H_pad,) f32, 1 on real heads, in kv-major head order; None unpadded."""
+    H_pad, G_pad = padded_heads(cfg)
+    if H_pad == cfg.num_heads:
+        return None
+    G = cfg.num_heads // cfg.num_kv_heads
+    m = (torch.arange(G_pad, device=device) < G).float()  # (G_pad,)
+    return m.repeat(cfg.num_kv_heads)  # tiled: kv-major head order
+
+
+def init_gqa(gen: torch.Generator, cfg) -> nn.Params:
+    d, KV, hd = cfg.d_model, cfg.num_kv_heads, cfg.head_dim
+    H_pad, _ = padded_heads(cfg)
+    ks = nn.split_keys(gen, 4)
+    dt = cfg.pdtype
+    p = {
+        "wq": dense_init(ks[0], d, (H_pad * hd,), dt).reshape(d, H_pad, hd),
+        "wk": dense_init(ks[1], d, (KV * hd,), dt).reshape(d, KV, hd),
+        "wv": dense_init(ks[2], d, (KV * hd,), dt).reshape(d, KV, hd),
+        "wo": dense_init(ks[3], H_pad * hd, (d,), dt).reshape(H_pad, hd, d),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=dt)
+        p["k_norm"] = torch.zeros((hd,), dtype=dt)
+    return p
+
+
+def _project(x, w):
+    """'bsd,dhk->bshk' as one matmul over the flattened (h, k)."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def gqa_forward(p, cfg, x, *, positions, mode, cache=None, cache_index=None, causal=True):
+    """mode: 'train'/'prefill' (full seq) or 'decode' (one token).
+
+    Returns (out, new_cache); new_cache is None in train mode.  In decode
+    mode ``cache_index`` is a Python int (or a 0-d tensor, read on the
+    host) in [0, max_len), and the cache is written in place.
+    """
+    B, S, d = x.shape
+    H, G = padded_heads(cfg)
+    hmask = head_mask(cfg, x.device)
+    q = _project(x, p["wq"])
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if mode in ("train", "prefill"):
+        # each kv head repeated G times in place: heads are kv-major
+        k_full = torch.repeat_interleave(k, G, dim=2) if G > 1 else k
+        v_full = torch.repeat_interleave(v, G, dim=2) if G > 1 else v
+        out = chunked_attention(
+            q, k_full, v_full, causal=causal, chunk_q=cfg.attn_chunk,
+            chunk_kv=cfg.attn_chunk, window=cfg.window,
+        )
+        new_cache = {"k": k, "v": v} if mode == "prefill" else None
+    elif mode == "decode":
+        k_cache, v_cache = cache["k"], cache["v"]
+        Smax = k_cache.shape[1]
+        idx = int(cache_index)
+        if not 0 <= idx < Smax:  # the reference clamps here (parity rule 9)
+            raise IndexError(f"cache_index {idx} outside a cache of {Smax} positions")
+        k_cache[:, idx] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, idx] = v[:, 0].to(v_cache.dtype)
+        pos_ids = torch.arange(Smax, dtype=torch.int32, device=x.device)
+        mask = pos_ids[None, :] <= idx
+        if cfg.window is not None:
+            mask &= pos_ids[None, :] > idx - cfg.window
+        out = decode_attention(q, k_cache, v_cache, mask.expand(B, Smax))
+        new_cache = {"k": k_cache, "v": v_cache}
+    else:
+        raise ValueError(mode)
+
+    if hmask is not None:  # zero the padded query heads (exact-math padding)
+        out = out * hmask[None, None, :, None].to(out.dtype)
+    out = out.flatten(-2) @ p["wo"].to(x.dtype).flatten(0, 1)
+    return out, new_cache
+
+
+def gqa_cache_shape(cfg, batch: int, max_len: int) -> dict:
+    """The cache's shapes and dtype as meta tensors (no allocation)."""
+    shp = torch.empty((batch, max_len, cfg.num_kv_heads, cfg.head_dim), dtype=cfg.adtype,
+                      device="meta")
+    return {"k": shp, "v": shp}
+
+
+def gqa_init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.adtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.adtype, device=device)}

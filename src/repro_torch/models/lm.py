@@ -1,0 +1,283 @@
+"""Decoder-LM assembly: layer patterns, a loop over stacked blocks, loss.
+
+Answers to ``repro/models/lm.py`` with the same public surface and the
+same parameter and cache layout: dicts whose ``blocks/pos{i}`` leaves are
+stacked over the ``nb`` blocks, shape ``(nb, ...)``, weights ``(in,
+out)``, so the JAX package's parameters carry over through
+``convert.params_from_numpy``.  The reference's ``lax.scan`` over the
+stack becomes a Python loop over its leading axis.
+
+Only the dense ``("attn", "dense")`` pattern runs here.  Configs whose
+pattern holds MLA, MoE, Mamba or RWKV layers raise ``NotImplementedError``
+naming the ROADMAP item that ports them; nothing falls back.  (The only
+configs with ``first_dense`` layers are MoE ones, so the leading-layer
+path comes with MoE.)  Train mode computes the forward only: the
+reference's rematerialisation (``remat``) and the flash backward come
+with the training slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from ..pytree import leaves, tree_map
+from . import attention as attn
+from . import nn
+from .nn import dense_init, embed_init, rms_norm
+
+_NOT_PORTED = {
+    "mla": "MLA attention (models/attention.py, ROADMAP §1 item 4)",
+    "mamba": "Mamba layers (models/ssm.py, ROADMAP §1 item 4)",
+    "rwkv": "RWKV time mixing (models/rwkv.py, ROADMAP §1 item 4)",
+    "moe": "MoE layers (models/moe.py, ROADMAP §1 item 4)",
+    "rwkv_cm": "RWKV channel mixing (models/rwkv.py, ROADMAP §1 item 4)",
+}
+
+
+# ---------------------------------------------------------------------------
+# layer pattern
+
+
+def layer_pattern(cfg) -> list[tuple[str, str]]:
+    """Pattern of (mixer, ffn) for one block (excludes first_dense)."""
+    if cfg.ssm_kind == "rwkv6":
+        return [("rwkv", "rwkv_cm")]
+    n = cfg.attn_every if cfg.attn_every > 1 else 1
+    if cfg.moe_num_experts and cfg.moe_every > 1:
+        n = max(n, cfg.moe_every)
+    pat = []
+    for i in range(n):
+        if cfg.ssm_kind == "mamba" and cfg.attn_every > 1:
+            mixer = "attn" if i % cfg.attn_every == 0 else "mamba"
+        elif cfg.attn_impl == "mla":
+            mixer = "mla"
+        else:
+            mixer = "attn"
+        if cfg.moe_num_experts:
+            ffn = "moe" if (i % cfg.moe_every == cfg.moe_every - 1 or cfg.moe_every == 1) else "dense"
+        else:
+            ffn = "dense"
+        pat.append((mixer, ffn))
+    return pat
+
+
+def num_blocks(cfg) -> int:
+    pat = layer_pattern(cfg)
+    n = (cfg.num_layers - cfg.first_dense) // len(pat)
+    assert n * len(pat) + cfg.first_dense == cfg.num_layers, (
+        cfg.num_layers,
+        cfg.first_dense,
+        len(pat),
+    )
+    return n
+
+
+def _require_ported(cfg, *kinds: str) -> None:
+    for kind in kinds:
+        if kind in _NOT_PORTED:
+            raise NotImplementedError(f"{cfg.name}: not ported yet: {_NOT_PORTED[kind]}")
+
+
+def _check_ported(cfg) -> list[tuple[str, str]]:
+    """The layer pattern, or NotImplementedError for a kind not ported yet."""
+    pat = layer_pattern(cfg)
+    _require_ported(cfg, *(k for pair in pat for k in pair))
+    if cfg.first_dense:  # only MoE configs have leading dense layers
+        raise NotImplementedError(f"{cfg.name}: leading dense layers come with "
+                                  f"{_NOT_PORTED['moe']}")
+    return pat
+
+
+# ---------------------------------------------------------------------------
+# single layer (one (mixer, ffn) pair)
+
+
+def _init_ffn(gen, cfg, *, d_ff: int | None = None):
+    d = cfg.d_model
+    ff = d_ff or cfg.d_ff
+    ks = nn.split_keys(gen, 3)
+    dt = cfg.pdtype
+    return {
+        "wi": dense_init(ks[0], d, (ff,), dt),
+        "wg": dense_init(ks[1], d, (ff,), dt),
+        "wo": dense_init(ks[2], ff, (d,), dt),
+    }
+
+
+def init_layer(gen, cfg, mixer: str, ffn: str, *, d_ff: int | None = None):
+    _require_ported(cfg, mixer, ffn)
+    k1, k2 = nn.split_keys(gen, 2)
+    return {
+        "norm1": torch.zeros((cfg.d_model,), dtype=cfg.pdtype),
+        "mixer": attn.init_gqa(k1, cfg),
+        "norm2": torch.zeros((cfg.d_model,), dtype=cfg.pdtype),
+        "ffn": _init_ffn(k2, cfg, d_ff=d_ff),
+    }
+
+
+def apply_layer(p, cfg, x, mixer: str, ffn: str, *, positions, mode, cache=None, cache_index=None):
+    """Returns (x, new_cache, aux); a dense layer's aux loss is 0.0."""
+    _require_ported(cfg, mixer, ffn)
+    h = rms_norm(x, p["norm1"])
+    out, nc = attn.gqa_forward(p["mixer"], cfg, h, positions=positions, mode=mode,
+                               cache=cache.get("mix") if cache else None, cache_index=cache_index)
+    x = x + out
+    h = rms_norm(x, p["norm2"])
+    x = x + nn.swiglu(h, p["ffn"]["wi"], p["ffn"]["wg"], p["ffn"]["wo"])
+    new_cache = {"mix": nc} if mode in ("prefill", "decode") else None
+    return x, new_cache, 0.0
+
+
+# ---------------------------------------------------------------------------
+# full model params
+
+
+def _stack(trees: list) -> Any:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_params(gen: torch.Generator, cfg, *, device="cpu") -> nn.Params:
+    """Random parameters from a CPU generator, drawn on the CPU and moved to
+    ``device`` one block at a time."""
+    pat = _check_ported(cfg)
+    nb = num_blocks(cfg)
+    keys = nn.split_keys(gen, 4)
+    params: dict[str, Any] = {
+        "embed": embed_init(keys[0], cfg.padded_vocab, cfg.d_model, cfg.pdtype).to(device),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.pdtype, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(keys[1], cfg.d_model, (cfg.padded_vocab,), cfg.pdtype).to(device)
+
+    layers: list[list] = [[] for _ in pat]
+    for bkey in nn.split_keys(keys[3], nb):
+        for pos, ((mixer, ffn), lk) in enumerate(zip(pat, nn.split_keys(bkey, len(pat)))):
+            layers[pos].append(tree_map(lambda t: t.to(device), init_layer(lk, cfg, mixer, ffn)))
+    blocks = {f"pos{pos}": _stack(ls) for pos, ls in enumerate(layers)}
+    params["blocks"] = blocks
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward
+
+
+def embed_tokens(params, cfg, tokens):
+    return params["embed"].to(cfg.adtype)[tokens]
+
+
+def forward(params, cfg, *, tokens=None, embeds=None, mode="train", cache=None, cache_index=None,
+            positions=None):
+    """Returns (logits, new_cache, aux_loss).
+
+    tokens: (B, S) int or embeds: (B, S, d).  cache: the stacked cache
+    {'blocks': ...} for decode, written in place and returned; prefill
+    returns a new one of the prompt's length.
+    """
+    pat = _check_ported(cfg)
+    x = embed_tokens(params, cfg, tokens) if embeds is None else embeds.to(cfg.adtype)
+    B, S = x.shape[0], x.shape[1]
+    if positions is None:
+        if mode == "decode":
+            assert cache_index is not None
+            positions = torch.full((B, 1), int(cache_index), dtype=torch.int32, device=x.device)
+        else:
+            positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+
+    aux = 0.0
+    nb = num_blocks(cfg)
+    per_block = []
+    for i in range(nb):
+        new_cache = {}
+        for pos, (mixer, ffn) in enumerate(pat):
+            name = f"pos{pos}"
+            lp = tree_map(lambda t: t[i], params["blocks"][name])
+            c = tree_map(lambda t: t[i], cache["blocks"][name]) if cache is not None else None
+            x, nc, a = apply_layer(lp, cfg, x, mixer, ffn, positions=positions, mode=mode,
+                                   cache=c, cache_index=cache_index)
+            aux = aux + a
+            if nc is not None:
+                new_cache[name] = nc
+        per_block.append(new_cache)
+
+    x = rms_norm(x, params["final_norm"])
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    # logits stay in the activation dtype (the loss widens them to f32)
+    logits = x @ head.to(cfg.adtype)
+    if cfg.padded_vocab != cfg.vocab_size:  # mask padded vocab columns
+        vmask = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
+        logits = logits.masked_fill(~vmask, -1e9)
+
+    aux = torch.tensor(aux, dtype=torch.float32, device=x.device)
+    if mode == "prefill":
+        return logits, {"blocks": _stack(per_block)}, aux
+    if mode == "decode":  # the per-block caches are views of ``cache``
+        return logits, cache, aux
+    return logits, None, aux
+
+
+# ---------------------------------------------------------------------------
+# loss
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None):
+    """Mean cross-entropy in f32. labels: (B, S) int (-1 = pad)."""
+    if mask is None:
+        mask = labels >= 0
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    ll = torch.gather(lf, -1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    ce = (lse - ll) * mask.float()
+    return torch.sum(ce) / torch.clamp(torch.sum(mask), min=1)
+
+
+def train_loss(params, cfg, batch):
+    logits, _, aux = forward(
+        params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"), mode="train",
+    )
+    loss = lm_loss(logits, batch["labels"])
+    return loss + cfg.moe_aux_weight * aux, (loss, aux)
+
+
+# ---------------------------------------------------------------------------
+# caches
+
+
+def cache_shapes(cfg, batch: int, max_len: int):
+    """The stacked cache tree as meta tensors: shapes and dtypes, no memory."""
+    pat = _check_ported(cfg)
+    nb = num_blocks(cfg)
+    return {"blocks": {
+        f"pos{pos}": {"mix": tree_map(lambda t: t.expand((nb,) + tuple(t.shape)),
+                                         attn.gqa_cache_shape(cfg, batch, max_len))}
+        for pos in range(len(pat))
+    }}
+
+
+def init_cache(cfg, batch: int, max_len: int, *, device=None):
+    """Zeros of ``cache_shapes``' shapes, each leaf its own memory (decode
+    writes into it)."""
+    return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=device),
+                       cache_shapes(cfg, batch, max_len))
+
+
+# ---------------------------------------------------------------------------
+# analytic parameter counts (meta tensors: no allocation, no draws)
+
+
+def count_params_analytic(cfg) -> tuple[int, int]:
+    """(total_params, active_params); padded query heads (llava) are not
+    counted.  Configs this port cannot build yet raise."""
+    with torch.device("meta"):
+        shapes = init_params(torch.Generator(), cfg, device="meta")
+    total = sum(math.prod(x.shape) for x in leaves(shapes))
+    H_pad, _ = attn.padded_heads(cfg)
+    if H_pad != cfg.num_heads and cfg.attn_impl == "gqa":
+        n_attn = sum(1 for m, _ in layer_pattern(cfg) if m == "attn") * num_blocks(cfg)
+        total -= n_attn * (H_pad - cfg.num_heads) * cfg.head_dim * cfg.d_model * 2
+    return total, total

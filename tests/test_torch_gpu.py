@@ -612,3 +612,128 @@ def test_policy_update_kernel_at_mask_kinds(cuda, N, K, M, kind):
         torch.cuda.synchronize()
         assert pu.launches == before + 1
         assert torch.equal(out, ref.policy_update_ref(pi, mask, cand, rs, 8, alpha, beta))
+
+
+# -- FedAvg / DP and the dense decoder on the card --------------------------------
+
+
+def test_module_tree_aggregate_launches_the_kernel(cuda):
+    x = torch.randn(12, 6792, device=cuda)
+    w = torch.rand(12, device=cuda)
+    before = ta.launches
+    out = ta.tree_aggregate(x, w)
+    torch.cuda.synchronize()
+    assert ta.launches == before + 1
+    assert torch.equal(out, ref.tree_aggregate_groups_chain(x[None], w[None])[0])
+
+
+def _deltas_on(device, n=16, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [{"w1": torch.randn(32, 64, generator=gen), "b1": torch.randn(64, generator=gen),
+             "w2": torch.randn(64, 8, generator=gen)} for _ in range(n)], gen
+
+
+def test_fedavg_and_pairwise_on_card_match_cpu_and_the_kernel(cuda):
+    from repro_torch.fl import aggregation as agg
+    from repro_torch.pytree import leaves
+
+    deltas, gen = _deltas_on("cpu")
+    w = (torch.rand(16, generator=gen) + 0.1).tolist()
+    on = [{k: v.to(cuda) for k, v in d.items()} for d in deltas]
+    cpu, card = agg.fedavg(deltas, w), agg.fedavg(on, w)
+    kernel = ops.tree_aggregate_pytree(on, torch.tensor(w) / sum(w))
+    acc = None
+    for d, wi in zip(on, (torch.tensor(w) / sum(w)).tolist()):
+        acc = agg.pairwise_accumulate(acc, d, wi)
+    for a, b, k, p in zip(leaves(card), leaves(cpu), leaves(kernel), leaves(acc)):
+        assert torch.equal(a.cpu(), b)  # elementwise f32 ops: the same bits
+        torch.testing.assert_close(k, a, **TOL)
+        torch.testing.assert_close(p, a, **TOL)
+
+
+def test_dp_sanitize_on_card_matches_cpu(cuda):
+    from repro_torch.fl import dp
+    from repro_torch.pytree import leaves
+
+    deltas, gen = _deltas_on("cpu", n=1)
+    draws = [torch.randn(t.shape, generator=gen) for t in leaves(deltas[0])]
+    cpu = dp.dp_sanitize(deltas[0], draws, clip=1.0, sigma=0.5)
+    card = dp.dp_sanitize({k: v.to(cuda) for k, v in deltas[0].items()}, draws, clip=1.0, sigma=0.5)
+    for a, b in zip(leaves(card), leaves(cpu)):
+        torch.testing.assert_close(a.cpu(), b, **TOL)
+    gen_cpu = dp.gaussianize(deltas[0], torch.Generator().manual_seed(3), 0.1)
+    gen_card = dp.gaussianize({k: v.to(cuda) for k, v in deltas[0].items()},
+                              torch.Generator().manual_seed(3), 0.1)
+    for a, b in zip(leaves(gen_card), leaves(gen_cpu)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-8b", "llava-next-34b"])
+def test_reduced_lm_on_card_matches_cpu(cuda, arch):
+    """f32 with TF32 off (PyTorch's default): logits within 1e-5 of the CPU
+    run's, greedy serve tokens identical, decode within 5e-4 of train."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.pytree import tree_map
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = configs.get_reduced(arch)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    on = tree_map(lambda t: t.to(cuda), params)
+    batch = serve.make_batch(cfg, 4, 64, torch.Generator().manual_seed(1), "cpu")
+    on_batch = {k: v.to(cuda) for k, v in batch.items()}
+    cpu_logits = lm.forward(params, cfg, mode="train", **batch)[0]
+    card_logits = lm.forward(on, cfg, mode="train", **on_batch)[0]
+    torch.testing.assert_close(card_logits.cpu(), cpu_logits, rtol=1e-5, atol=1e-5)
+    res_cpu = serve.generate(params, cfg, batch, 8)
+    res_card = serve.generate(on, cfg, on_batch, 8)
+    assert torch.equal(res_card["tokens"].cpu(), res_cpu["tokens"])
+
+
+@pytest.mark.parametrize("window", [None, 40])
+def test_reduced_lm_multi_chunk_on_card_matches_cpu(cuda, window):
+    """S = 128 at the reduced attn_chunk 64: two query and two key chunks,
+    so the online softmax carries its running max and sum across chunks
+    (windowed: the first key chunk partly masked for the second query
+    chunk).  f32 with TF32 off: logits within 1e-5 of the CPU run's, and
+    the attention core alone too."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, lm
+    from repro_torch.pytree import tree_map
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = configs.get_reduced("tinyllama-1.1b").replace(window=window)
+    S = 2 * cfg.attn_chunk
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    on = tree_map(lambda t: t.to(cuda), params)
+    batch = serve.make_batch(cfg, 2, S, torch.Generator().manual_seed(1), "cpu")
+    cpu_logits = lm.forward(params, cfg, mode="train", **batch)[0]
+    card_logits = lm.forward(on, cfg, mode="train", **{k: v.to(cuda) for k, v in batch.items()})[0]
+    torch.testing.assert_close(card_logits.cpu(), cpu_logits, rtol=1e-5, atol=1e-5)
+    gen = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn(2, S, cfg.num_heads, cfg.head_dim, generator=gen) for _ in range(3))
+    kw = dict(chunk_q=cfg.attn_chunk, chunk_kv=cfg.attn_chunk, window=window)
+    torch.testing.assert_close(
+        attention.chunked_attention(q.to(cuda), k.to(cuda), v.to(cuda), **kw).cpu(),
+        attention.chunked_attention(q, k, v, **kw), rtol=1e-5, atol=1e-5)
+
+
+def test_bf16_decode_matches_train_on_card(cuda):
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = configs.get_reduced("qwen3-8b").replace(dtype="bfloat16", param_dtype="bfloat16")
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, device=cuda)
+    B, S, P0 = 4, 48, 32
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(1)).to(cuda)
+    full = lm.forward(params, cfg, tokens=tokens, mode="train")[0]
+    cache = serve.merge_cache(lm.init_cache(cfg, B, S, device=cuda),
+                              lm.forward(params, cfg, tokens=tokens[:, :P0], mode="prefill")[1])
+    bound = 2.0**-4 * float(full.float().abs().max())
+    for t in range(P0, S):
+        lt, cache, _ = lm.forward(params, cfg, tokens=tokens[:, t:t + 1], mode="decode",
+                                  cache=cache, cache_index=t)
+        assert float((lt[:, 0].float() - full[:, t].float()).abs().max()) < bound
