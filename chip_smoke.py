@@ -95,6 +95,45 @@ the CPU):
       chunked attention core beside ``scaled_dot_product_attention`` at
       the prefill shape (a yardstick only).  The serving path launches
       none of the seven kernels: its counters must read 0;
+   e. LM training, with bf16 GEMMs accumulating in f32 (restored after):
+      a. tinyllama-1.1b at full width and 2 layers in f32 (remat on, TF32
+         off), B = 2, S = 128: the gradients and one AdamW
+         ``build_train_step`` step on the card against the CPU (loss
+         within TRAIN_LOSS_RTOL; every gradient leaf within TRAIN_GRAD_REL
+         and AdamW's m and v within TRAIN_ADAM_REL of the leaf's largest
+         magnitude);
+      b. the flash backward at FLASH_SHAPE (B 8, S 1024, 32 heads of 64
+         after the repeat, causal, two chunks of 512 each way): ``_Flash``
+         in bf16 and in f32 against autograd through the plain chunked
+         forward in f32 (FLASH_BF16_REL, FLASH_F32_REL of each gradient's
+         largest magnitude), and each of FLASH_FAULTS planted in the
+         backward at run time must read above FLASH_BF16_REL; fwd + bwd
+         beside ``scaled_dot_product_attention``'s (a yardstick only);
+      c. tinyllama-1.1b at full width and depth, bf16, AdamW (lr 3e-4),
+         remat on, 6 steps of B 8, S 1024 of ``data.learnable_lm_batch``
+         through ``launch/train.train``: every loss finite and the last
+         below the first; ms/step (steps 2-6, host clock after
+         synchronize), tokens/s, MFU (6 N T with N without the embedding
+         table, plus 6 L H hd S T, over 989 TFLOP/s), peak memory, one
+         step's idle share, device ops and top five under
+         torch.profiler; the seven kernels' counters must read 0;
+      d. the podded ``totoro_tree_q8`` step, 2 pods, the same model and
+         batch, 3 steps through ``launch/train.train``: exactly one
+         ``qsgd_quantize`` and one ``qsgd_dequantize`` launch per leaf a
+         step (12 + 12), the aggregate of the next batch's gradients
+         within one quantization step (max |g| / 127) of the plain pod
+         mean, and on the embedding leaf's rows and the largest leaf's
+         (1,982,464 of 256) both kernels bit-equal to ``ref.quantize_ref``
+         and ``ref.dequantize_ref``; the hop's kernel time a step
+         (profiler) beside its byte bound, with and without the uniforms'
+         bytes, both kernels timed at the largest leaf's rows, and the
+         step's peak memory;
+      e. tinyllama-1.1b at full width, 2 layers, bf16: 2 steps,
+         ``ckpt.save`` of 2 replicas into a temporary directory (removed
+         after), replica 0 truncated, ``ckpt.restore`` onto the card:
+         every leaf bit-equal, and the next step's loss from the restored
+         state equal to the uninterrupted one's; bytes a replica and the
+         save and restore seconds;
 5. times: each kernel's device time (a CUDA graph of calls between CUDA
    events) beside its bound, its plain version and one PyTorch call
    computing the same function where there is one (timed in turns, a b b
@@ -171,6 +210,26 @@ DECODE_FAULTS = ("cache_index - 1", "k/v write dropped", "own position masked")
 LM_F32_REL = 1e-4
 LM_F32_TOKENS = 4
 QWEN_LAYERS = 4  # qwen3-8b's depth, cut from 36 (PERF.md §4)
+# LM training (phase 4e).  a: tinyllama's width at 2 layers in f32 (TF32
+# off), one train step on the card against the CPU; each bound a share of
+# the leaf's (or loss's) largest magnitude
+TRAIN_F32_LAYERS, TRAIN_F32_BATCH, TRAIN_F32_SEQ = 2, 2, 128
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL = 1e-4
+TRAIN_ADAM_REL = 1e-5
+# b: the flash backward at tinyllama's attention shape, causal: _Flash in
+# bf16 (and in f32) against autograd through the plain chunked forward in
+# f32, each gradient within its bound of that gradient's largest magnitude.
+# Set before the first card run from a CPU run at (1, 1024, 4 heads, 64):
+# bf16 read 2^-8.5, f32 2.6e-7, the two faults 0.99 and above
+FLASH_SHAPE = (8, 1024, 32, 64)  # B, S, heads after the repeat, head_dim
+FLASH_BF16_REL = 2.0**-6
+FLASH_F32_REL = 1e-5
+FLASH_FAULTS = ("delta dropped", "dk/dv of the last query chunk only")
+# c, d, e: tinyllama-1.1b in bf16 through launch/train's loop
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, POD_STEPS, PODS = 8, 1024, 6, 3, 2
+CKPT_LAYERS, CKPT_STEPS, CKPT_REPLICAS = 2, 2, 2
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 peak (NVIDIA data sheet, 700 W)
 
 KERNELS = [
     {
@@ -1100,6 +1159,15 @@ def profile_rounds(torch, system, app, n: int = 3) -> dict:
     }
 
 
+def _bits_equal(torch, a, b) -> bool:
+    """Same shape, dtype and bits (so -0.0 differs from 0.0)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
 def _time_row(torch, fn, plain, nbytes: float, ops: float, library=None, *, calls: int = 50,
               replays: int = 20, **extra) -> dict:
     reps = dict(calls=calls, replays=replays)
@@ -1664,6 +1732,396 @@ def _drive_lm(torch, smi: str, bf16_rr: bool) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 4e: the LM training path
+
+
+def _rel(torch, a, b) -> float:
+    """max |a - b| over max |b|."""
+    b = b.float()
+    return float((a.float() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _leaf_rels(torch, got: dict, want: dict) -> dict:
+    from repro_torch.ckpt import key_paths
+    from repro_torch.pytree import leaves
+
+    return {p: _rel(torch, a.cpu(), b.cpu()) for p, a, b in zip(key_paths(want), leaves(got),
+                                                                  leaves(want))}
+
+
+def train_f32_card_vs_cpu(torch) -> dict:
+    """a: tinyllama-1.1b at full width and TRAIN_F32_LAYERS layers in f32
+    (remat on, TF32 off): the gradients (``grads_and_metrics``) and one
+    ``build_train_step`` step (AdamW) from the same weights and batch on
+    the card and on the CPU."""
+    from repro_torch import configs
+    from repro_torch.config import RunPlan
+    from repro_torch.fl import steps
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.pytree import tree_map
+
+    cfg = configs.get_config("tinyllama-1.1b").replace(
+        num_layers=TRAIN_F32_LAYERS, dtype="float32", param_dtype="float32")
+    params = lm.init_params(torch.Generator().manual_seed(2), cfg)
+    sc = train.StreamConfig(cfg.vocab_size, TRAIN_F32_SEQ, TRAIN_F32_BATCH)
+    batch = train.make_batch(cfg, sc, 0, None, "cpu")
+    plan = RunPlan()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        g, m = steps.grads_and_metrics(cfg, plan, p, b)
+        new, _ = steps.build_train_step(cfg, plan)(steps.init_train_state(cfg, p), b)
+        runs[dev] = {"loss": float(m["loss"]), "grads": tree_map(lambda t: t.cpu(), g),
+                     "m": tree_map(lambda t: t.cpu(), new["opt"]["m"]),
+                     "v": tree_map(lambda t: t.cpu(), new["opt"]["v"])}
+        del p, g, new
+    cpu, card = runs["cpu"], runs["cuda"]
+    out = {"loss_cpu": cpu["loss"], "loss_card": card["loss"],
+           "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+           "grad_rel": _leaf_rels(torch, card["grads"], cpu["grads"]),
+           "m_rel": _leaf_rels(torch, card["m"], cpu["m"]),
+           "v_rel": _leaf_rels(torch, card["v"], cpu["v"])}
+    out.update(grad_rel_max=max(out["grad_rel"].values()), m_rel_max=max(out["m_rel"].values()),
+               v_rel_max=max(out["v_rel"].values()))
+    if (not out["loss_rel"] <= TRAIN_LOSS_RTOL or not out["grad_rel_max"] <= TRAIN_GRAD_REL or not out["m_rel_max"] <= TRAIN_ADAM_REL
+            or not out["v_rel_max"] <= TRAIN_ADAM_REL):
+        raise SystemExit(f"train step f32, card vs CPU, past its bounds: {out}")
+    return out
+
+
+def _chunks(x, chunk: int, G: int):
+    """(B, S, H, D) -> the flash core's (nS, B, chunk, H // G, G, D) view."""
+    B, S, H, D = x.shape
+    return x.reshape(B, S // chunk, chunk, H // G, G, D).transpose(0, 1)
+
+
+@contextmanager
+def planted_flash_fault(kind: str, nq: int):
+    """One of FLASH_FAULTS in ``models/attention``'s flash backward, for the
+    length of the block (``_bwd_q_chunk`` is restored after)."""
+    from repro_torch.models import attention
+
+    orig = attention._bwd_q_chunk
+
+    def faulty(iq, q_i, do_i, lse_i, delta_i, *rest):
+        if kind == "delta dropped":
+            return orig(iq, q_i, do_i, lse_i, delta_i * 0, *rest)
+        dq, dk, dv = orig(iq, q_i, do_i, lse_i, delta_i, *rest)
+        return (dq, dk, dv) if iq == nq - 1 else (dq, dk * 0, dv * 0)
+
+    attention._bwd_q_chunk = faulty
+    try:
+        yield
+    finally:
+        attention._bwd_q_chunk = orig
+
+
+def flash_backward_on_card(torch) -> dict:
+    """b: ``_Flash``'s dq, dk, dv at FLASH_SHAPE, causal, two query and two
+    key chunks of 512, against autograd through the plain chunked forward
+    (``attention._flash_fwd``, differentiated op by op) in f32 on the card:
+    bf16 within FLASH_BF16_REL, f32 within FLASH_F32_REL of each gradient's
+    largest magnitude; each of FLASH_FAULTS, planted, must read above
+    FLASH_BF16_REL.  Then _Flash's forward plus backward beside
+    ``scaled_dot_product_attention``'s (a yardstick only)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import attention
+
+    B, S, H, D = FLASH_SHAPE
+    chunk = 512
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    xs = [t.float().requires_grad_(True) for t in (q, k, v)]
+    out, _ = attention._flash_fwd(_chunks(xs[0], chunk, 1), _chunks(xs[1], chunk, 1)[..., 0, :],
+                                  _chunks(xs[2], chunk, 1)[..., 0, :], True, 0, None, D ** -0.5)
+    want = torch.autograd.grad(out.transpose(0, 1).reshape(B, S, H, D), xs, do.float())
+    del out
+
+    def flash(dtype):
+        ins = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+        o = attention.chunked_attention(*ins, chunk_q=chunk, chunk_kv=chunk)
+        return torch.autograd.grad(o, ins, do.to(dtype))
+
+    names = ("dq", "dk", "dv")
+    got16 = flash(torch.bfloat16)
+    res = {"bf16": {n: _rel(torch, a, b) for n, a, b in zip(names, got16, want)},
+           "f32": {n: _rel(torch, a, b) for n, a, b in zip(names, flash(torch.float32), want)},
+           "dtypes": [str(t.dtype)[6:] for t in got16], "faults": {}}
+    for kind in FLASH_FAULTS:
+        with planted_flash_fault(kind, S // chunk):
+            res["faults"][kind] = {n: _rel(torch, a, b) for n, a, b in
+                                   zip(names, flash(torch.bfloat16), want)}
+    del want, got16
+    if (max(res["bf16"].values()) > FLASH_BF16_REL or max(res["f32"].values()) > FLASH_F32_REL
+            or res["dtypes"] != ["bfloat16"] * 3):
+        raise SystemExit(f"flash backward on the card past its bounds: {res}")
+    passed = [k for k, r in res["faults"].items() if not max(r.values()) > FLASH_BF16_REL]
+    if passed:
+        raise SystemExit(f"FLASH_BF16_REL = {FLASH_BF16_REL} passes the planted faults {passed}")
+    res["fault_margin"] = min(max(r.values()) for r in res["faults"].values()) / FLASH_BF16_REL
+    ins = [t.requires_grad_(True) for t in (q.clone(), k.clone(), v.clone())]
+    tq, tk, tv = (t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    res["flash_fwd_bwd_ms"] = eager_ms(torch, lambda: torch.autograd.grad(
+        attention.chunked_attention(*ins, chunk_q=chunk, chunk_kv=chunk), ins, do),
+        iters=5, warmup=2)
+    res["sdpa_fwd_bwd_ms"] = eager_ms(torch, lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(tq, tk, tv, is_causal=True), (tq, tk, tv), dot),
+        iters=20, warmup=3)
+    res["shape"] = list(FLASH_SHAPE)
+    return res
+
+
+def _profile_step(torch, fn) -> dict:
+    """One call of ``fn`` (a train step) under torch.profiler: its wall
+    time, the device's busy and idle share, device ops, top five."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)
+    return {
+        "step_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_ops": sum(e.count for e in dev),
+        "top_device": [(e.key[:70], e.count, e.self_device_time_total / 1e3) for e in top[:5]],
+        "q8_hop_kernels_ms": {  # the QSGD kernels' device time (none in a plain step)
+            "qsgd_quantize": sum(e.self_device_time_total for e in dev if "quantize_rows" in e.key
+                                 and "dequantize" not in e.key) / 1e3,
+            "qsgd_dequantize": sum(e.self_device_time_total for e in dev
+                                   if "dequantize_rows" in e.key) / 1e3},
+    }
+
+
+def model_flops(cfg, params, tokens: int, seq: int) -> float:
+    """6 N T (N without the embedding table) + 6 L H hd S T (causal attention)."""
+    from repro_torch.models import nn
+
+    n = nn.count_params(params) - params["embed"].numel()
+    return 6.0 * n * tokens + 6.0 * cfg.num_layers * cfg.num_heads * cfg.head_dim * seq * tokens
+
+
+def train_tinyllama(torch, smi: str) -> dict:
+    """c: tinyllama-1.1b at full width and depth, bf16, AdamW, remat on,
+    through ``launch/train.train``: TRAIN_STEPS steps of B = TRAIN_BATCH,
+    S = TRAIN_SEQ; then one more step under torch.profiler."""
+    from repro_torch import configs
+    from repro_torch.config import RunPlan
+    from repro_torch.fl import steps
+    from repro_torch.launch import train
+
+    cfg = configs.get_config("tinyllama-1.1b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    set_counts(dict.fromkeys(COUNTED, 0))
+    t0 = time.perf_counter()
+    run = train.train(cfg, RunPlan(), steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, device="cuda", log=lambda *a: None)
+    wall = time.perf_counter() - t0
+    got = counts()
+    losses = run["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"tinyllama training: losses {losses} not finite or not falling")
+    if got != dict.fromkeys(COUNTED, 0):
+        raise SystemExit(f"tinyllama training: launches {got}, expected none")
+    steady = float(np.mean(run["step_ms"][1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops(cfg, run["state"]["params"], tokens, TRAIN_SEQ)
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype, "remat": cfg.remat,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": cfg.learning_rate, "losses": losses,
+           "step_ms": run["step_ms"], "ms_per_step": steady, "tokens_per_s": tokens / steady * 1e3,
+           "model_flops_per_step": flops, "mfu": flops / (steady * 1e-3) / BF16_FLOPS,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": got,
+           "wall_s": wall, "card": smi}
+    step = steps.build_train_step(cfg, RunPlan())
+    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH),
+                             TRAIN_STEPS, None, "cuda")
+    state = run.pop("state")
+    out["profile"] = _profile_step(torch, lambda: step(state, batch))
+    return out
+
+
+def train_podded(torch, qz, ops, ref) -> dict:
+    """d: the podded ``totoro_tree_q8`` step, PODS pods, the same model and
+    batch (pod p takes rows p B / PODS ..), POD_STEPS steps through
+    ``launch/train.train``: one quantize and one dequantize launch per
+    leaf a step; then, on the next batch's gradients (``steps.pod_grads``,
+    the step's own), the aggregate within one quantization step
+    (max |g| / 127) of the plain pod mean, and both kernels bit-equal to
+    their plain versions on the embed leaf's rows and the largest leaf's;
+    one step under torch.profiler."""
+    from repro_torch import configs
+    from repro_torch.config import RunPlan
+    from repro_torch.fl import steps
+    from repro_torch.launch import train
+    from repro_torch.pytree import leaves
+
+    cfg = configs.get_config("tinyllama-1.1b")
+    plan = RunPlan(aggregation="totoro_tree_q8")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    set_counts(dict.fromkeys(COUNTED, 0))
+    t0 = time.perf_counter()
+    run = train.train(cfg, plan, steps=POD_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      device="cuda", num_pods=PODS, log=lambda *a: None)
+    wall = time.perf_counter() - t0
+    got = counts()
+    state = run.pop("state")
+    n_leaves = len(leaves(state["params"]))
+    want = {**dict.fromkeys(COUNTED, 0), "qsgd_quantize": POD_STEPS * n_leaves,
+            "qsgd_dequantize": POD_STEPS * n_leaves}
+    if got != want or not all(np.isfinite(run["losses"])):
+        raise SystemExit(f"podded training: launches {got} (expected {want}) or losses "
+                         f"{run['losses']} not finite")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    sc = train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    batch = train.make_batch(cfg, sc, POD_STEPS, None, "cuda")
+    with uncounted():
+        grads_pod, _, _ = steps.pod_grads(cfg, plan, state["params"], batch, PODS)
+        halves = steps.rounding_halves(grads_pod)
+        agg = steps.q8_mean_over_pods(grads_pod, halves)
+        worst = 0.0
+        for a, g in zip(leaves(agg), leaves(grads_pod)):
+            step_size = float(g.abs().max()) / 127
+            d = float((a - g.mean(0)).abs().max())
+            worst = max(worst, d / step_size)
+        del agg
+        # the hop's two kernels against their plain versions, bit for bit,
+        # on the embed leaf's rows and on the largest leaf's
+        bit_equal = {}
+        for leaf in ("embed", "largest"):
+            g = (grads_pod["embed"] if leaf == "embed"
+                 else max(leaves(grads_pod), key=lambda t: t.numel()))
+            rows = steps.pod_rows(g)
+            u = halves[: rows.shape[0]]
+            q, scale = ops.qsgd_quantize(rows, u)
+            rq, rs = ref.quantize_ref(rows, u)
+            bit_equal[f"{leaf}_quantize"] = bool(torch.equal(q, rq) and _bits_equal(torch, scale, rs))
+            del rq, rs
+            bit_equal[f"{leaf}_dequantize"] = _bits_equal(
+                torch, ops.qsgd_dequantize(q, scale), ref.dequantize_ref(q, scale))
+        n_rows = sum(steps.pod_rows_count(g) for g in leaves(grads_pod))
+        big, hb, bq, bs = rows, u, q, scale  # the largest leaf's
+        R = big.shape[0]
+        reps = dict(calls=3, replays=3)
+        hop_rows = {
+            "qsgd_quantize": _time_row(torch, lambda: ops.qsgd_quantize(big, hb),
+                                       lambda: ref.quantize_ref(big, hb), 9 * R * 256 + 4 * R,
+                                       7 * R * 256, shape=[R, 256], **reps),
+            "qsgd_dequantize": _time_row(torch, lambda: ops.qsgd_dequantize(bq, bs),
+                                         lambda: ref.dequantize_ref(bq, bs), 5 * R * 256 + 4 * R,
+                                         R * 256, library=lambda: torch.mul(bq, bs),
+                                         shape=[R, 256], **reps),
+        }
+        del grads_pod, halves, g, rows, u, q, scale, big, hb, bq, bs
+    if worst > 1.0 + 1e-6 or not all(bit_equal.values()):
+        raise SystemExit(f"q8 hop: aggregate {worst:.4g} quantization steps from the pod mean, "
+                         f"or a kernel differs from its plain version ({bit_equal})")
+    pod_step = steps.build_train_step(cfg, plan, num_pods=PODS)
+    with uncounted():
+        prof = _profile_step(torch, lambda: pod_step(state, batch))
+    elems = n_rows * 256
+    hop_bytes = {"qsgd_quantize": 9 * elems + 4 * n_rows, "qsgd_dequantize": 5 * elems + 4 * n_rows}
+    # without the constant 0.5 uniforms' 4 B an element, which the hop
+    # itself does not need (f32 in, int8 and scales out; back again)
+    hop_bytes_own = {"qsgd_quantize": 5 * elems + 4 * n_rows, "qsgd_dequantize": 5 * elems + 4 * n_rows}
+    return {
+        "pods": PODS, "steps": POD_STEPS, "losses": run["losses"], "step_ms": run["step_ms"],
+        "ms_per_step": float(np.mean(run["step_ms"][1:])), "peak_mem_gb": peak, "wall_s": wall,
+        "launches": got, "leaves": n_leaves, "agg_vs_mean_in_q_steps": worst,
+        "hop_bit_equal": bit_equal, "hop_rows_per_step": n_rows,
+        "hop_bytes_per_step": hop_bytes, "hop_bytes_per_step_no_uniforms": hop_bytes_own,
+        "hop_bound_ms": sum(hop_bytes.values()) / HBM_BYTES_PER_S * 1e3,
+        "hop_bound_ms_no_uniforms": sum(hop_bytes_own.values()) / HBM_BYTES_PER_S * 1e3,
+        "hop_kernels_ms": prof["q8_hop_kernels_ms"], "profile": prof, "largest_leaf": hop_rows,
+    }
+
+
+def checkpoint_resume(torch) -> dict:
+    """e: tinyllama-1.1b at full width, CKPT_LAYERS layers, bf16: CKPT_STEPS
+    steps, ``ckpt.save`` of CKPT_REPLICAS replicas into a temporary
+    directory (removed at the end), replica 0 truncated, ``ckpt.restore``
+    onto the card: every leaf bit-equal to the saved state, and the next
+    step's loss from the restored state equal to the uninterrupted one's."""
+    import shutil
+    import tempfile
+
+    from repro_torch import ckpt, configs
+    from repro_torch.config import RunPlan
+    from repro_torch.fl import steps
+    from repro_torch.launch import train
+    from repro_torch.pytree import leaves
+
+    cfg = configs.get_config("tinyllama-1.1b").replace(num_layers=CKPT_LAYERS)
+    run = train.train(cfg, RunPlan(), steps=CKPT_STEPS, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, device="cuda", log=lambda *a: None)
+    state = run["state"]
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = ckpt.save(state, d, step=CKPT_STEPS, replicas=CKPT_REPLICAS)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(written[0], "arrays.npz"))
+        ckpt.corrupt_replica(d, 0, CKPT_STEPS)
+        t0 = time.perf_counter()
+        restored, at = ckpt.restore(state, d, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    same = at == CKPT_STEPS and all(
+        a.device.type == "cuda" and a.dtype == b.dtype and a.shape == b.shape
+        and torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                        b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+        for a, b in zip(leaves(restored), leaves(state)))
+    step = steps.build_train_step(cfg, RunPlan())
+    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH),
+                             CKPT_STEPS, None, "cuda")
+    _, m_cont = step(state, batch)
+    del state
+    _, m_rest = step(restored, batch)
+    cont, rest = float(m_cont["loss"]), float(m_rest["loss"])
+    out = {"layers": CKPT_LAYERS, "replicas": CKPT_REPLICAS, "bytes_per_replica": nbytes,
+           "save_s": save_s, "restore_s": restore_s, "restored_bit_equal": same,
+           "next_loss_uninterrupted": cont, "next_loss_restored": rest,
+           "next_loss_bit_equal": bool(torch.equal(m_cont["loss"], m_rest["loss"])),
+           "losses": run["losses"]}
+    if not same or cont != rest:
+        raise SystemExit(f"checkpoint: restore not bit-equal or next loss differs: {out}")
+    return out
+
+
+def drive_training(torch, smi: str, qz, ops, ref) -> dict:
+    """Phase 4e, with bf16 GEMMs accumulating in f32 (restored after)."""
+    bf16_rr = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        out = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+        out["a_f32_card_vs_cpu"] = train_f32_card_vs_cpu(torch)
+        with uncounted():
+            out["b_flash_backward"] = flash_backward_on_card(torch)
+        out["c_tinyllama"] = train_tinyllama(torch, smi)
+        out["d_podded_q8"] = train_podded(torch, qz, ops, ref)
+        with uncounted():
+            out["e_checkpoint"] = checkpoint_resume(torch)
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = bf16_rr
+
+
 def main() -> int:
     import torch
 
@@ -1946,6 +2404,52 @@ def main() -> int:
     if lm_run["launches"] != dict.fromkeys(COUNTED, 0):
         raise SystemExit(f"serving path: launches {lm_run['launches']}, expected none")
 
+    # -- 4e. the LM training path -----------------------------------------------
+    tr = drive_training(torch, smi, qz, ops, ref)
+    a = tr["a_f32_card_vs_cpu"]
+    log(f"[4e train a] tinyllama-1.1b full width, {TRAIN_F32_LAYERS} layers, f32, B="
+        f"{TRAIN_F32_BATCH} S={TRAIN_F32_SEQ}, remat on, TF32 {tr['allow_tf32']}: loss card "
+        f"{a['loss_card']:.7f} CPU {a['loss_cpu']:.7f}, rel {a['loss_rel']:.3g} (rtol "
+        f"{TRAIN_LOSS_RTOL}); gradients within {a['grad_rel_max']:.3g} of each leaf's largest "
+        f"(bound {TRAIN_GRAD_REL}); AdamW m {a['m_rel_max']:.3g}, v {a['v_rel_max']:.3g} "
+        f"(bound {TRAIN_ADAM_REL})")
+    log(f"[4e train a] {json.dumps(a)}")
+    b = tr["b_flash_backward"]
+    log(f"[4e train b] flash backward at {FLASH_SHAPE} (B, S, heads, head_dim), causal, chunks "
+        f"of 512, against autograd of the plain forward in f32, share of each gradient's largest: "
+        f"bf16 {json.dumps(b['bf16'])} (bound {FLASH_BF16_REL}), f32 {json.dumps(b['f32'])} "
+        f"(bound {FLASH_F32_REL}); planted faults {json.dumps(b['faults'])}, the least "
+        f"{b['fault_margin']:.3g}x over the bound; fwd+bwd _Flash {b['flash_fwd_bwd_ms']:.3f} ms, "
+        f"SDPA {b['sdpa_fwd_bwd_ms']:.3f} ms (bf16, host included; a yardstick only)")
+    c = tr["c_tinyllama"]
+    log(f"[4e train c] tinyllama-1.1b {c['layers']} layers {c['dtype']} AdamW lr {c['lr']} remat "
+        f"{c['remat']}, B={c['batch']} S={c['seq']}: losses {[round(x, 4) for x in c['losses']]}; "
+        f"{c['ms_per_step']:.1f} ms/step (steps 2-{TRAIN_STEPS}, host clock after synchronize), "
+        f"{c['tokens_per_s']:.0f} tokens/s, MFU {c['mfu']:.4f} ({c['model_flops_per_step']:.4g} "
+        f"model FLOPs a step over {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16); peak memory "
+        f"{c['peak_mem_gb']:.2f} GB; launches {json.dumps(c['launches'])}; card: {smi}")
+    log(f"[4e train c] one step under torch.profiler: {json.dumps(c['profile'])}")
+    log(f"[4e train c] {json.dumps({k: v for k, v in c.items() if k not in ('profile', 'card')})}")
+    d = tr["d_podded_q8"]
+    log(f"[4e train d] podded totoro_tree_q8, {d['pods']} pods, {d['steps']} steps: losses "
+        f"{[round(x, 4) for x in d['losses']]}; {d['ms_per_step']:.1f} ms/step (steps 2-"
+        f"{d['steps']}); launches {json.dumps(d['launches'])} ({d['leaves']} leaves a step); "
+        f"aggregate within {d['agg_vs_mean_in_q_steps']:.4f} quantization steps of the pod mean; "
+        f"kernels bit-equal to ref.quantize_ref / dequantize_ref: {json.dumps(d['hop_bit_equal'])}; "
+        f"hop kernels {json.dumps(d['hop_kernels_ms'])} ms a step against a byte bound of "
+        f"{d['hop_bound_ms']:.3f} ms ({sum(d['hop_bytes_per_step'].values()) / 1e9:.3f} GB over "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s), {d['hop_bound_ms_no_uniforms']:.3f} ms without the "
+        f"uniforms' bytes; peak memory {d['peak_mem_gb']:.2f} GB; card: {smi}")
+    log(f"[4e train d] {json.dumps({k: v for k, v in d.items() if k != 'profile'})}")
+    log(f"[4e train d] one step under torch.profiler: {json.dumps(d['profile'])}")
+    e = tr["e_checkpoint"]
+    log(f"[4e train e] checkpoint at step {CKPT_STEPS}, {e['layers']} layers bf16: "
+        f"{e['bytes_per_replica'] / 1e9:.3f} GB a replica, save {e['save_s']:.2f} s "
+        f"({e['replicas']} replicas), restore after replica 0 was truncated {e['restore_s']:.2f} s; "
+        f"restored bit-equal: {e['restored_bit_equal']}; next loss {e['next_loss_restored']!r} "
+        f"restored vs {e['next_loss_uninterrupted']!r} uninterrupted (bit-equal: "
+        f"{e['next_loss_bit_equal']})")
+
     # -- 5. times -------------------------------------------------------------
     f32_levels = sorted({sh[:3] for sh in path_shapes if sh[3] == f32})  # sync, async, placement
     rows = [time_tree_aggregate(torch, ta, ref, g, c, l, f32) for g, c, l in f32_levels]
@@ -2031,6 +2535,17 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             larger={R: {k: comp_rows[R][name][k] for k in brief} for R in (4096, 65536)},
         )
+    hop = tr["d_podded_q8"]
+    for entry in KERNELS[2:4]:  # phase 4e d: the podded step's cross-pod hop
+        name = entry["name"]
+        r = hop["largest_leaf"][name]
+        entry["q8_hop"] = dict(
+            launches=hop["launches"][name], launches_from="phase 4e d: podded q8 train steps",
+            launches_per_step=hop["leaves"], hop_kernel_ms_per_step=hop["hop_kernels_ms"][name],
+            hop_bound_ms_per_step=hop["hop_bytes_per_step"][name] / HBM_BYTES_PER_S * 1e3,
+            hop_bound_ms_per_step_no_uniforms=(
+                hop["hop_bytes_per_step_no_uniforms"][name] / HBM_BYTES_PER_S * 1e3),
+            largest_leaf={k: r[k] for k in brief})
     KERNELS[2]["residual_instance"] = dict(  # the EF commits' launches, counted in both
         launches=sum(async_counts[t]["qsgd_quantize_residual"]
                      for t in ("compressed", "compressed-qsgd-downlink")),

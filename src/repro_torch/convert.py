@@ -4,7 +4,9 @@ Both packages keep parameters as dicts in the JAX layout (dense weights
 ``(in, out)``, convolutions HWIO), so conversion is a copy of each leaf:
 numpy arrays in, tensors on ``device`` out, and back.  A test initialises
 a model with the JAX package, passes ``params_from_numpy`` of it to the
-port, and both then compute the same function.  ``planner_state_from_numpy``
+port, and both then compute the same function.  Train states cross the same
+way (the optimizer's int32 ``step``, a podded state's leading pod axis:
+any dict of arrays).  ``planner_state_from_numpy``
 does the same for a path planner's arrays (``pi``, ``mask``, ``cand``, a
 bandit's ``counts`` / ``means``), so both planners start from one state.
 

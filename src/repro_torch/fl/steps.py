@@ -1,24 +1,224 @@
-"""The serving steps: prefill and greedy decode.
+"""Step builders: one Totoro+ FL round (train) and the serving steps.
 
-Answers to the serving half of ``repro/fl/steps.py``
-(``build_prefill_step``, ``build_decode_step``).  Each step returns the
-next greedy token per row, ``argmax`` of the last position's logits (the
-first index on ties) as int32.  Encoder-decoder configs raise until
-``models/encdec.py`` is ported; the training half (``build_train_step``,
-``q8_mean_over_pods``, ``init_train_state``) is ROADMAP §1 item 6.
+Answers to ``repro/fl/steps.py``.  ``build_train_step`` composes
+microbatch gradient accumulation (the client's local pass), a cross-zone
+(``pod``) aggregation stage and the optimizer update:
+
+- ``xla_auto`` and ``totoro_tree`` differ in the reference only in the
+  parameter shardings that ``launch/specs.py`` picks; on one device both
+  are the plain step: gradients, then ``opt.update``;
+- ``totoro_tree_q8`` with ``num_pods > 1`` is the *podded* step: every
+  state leaf has a leading ``(num_pods,)`` axis, each pod (an edge zone)
+  runs its local pass on its contiguous share of the batch (the
+  reference's ``podify``; its ``vmap`` over pods is a loop here), and the
+  cross-zone hop is explicit: ``q8_mean_over_pods`` quantizes every pod's
+  gradients to QSGD int8 and takes the mean of their dequantized values,
+  which every pod then applies.
+
+The reference's ``nn.constrain`` and ``with_sharding_constraint`` calls
+are no-ops on one device and are left out; ``train_state_specs`` comes
+with ``launch/specs.py`` (ROADMAP §1 item 7), and so does the reference's
+``mesh`` argument.
+
+``q8_mean_over_pods`` runs through ``kernels.ops``' ``qsgd_quantize`` and
+``qsgd_dequantize`` (the CUDA kernels on the card, their plain versions on
+the CPU): all pods' rows of a leaf in one launch of each.  The jitted
+reference forms ``scale = max|x| * fl32(1/127)`` (ROADMAP §3 rule 2),
+which is the kernel's arithmetic, not ``fl/compression.qsgd_quantize``'s
+eager division.  The reference passes no uniforms, so its rounding
+uniforms are a constant 0.5: the podded step fills one buffer of 0.5s,
+sized to its largest leaf, once, and passes row prefixes of it.
+
+The serving steps (``build_prefill_step``, ``build_decode_step``) return
+the next greedy token per row, ``argmax`` of the last position's logits
+(the first index on ties) as int32.  Encoder-decoder configs raise until
+``models/encdec.py`` is ported.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from .. import optim as optim_mod
+from ..kernels import ops
 from ..models import lm
+from ..pytree import leaves, tree_map, unflatten_like
+
+ROW = 256  # values per quantized row: one f32 scale each
 
 
 def _decoder_only(cfg) -> None:
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder serving needs models/encdec.py (ROADMAP §1 item 4)"
+            f"{cfg.name}: encoder-decoder configs need models/encdec.py (ROADMAP §1 item 4)"
         )
+
+
+# ---------------------------------------------------------------------------
+# training
+
+
+def _split_microbatches(batch: dict, accum: int) -> list[dict]:
+    """(B, ...) -> ``accum`` microbatches of B // accum rows, *strided*:
+    microbatch j holds rows j, j + accum, j + 2 accum, ... (the reference
+    strides them so that each spans every (pod, data) shard)."""
+    def split(x):
+        assert x.shape[0] % accum == 0, (x.shape[0], accum)
+        return [x[j::accum] for j in range(accum)]
+
+    parts = {k: split(v) for k, v in batch.items()}
+    return [{k: v[j] for k, v in parts.items()} for j in range(accum)]
+
+
+def _value_and_grad(cfg, params, batch):
+    """(cross-entropy, aux, gradients of ``train_loss``'s total in the
+    parameters' dtypes); the inputs are left as they were."""
+    _decoder_only(cfg)
+    ps = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    total, (ce, aux) = lm.train_loss(ps, cfg, batch)
+    g = torch.autograd.grad(total, leaves(ps), allow_unused=True, materialize_grads=True)
+    return ce.detach(), aux.detach(), unflatten_like(params, list(g))
+
+
+def grads_and_metrics(cfg, plan, params, batch):
+    """Gradient accumulation over ``plan.grad_accum`` microbatches: each
+    microbatch's gradients widened to f32 after its backward and summed
+    from zero in microbatch order, divided by ``grad_accum`` at the end."""
+    accum = plan.grad_accum
+    if accum == 1:
+        ce, aux, g = _value_and_grad(cfg, params, batch)
+        return tree_map(lambda x: x.float(), g), {"loss": ce, "aux": aux}
+
+    dev = leaves(params)[0].device
+    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=dev), params)
+    lsum = torch.zeros((), dtype=torch.float32, device=dev)
+    asum = torch.zeros((), dtype=torch.float32, device=dev)
+    for mb in _split_microbatches(batch, accum):
+        ce, aux, g = _value_and_grad(cfg, params, mb)
+        gsum = tree_map(lambda a, b: a + b.float(), gsum, g)
+        lsum, asum = lsum + ce, asum + aux
+        del g
+    g = tree_map(lambda x: x / accum, gsum)
+    return g, {"loss": lsum / accum, "aux": asum / accum}
+
+
+def pod_grads(cfg, plan, params_pod, batch, num_pods: int):
+    """Each pod's local pass: pod p takes rows [p B/P, (p + 1) B/P) of the
+    (B, ...) batch (the reference's ``podify``) and the parameters
+    ``t[p]`` of every (P, ...) leaf.  Returns the (P, ...) f32 gradients
+    and the per-pod losses and auxes (lists of 0-d tensors)."""
+    P = num_pods
+    pods = {k: v.reshape(P, v.shape[0] // P, *v.shape[1:]) for k, v in batch.items()}
+    grads_pod = tree_map(lambda t: torch.empty(t.shape, dtype=torch.float32, device=t.device),
+                         params_pod)
+    losses, auxes = [], []
+    for p in range(P):
+        g, m = grads_and_metrics(cfg, plan, tree_map(lambda t: t[p], params_pod),
+                                 {k: v[p] for k, v in pods.items()})
+        tree_map(lambda buf, x: buf[p].copy_(x), grads_pod, g)
+        del g
+        losses.append(m["loss"])
+        auxes.append(m["aux"])
+    return grads_pod, losses, auxes
+
+
+def pod_rows(g: torch.Tensor) -> torch.Tensor:
+    """(P, ...) f32 -> (P * R, 256): each pod's leaf flattened, zero-padded
+    to a multiple of 256, its R rows after the previous pod's (a view when
+    no padding is needed)."""
+    flat = g.reshape(g.shape[0], -1)
+    pad = (-flat.shape[1]) % ROW
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    return flat.reshape(-1, ROW)
+
+
+def pod_rows_count(g: torch.Tensor) -> int:
+    """The rows of ``pod_rows(g)``."""
+    return g.shape[0] * -(-g[0].numel() // ROW)
+
+
+def rounding_halves(grads_pod) -> torch.Tensor:
+    """One (rows, 256) f32 buffer of 0.5s for the largest leaf's rows: the
+    reference's rounding uniforms (it passes none)."""
+    rows = max(pod_rows_count(g) for g in leaves(grads_pod))
+    return torch.full((rows, ROW), 0.5, dtype=torch.float32, device=leaves(grads_pod)[0].device)
+
+
+def q8_mean_over_pods(grads_pod, halves: torch.Tensor | None = None):
+    """Cross-zone compressed aggregation.
+
+    grads_pod leaves: (P, ...) f32.  Each leaf's P pods' rows go through
+    one ``qsgd_quantize`` launch (int8 per 256-wide row, one f32 scale a
+    row: the wire format) and one ``qsgd_dequantize`` launch; the mean of
+    the P dequantized copies comes back in the leaf's shape without the
+    pod axis.  ``halves``: a buffer from ``rounding_halves`` with at least
+    the largest leaf's rows (made here when None).
+    """
+    if halves is None:
+        halves = rounding_halves(grads_pod)
+
+    def agg(g):
+        x = pod_rows(g)
+        q, scale = ops.qsgd_quantize(x, halves[: x.shape[0]])
+        deq = ops.qsgd_dequantize(q, scale).view(g.shape[0], -1)
+        return torch.mean(deq, dim=0)[: g[0].numel()].view(g.shape[1:])
+
+    return tree_map(agg, grads_pod)
+
+
+def build_train_step(cfg, plan, *, num_pods: int = 1):
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    The plain step returns a new state and leaves the old one as it was.
+    The podded step (``totoro_tree_q8``, ``num_pods > 1``) writes each
+    pod's update into the state's own tensors, one pod at a time, and
+    returns that state (the reference's launcher donates the state to the
+    step to the same end): two copies of a podded state need not fit.
+    """
+    _decoder_only(cfg)
+    opt = optim_mod.make_optimizer(cfg)
+    podded = plan.aggregation == "totoro_tree_q8" and num_pods > 1
+
+    if not podded:
+        def train_step(state, batch):
+            grads, metrics = grads_and_metrics(cfg, plan, state["params"], batch)
+            new_params, new_opt = opt.update(grads, state["opt"], state["params"])
+            return {"params": new_params, "opt": new_opt}, metrics
+
+        return train_step
+
+    halves = None  # the step function's one buffer of 0.5s, made at its first call
+
+    def train_step(state, batch):
+        nonlocal halves
+        grads_pod, losses, auxes = pod_grads(cfg, plan, state["params"], batch, num_pods)
+        if halves is None:
+            halves = rounding_halves(grads_pod)
+        agg = q8_mean_over_pods(grads_pod, halves)
+        del grads_pod
+        for p in range(num_pods):
+            mine = tree_map(lambda t: t[p], state)
+            new_params, new_opt = opt.update(agg, mine["opt"], mine["params"])
+            tree_map(lambda dst, src: dst.copy_(src), mine, {"params": new_params, "opt": new_opt})
+            del new_params, new_opt
+        return state, {"loss": torch.mean(torch.stack(losses)),
+                       "aux": torch.mean(torch.stack(auxes))}
+
+    return train_step
+
+
+def init_train_state(cfg, params, *, num_pods: int = 1, podded: bool = False):
+    """{"params", "opt"}; podded: every leaf copied to a leading (num_pods,) axis."""
+    opt = optim_mod.make_optimizer(cfg)
+    state = {"params": params, "opt": opt.init(params)}
+    if podded:
+        state = tree_map(lambda x: torch.stack([x] * num_pods), state)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# serving steps
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:

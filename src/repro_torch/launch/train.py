@@ -1,0 +1,154 @@
+"""Training entry point: federated LM rounds with checkpoint/restart.
+
+Answers to ``repro/launch/train.py``, with the same flags and ``--device``
+(default ``cuda``; with no card present it raises, and the CPU runs only
+when asked for):
+
+  python -m repro_torch.launch.train --arch tinyllama-1.1b --reduced \
+      --steps 5 [--ckpt-dir DIR [--resume]] [--device cpu]
+
+Fault tolerance: k-replica checkpoints every ``--ckpt-every`` steps and at
+the end, and ``--resume`` restarts from the latest intact one (the paper's
+master-state replication).  Straggler mitigation: each step drops every
+client (batch row) with probability ``--straggler-rate`` by masking its
+labels, so dropped examples weigh nothing in the loss.
+
+``train`` is the loop, for callers other than the command line:
+parameters from ``lm.init_params`` with a seeded CPU generator (seed 0),
+batches from ``data.learnable_lm_batch`` (shard 0, one per step), the
+straggler draws from ``numpy.random.default_rng(0)``, as the reference's
+loop.  It also takes a ``RunPlan`` and ``num_pods``, so the podded
+``totoro_tree_q8`` step runs through it too (the reference's command line
+reaches only the plain step, and so does this one).  Step times are taken
+on the host clock after ``torch.cuda.synchronize()``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from .. import ckpt
+from ..config import RunPlan
+from ..configs import get_config, get_reduced
+from ..data import StreamConfig, embeds_batch, learnable_lm_batch
+from ..fl import steps as steps_mod
+from ..fl.rounds import resolve_device
+from ..models import lm
+
+
+def make_config(arch: str, *, reduced: bool = False, width: int = 0, layers: int = 0,
+                lr: float | None = None):
+    """The reference's config overrides: ``--width`` sets d_model with
+    ``num_heads = max(4, width // 32)`` heads of 32; ``--layers`` the depth."""
+    cfg = get_reduced(arch) if reduced else get_config(arch)
+    if width:
+        cfg = cfg.replace(d_model=width, num_heads=max(4, width // 32), head_dim=32)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    if lr is not None:
+        cfg = cfg.replace(learning_rate=lr)
+    return cfg
+
+
+def make_batch(cfg, sc: StreamConfig, step: int, drop: np.ndarray | None, device) -> dict:
+    """Step ``step``'s batch of the learnable stream on ``device``; the rows
+    where ``drop`` is True get labels -1 (no weight)."""
+    batch = learnable_lm_batch(sc, shard=0, step=step)
+    if drop is not None:
+        batch["labels"] = np.where(drop[:, None], -1, batch["labels"])
+    if cfg.embed_inputs:
+        b = {"embeds": embeds_batch(sc, cfg.d_model, 0, step), "labels": batch["labels"]}
+    else:
+        b = batch
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in b.items()}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train(cfg, plan: RunPlan, *, steps: int, seq_len: int = 128, global_batch: int = 8,
+          device="cuda", num_pods: int = 1, ckpt_dir: str | None = None, ckpt_every: int = 10,
+          replicas: int = 2, resume: bool = False, straggler_rate: float = 0.0,
+          non_iid: float = 0.0, log_every: int = 5, log=print) -> dict:
+    """Steps ``start .. steps - 1`` of the training loop (``start`` is 0, or
+    the resumed checkpoint's step).  Returns the final state, the start
+    step, each step's loss and each step's time (ms, host clock after a
+    synchronize)."""
+    device = resolve_device(device)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, device=device)
+    podded = plan.aggregation == "totoro_tree_q8" and num_pods > 1
+    state = steps_mod.init_train_state(cfg, params, num_pods=num_pods, podded=podded)
+    del params
+    start = 0
+    if resume and ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
+        state, start = ckpt.restore(state, ckpt_dir, device=device)
+        log(f"resumed from step {start}")
+
+    train_step = steps_mod.build_train_step(cfg, plan, num_pods=num_pods)
+    sc = StreamConfig(vocab_size=cfg.vocab_size, seq_len=seq_len, batch_per_shard=global_batch,
+                      non_iid_alpha=non_iid)
+    rng = np.random.default_rng(0)
+    losses, step_ms = [], []
+    t0 = time.perf_counter()
+    for step in range(start, steps):
+        # deadline-style straggler mitigation: dropped clients' examples
+        # get zero weight by masking their labels (paper §III ch.2)
+        drop = rng.random(global_batch) < straggler_rate if straggler_rate > 0 else None
+        batch = make_batch(cfg, sc, step, drop, device)
+        _sync(device)
+        ts = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        _sync(device)
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        losses.append(float(metrics["loss"]))
+        if step % log_every == 0 or step == steps - 1:
+            log(f"step {step}: loss={losses[-1]:.4f} "
+                f"({(time.perf_counter() - t0) / max(step - start + 1, 1) * 1e3:.0f} ms/step)")
+        if ckpt_dir and (step + 1) % ckpt_every == 0:
+            ckpt.save(state, ckpt_dir, step=step + 1, replicas=replicas)
+    if ckpt_dir:
+        ckpt.save(state, ckpt_dir, step=steps, replicas=replicas)
+        log(f"final checkpoint at step {steps} ({replicas} replicas)")
+    return {"state": state, "start_step": start, "losses": losses, "step_ms": step_ms}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--reduced", action="store_true", help="reduced config (CPU-scale)")
+    ap.add_argument("--width", type=int, default=0, help="override d_model (reduced)")
+    ap.add_argument("--layers", type=int, default=0)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--replicas", type=int, default=2)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--straggler-rate", type=float, default=0.0,
+                    help="simulated per-round client dropout probability")
+    ap.add_argument("--non-iid", type=float, default=0.0)
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = make_config(args.arch, reduced=args.reduced, width=args.width, layers=args.layers,
+                      lr=args.lr)
+    print(f"device={device} arch={cfg.name} layers={cfg.num_layers} d={cfg.d_model}")
+    train(cfg, RunPlan(grad_accum=args.grad_accum), steps=args.steps, seq_len=args.seq_len,
+          global_batch=args.global_batch, device=device, ckpt_dir=args.ckpt_dir,
+          ckpt_every=args.ckpt_every, replicas=args.replicas, resume=args.resume,
+          straggler_rate=args.straggler_rate, non_iid=args.non_iid, log_every=args.log_every)
+    print("done")
+
+
+if __name__ == "__main__":
+    main()

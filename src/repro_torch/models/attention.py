@@ -3,11 +3,14 @@ KV cache.
 
 Answers to the GQA half of ``repro/models/attention.py``:
 
-- ``chunked_attention`` is the forward of the reference's ``_flash``
-  core (``_flash_fwd_impl``), plain PyTorch in the reference's chunk
-  order: for each query chunk, an online softmax over every key chunk in
-  turn, masked chunks included, with f32 scores and accumulators.  It is
-  forward only, for serving; the flash backward comes with training;
+- ``chunked_attention`` is the reference's ``_flash`` core, plain
+  PyTorch in the reference's chunk order: for each query chunk, an online
+  softmax over every key chunk in turn, masked chunks included, with f32
+  scores and accumulators (``_flash_fwd``).  It runs through ``_Flash``, a
+  ``torch.autograd.Function`` that answers to the reference's custom VJP:
+  autograd keeps ``(q, k, v, out, lse)`` and the backward
+  (``_flash_bwd``) recomputes each chunk's probabilities from the scores
+  and ``lse`` in f32, in the reference's order;
 - ``decode_attention`` is the reference's single-token attention over the
   whole cache under a length mask;
 - ``gqa_forward`` runs the train, prefill and decode modes.
@@ -26,8 +29,12 @@ cache's last slot; the port raises ``IndexError``.  The port's decode
 writes the cache in place and returns it (the reference's server donates
 its cache buffer to the same end).
 
-MLA, cross-attention and the flash backward are still to port (ROADMAP
-§1 item 4).
+The backward, as the reference's, keeps the probabilities in f32 (the
+forward rounds them to the value dtype before its PV product), and in
+train mode sees k and v already repeated to H heads (G = 1 inside the
+core), so ``repeat_interleave``'s backward sums the G copies of dk and dv.
+
+MLA and cross-attention are still to port (ROADMAP §1 item 4).
 """
 from __future__ import annotations
 
@@ -55,11 +62,12 @@ def _mask_chunk(q_pos, k_pos, causal, window):
 
 
 def _flash_fwd(q, k, v, causal, q_offset, window, scale):
-    """q: (nq, B, Cq, KV, G, Dk); k, v: (nk, B, Ck, KV, D) -> (nq, B, Cq, KV, G, Dv)."""
+    """q: (nq, B, Cq, KV, G, Dk); k, v: (nk, B, Ck, KV, D) -> (out (nq, B, Cq,
+    KV, G, Dv) in q's dtype, lse (nq, B, Cq, KV, G) f32)."""
     nq, B, Cq, KV, G = q.shape[:5]
     nk, Ck, Dv = k.shape[0], k.shape[2], v.shape[-1]
     dev = q.device
-    outs = []
+    outs, lses = [], []
     for iq in range(nq):
         q_i = q[iq].float()
         q_pos = q_offset + iq * Cq + torch.arange(Cq, dtype=torch.int32, device=dev)
@@ -78,8 +86,71 @@ def _flash_fwd(q, k, v, causal, q_offset, window, scale):
             pv = torch.einsum("bqkgc,bckd->bqkgd", p.to(v.dtype).float(), v[ik].float())
             acc = acc * corr[..., None] + pv
             m = m_new
-        outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
-    return torch.stack(outs)
+        l_safe = torch.clamp(l, min=1e-30)
+        outs.append((acc / l_safe[..., None]).to(q.dtype))
+        lses.append(m + torch.log(l_safe))
+    return torch.stack(outs), torch.stack(lses)
+
+
+def _bwd_q_chunk(iq, q_i, do_i, lse_i, delta_i, k, v, causal, q_offset, window, scale):
+    """One query chunk's flash backward: a loop over every key chunk, masked
+    ones included.  Returns dq_i (B, Cq, KV, G, Dk) and this chunk's
+    contributions to dk and dv, (nk, B, Ck, KV, D), all f32."""
+    nk, Ck = k.shape[0], k.shape[2]
+    Cq, dev = q_i.shape[1], q_i.device
+    q_pos = q_offset + iq * Cq + torch.arange(Cq, dtype=torch.int32, device=dev)
+    q_f, do_f = q_i.float(), do_i.float()
+    dq_i = torch.zeros(q_i.shape, dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for ik in range(nk):
+        k_pos = ik * Ck + torch.arange(Ck, dtype=torch.int32, device=dev)
+        k_j, v_j = k[ik].float(), v[ik].float()
+        s = torch.einsum("bqkgd,bckd->bqkgc", q_f, k_j) * scale
+        mask = _mask_chunk(q_pos, k_pos, causal, window)
+        # p in f32, not rounded to the value dtype (the forward rounds it)
+        p = torch.where(mask[None, :, None, None, :], torch.exp(s - lse_i[..., None]), 0.0)
+        dvs.append(torch.einsum("bqkgc,bqkgd->bckd", p, do_f))
+        dp = torch.einsum("bqkgd,bckd->bqkgc", do_f, v_j)
+        ds = p * (dp - delta_i[..., None]) * scale
+        dq_i = dq_i + torch.einsum("bqkgc,bckd->bqkgd", ds, k_j)
+        dks.append(torch.einsum("bqkgc,bqkgd->bckd", ds, q_f))
+    return dq_i, torch.stack(dks), torch.stack(dvs)
+
+
+def _flash_bwd(q, k, v, out, lse, dout, causal, q_offset, window, scale):
+    """The reference's ``_flash_bwd`` in its order: ``delta = sum(dout *
+    out)`` in f32; per query chunk, ``_bwd_q_chunk``; dk and dv summed in
+    f32 over the query chunks from zero; each gradient cast to its input's
+    dtype at the end."""
+    delta = torch.sum(dout.float() * out.float(), dim=-1)  # (nq, B, Cq, KV, G)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    dqs = []
+    for iq in range(q.shape[0]):
+        dq_i, dk_i, dv_i = _bwd_q_chunk(iq, q[iq], dout[iq], lse[iq], delta[iq], k, v,
+                                        causal, q_offset, window, scale)
+        dk = dk + dk_i
+        dv = dv + dv_i
+        dqs.append(dq_i)
+    return torch.stack(dqs).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """The flash core with the flash backward, the reference's custom VJP:
+    autograd keeps (q, k, v, out, lse), never a chunk's score matrix."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, window, scale):
+        out, lse = _flash_fwd(q, k, v, causal, q_offset, window, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def chunked_attention(
@@ -112,7 +183,7 @@ def chunked_attention(
     qc = q.reshape(B, nq, chunk_q, KV, G, Dk).transpose(0, 1)
     kc = k.reshape(B, nk, chunk_kv, KV, Dk).transpose(0, 1)  # (nk, B, Ck, KV, Dk)
     vc = v.reshape(B, nk, chunk_kv, KV, Dv).transpose(0, 1)  # (nk, B, Ck, KV, Dv)
-    out = _flash_fwd(qc, kc, vc, causal, int(q_offset), window, scale)
+    out = _Flash.apply(qc, kc, vc, causal, int(q_offset), window, scale)
     return out.transpose(0, 1).reshape(B, Sq, H, Dv)
 
 

@@ -11,9 +11,26 @@ Only the dense ``("attn", "dense")`` pattern runs here.  Configs whose
 pattern holds MLA, MoE, Mamba or RWKV layers raise ``NotImplementedError``
 naming the ROADMAP item that ports them; nothing falls back.  (The only
 configs with ``first_dense`` layers are MoE ones, so the leading-layer
-path comes with MoE.)  Train mode computes the forward only: the
-reference's rematerialisation (``remat``) and the flash backward come
-with the training slice.
+path comes with MoE.)
+
+Train mode runs under autograd: attention goes through the flash
+backward (``attention._Flash``), each stacked leaf is split into its
+blocks once (``unbind``, whose backward is one ``stack``), and with
+``cfg.remat`` each block runs under ``torch.utils.checkpoint`` (non-
+reentrant, so the parameters it closes over get their gradients).  The
+reference's policies map so:
+
+- ``remat_policy="nothing"`` (``nothing_saveable``): the whole block is
+  checkpointed, and the backward recomputes it from its input;
+- ``"save_mixer_ffn"`` (``save_only_these_names("mixer_out",
+  "ffn_out")``): each sublayer, norm and mixer then norm and FFN, is
+  checkpointed on its own.  What autograd keeps at the block level is
+  then each sublayer's input, the residual stream before it; the FFN
+  sublayer's input is ``x + mixer_out``, so this keeps what the
+  reference's two named outputs keep, and the backward recomputes each
+  sublayer alone.
+
+Remat changes no value, only what is kept for the backward.
 """
 from __future__ import annotations
 
@@ -21,6 +38,7 @@ import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from ..pytree import leaves, tree_map
 from . import attention as attn
@@ -117,15 +135,37 @@ def init_layer(gen, cfg, mixer: str, ffn: str, *, d_ff: int | None = None):
     }
 
 
-def apply_layer(p, cfg, x, mixer: str, ffn: str, *, positions, mode, cache=None, cache_index=None):
-    """Returns (x, new_cache, aux); a dense layer's aux loss is 0.0."""
-    _require_ported(cfg, mixer, ffn)
+def _mixer_sublayer(p, cfg, x, *, positions, mode, cache=None, cache_index=None):
     h = rms_norm(x, p["norm1"])
-    out, nc = attn.gqa_forward(p["mixer"], cfg, h, positions=positions, mode=mode,
-                               cache=cache.get("mix") if cache else None, cache_index=cache_index)
-    x = x + out
+    return attn.gqa_forward(p["mixer"], cfg, h, positions=positions, mode=mode,
+                            cache=cache.get("mix") if cache else None, cache_index=cache_index)
+
+
+def _ffn_sublayer(p, x):
     h = rms_norm(x, p["norm2"])
-    x = x + nn.swiglu(h, p["ffn"]["wi"], p["ffn"]["wg"], p["ffn"]["wo"])
+    return nn.swiglu(h, p["ffn"]["wi"], p["ffn"]["wg"], p["ffn"]["wo"])
+
+
+def _checkpoint(fn, *args):
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def apply_layer(p, cfg, x, mixer: str, ffn: str, *, positions, mode, cache=None, cache_index=None,
+                remat_sublayers: bool = False):
+    """Returns (x, new_cache, aux); a dense layer's aux loss is 0.0.
+
+    ``remat_sublayers`` (train mode) recomputes each sublayer, norm and
+    mixer, norm and FFN, in the backward from its input.
+    """
+    _require_ported(cfg, mixer, ffn)
+    if remat_sublayers:
+        x = x + _checkpoint(lambda y: _mixer_sublayer(p, cfg, y, positions=positions,
+                                                      mode=mode)[0], x)
+        return x + _checkpoint(lambda y: _ffn_sublayer(p, y), x), None, 0.0
+    out, nc = _mixer_sublayer(p, cfg, x, positions=positions, mode=mode, cache=cache,
+                              cache_index=cache_index)
+    x = x + out
+    x = x + _ffn_sublayer(p, x)
     new_cache = {"mix": nc} if mode in ("prefill", "decode") else None
     return x, new_cache, 0.0
 
@@ -188,20 +228,37 @@ def forward(params, cfg, *, tokens=None, embeds=None, mode="train", cache=None, 
         else:
             positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
 
-    aux = 0.0
-    nb = num_blocks(cfg)
-    per_block = []
-    for i in range(nb):
-        new_cache = {}
+    # each stacked leaf split into its blocks once: under autograd the
+    # backward of the split is one stack, not a zeroed stack per block
+    stacks = {name: tree_map(lambda t: t.unbind(0), params["blocks"][name]) for name in
+              params["blocks"]}
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    per_sublayer = remat and cfg.remat_policy == "save_mixer_ffn"
+
+    def block(i, x, caches):
+        aux, new_cache = 0.0, {}
         for pos, (mixer, ffn) in enumerate(pat):
             name = f"pos{pos}"
-            lp = tree_map(lambda t: t[i], params["blocks"][name])
-            c = tree_map(lambda t: t[i], cache["blocks"][name]) if cache is not None else None
+            lp = tree_map(lambda u: u[i], stacks[name])
             x, nc, a = apply_layer(lp, cfg, x, mixer, ffn, positions=positions, mode=mode,
-                                   cache=c, cache_index=cache_index)
+                                   cache=caches[name] if caches else None,
+                                   cache_index=cache_index, remat_sublayers=per_sublayer)
             aux = aux + a
             if nc is not None:
                 new_cache[name] = nc
+        return x, aux, new_cache
+
+    aux = 0.0
+    per_block = []
+    for i in range(num_blocks(cfg)):
+        if remat and not per_sublayer:  # "nothing": the whole block recomputed
+            x, a, new_cache = _checkpoint(lambda y, i=i: block(i, y, None), x)
+        else:
+            caches = None
+            if cache is not None:
+                caches = {n: tree_map(lambda t: t[i], c) for n, c in cache["blocks"].items()}
+            x, a, new_cache = block(i, x, caches)
+        aux = aux + a
         per_block.append(new_cache)
 
     x = rms_norm(x, params["final_norm"])
@@ -212,6 +269,8 @@ def forward(params, cfg, *, tokens=None, embeds=None, mode="train", cache=None, 
         vmask = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
         logits = logits.masked_fill(~vmask, -1e9)
 
+    # a tensor made from the dense layers' 0.0 (the MoE port must keep its
+    # aux losses in the graph instead)
     aux = torch.tensor(aux, dtype=torch.float32, device=x.device)
     if mode == "prefill":
         return logits, {"blocks": _stack(per_block)}, aux

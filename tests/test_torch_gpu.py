@@ -737,3 +737,80 @@ def test_bf16_decode_matches_train_on_card(cuda):
         lt, cache, _ = lm.forward(params, cfg, tokens=tokens[:, t:t + 1], mode="decode",
                                   cache=cache, cache_index=t)
         assert float((lt[:, 0].float() - full[:, t].float()).abs().max()) < bound
+
+
+@pytest.mark.parametrize("window", [None, 40])
+def test_flash_backward_on_card_matches_cpu(cuda, window):
+    """The reduced config's attention at S = 128: two query and two key
+    chunks of 64, causal, with and without a window.  f32 with TF32 off:
+    dq, dk, dv within 1e-5 of the CPU's."""
+    from repro_torch import configs
+    from repro_torch.models import attention
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = configs.get_reduced("tinyllama-1.1b")
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(2, 2 * cfg.attn_chunk, cfg.num_heads, cfg.head_dim, generator=gen)
+                   for _ in range(4))
+    kw = dict(chunk_q=cfg.attn_chunk, chunk_kv=cfg.attn_chunk, window=window)
+    grads = {}
+    for dev in ("cpu", cuda):
+        xs = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(
+            attention.chunked_attention(*xs, **kw), xs, do.to(dev))]
+    for a, b in zip(grads[str(cuda)], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_reduced_train_step_on_card_matches_cpu(cuda):
+    """One AdamW train step of the reduced tinyllama (f32, TF32 off, S = 128,
+    remat on): loss within rtol 1e-6, every gradient and AdamW m within
+    1e-5 of its leaf's largest magnitude."""
+    from repro_torch import configs
+    from repro_torch.config import RunPlan
+    from repro_torch.fl import steps
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.pytree import leaves, tree_map
+
+    cfg = configs.get_reduced("tinyllama-1.1b").replace(remat=True)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, 128, 4), 0, None, "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        g, m = steps.grads_and_metrics(cfg, RunPlan(), p, b)
+        new, _ = steps.build_train_step(cfg, RunPlan())(steps.init_train_state(cfg, p), b)
+        out[str(dev)] = (float(m["loss"]), [t.cpu() for t in leaves(g)],
+                         [t.cpu() for t in leaves(new["opt"]["m"])])
+    (lc, gc, mc), (lg, gg, mg) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= 1e-6 * abs(lc)
+    for a, b in zip(gg + mg, gc + mc):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_q8_hop_lattice_on_card_bit_equal_to_cpu(cuda):
+    """The podded step's hop on the card: one quantize and one dequantize
+    launch per leaf; the lattice, the scales and the pod mean bit-equal to
+    the CPU's plain versions (``q * s`` rounded once, then ``(a + b) / 2``,
+    IEEE on both)."""
+    from repro_torch.fl import steps
+
+    gen = torch.Generator().manual_seed(5)
+    g = {"a": torch.randn(2, 22, 2048, generator=gen) * 1e-3, "b": torch.randn(2, 300, generator=gen),
+         "c": torch.randn(2, 4, 256, 256, generator=gen)}
+    on = {k: v.to(cuda) for k, v in g.items()}
+    before = dict(qz.launches)
+    agg_card = steps.q8_mean_over_pods(on)
+    torch.cuda.synchronize()
+    assert qz.launches["qsgd_quantize"] == before["qsgd_quantize"] + 3
+    assert qz.launches["qsgd_dequantize"] == before["qsgd_dequantize"] + 3
+    agg_cpu = steps.q8_mean_over_pods(g)
+    for k in g:
+        rows = steps.pod_rows(g[k])
+        half = torch.full_like(rows, 0.5)
+        q, s = ops.qsgd_quantize(rows.to(cuda), half.to(cuda))
+        rq, rs = ops.qsgd_quantize(rows, half)
+        assert torch.equal(q.cpu(), rq) and torch.equal(s.cpu(), rs)
+        assert torch.equal(agg_card[k].cpu(), agg_cpu[k])
