@@ -134,6 +134,52 @@ the CPU):
          every leaf bit-equal, and the next step's loss from the restored
          state equal to the uninterrupted one's; bytes a replica and the
          save and restore seconds;
+   f. the MoE family: deepseek-v2-lite-16b at full width (d 2048, 16
+      heads, MLA kv_lora 512 + rope 64, 64 routed experts top-6 with d_ff
+      1408 and 2 shared, a leading dense layer of d_ff 10944, vocab
+      102,400), with bf16 GEMMs accumulating in f32:
+      a. f32 at 2 layers (the dense layer and one MoE block; remat on, TF32
+         off), B = 2, S = 128, the same weights and batch on the card and
+         on the CPU: train-forward logits within LM_F32_REL of the largest,
+         the loss and aux loss within TRAIN_LOSS_RTOL, every gradient leaf
+         (the router's included) within TRAIN_GRAD_REL of its largest, and
+         every top-k expert index of the forward and of the backward's
+         recompute equal on both sides;
+      b. decode against the train forward through ``launch/serve``'s
+         functions (batch 4, prompt 32, 16 generated), both dropless
+         (capacity factor 64), the token routings that differ between the
+         two paths counted; each of MOE_DECODE_FAULTS is planted in the
+         decode step and read under the flips it makes itself, and must
+         fail where the sound run passes.  The strict gate: f32 at 2
+         layers, no routing flip and every logits entry within
+         MOE_F32_DECODE_REL of the largest logit.  Then bf16 serving at 5
+         layers (dense + 4 MoE blocks), where a near-tie resolved the
+         other way is legitimate: every entry no flip reaches within
+         LM_BF16_REL, at most MOE_BF16_MAX_FLIPS flips and at least
+         MOE_BF16_MIN_CLEAN decode entries left to compare; then, at
+         the config's capacity, prefill ms, decode ms/token beside two
+         weight-read bounds (all 64 experts of each layer, which the dense
+         dispatch reads; the experts the batch's tokens were routed to), a
+         decode step's idle share and top five ops;
+      c. bf16 training at 3 layers (dense + 2 MoE blocks), AdamW, remat
+         "nothing", B 8, S 1024, 6 steps through ``launch/train.train``:
+         losses finite and falling, aux losses finite and positive,
+         ms/step, tokens/s, MFU on the active parameters (a token's 6 of
+         64 experts; MLA's q/k head dim 192, v 128), peak memory, one
+         step's idle share and top ops; then remat on against off at 2
+         layers on the card: the recompute's routing equal to the
+         forward's, every gradient leaf bit-equal but the embedding's
+         (within MOE_REMAT_EMBED_REL of its largest); then one MoE FFN's
+         forward and backward at the training shape, whole and its
+         routing (``moe.route``: the one-hot dispatch and combine) alone;
+      d. the podded ``totoro_tree_q8`` step at 2 layers (the largest depth
+         whose two pods of weights, AdamW state and f32 gradients fit), 2
+         pods, 3 steps: one quantize and one dequantize launch per leaf a
+         step (29 + 29), the aggregate within a quantization step of the
+         pod mean, both hop kernels bit-equal to ``ref`` on the embedding's
+         rows and the largest expert stack's (1,441,792 of 256), timed on
+         the expert stack's, and the hop's kernel time a step beside its
+         byte bound;
 5. times: each kernel's device time (a CUDA graph of calls between CUDA
    events) beside its bound, its plain version and one PyTorch call
    computing the same function where there is one (timed in turns, a b b
@@ -230,6 +276,47 @@ FLASH_FAULTS = ("delta dropped", "dk/dv of the last query chunk only")
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, POD_STEPS, PODS = 8, 1024, 6, 3, 2
 CKPT_LAYERS, CKPT_STEPS, CKPT_REPLICAS = 2, 2, 2
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 peak (NVIDIA data sheet, 700 W)
+# The MoE family (phase 4f): deepseek-v2-lite-16b at full width (MLA, 64
+# routed experts top-6 and 2 shared, one leading dense layer).  a: f32 at 2
+# layers (the dense layer 0 and one MoE block), card (TF32 off) against the
+# CPU under phase 4e a's bounds, the logits within LM_F32_REL of the largest
+# and every top-k expert index equal
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_F32_LAYERS = 2
+# b: decode against the train forward, both dropless (capacity factor 64,
+# as tests/test_models_smoke.py), read by moe_decode_gate under each run's
+# own routing flips; the sound run must pass and each of MOE_DECODE_FAULTS,
+# planted in the decode step, must fail.  The strict gate is f32 (TF32 off)
+# at MOE_F32_LAYERS layers: no token routed differently and every logits
+# entry within MOE_F32_DECODE_REL of the largest logit (set before its
+# first card run to LM_F32_REL, the f32 bound of 4d and 4e a).
+MOE_F32_DECODE_REL = LM_F32_REL
+MOE_DECODE_FAULTS = ("shared experts dropped", "rope scores left out")
+# Then bf16 serving at 5 of 27 layers (the port draws every leaf on the host
+# in f32: the expert stack alone is 19 GB at full depth).  There a bf16
+# rounding that differs between the two paths may resolve a near-tie in the
+# top 6 of 64 the other way, a legitimate difference that reaches its row's
+# logits from its step on (by the cache), so the bound holds on the entries
+# no flip reaches.  LM_BF16_REL, 2^-5, was set from the first card runs:
+# 2^-6.7 there (9 of 752 routings flipped, 42 of 60 decode entries left)
+# and 2^-2.5 and 2^-0.7 for the faults on the sound run's entries.  So that
+# a wrong decode cannot pass by flipping away what is compared, a run fails
+# past MOE_BF16_MAX_FLIPS flips (3x the sound run's) or with fewer than
+# MOE_BF16_MIN_CLEAN decode entries (half of them) left
+MOE_SERVE_LAYERS = 5
+MOE_BF16_MAX_FLIPS = 27
+MOE_BF16_MIN_CLEAN = LM_BATCH * (LM_GEN - 1) // 2
+# c: bf16 training at 3 layers (dense + 2 MoE blocks, 1.67e9 parameters);
+# remat on against off at 2 layers: every gradient leaf bit-equal (the
+# recompute routes the same tokens) but the embedding table's, whose
+# backward adds repeated tokens' rows, within MOE_REMAT_EMBED_REL of its
+# largest
+MOE_TRAIN_LAYERS, MOE_REMAT_LAYERS = 3, 2
+MOE_REMAT_EMBED_REL = 2.0**-8
+# d: the podded q8 step at 2 layers, reckoned at ~55 GB (2 pods x 1.085e9
+# parameters x 14 B of bf16 weights and AdamW state, the pods' f32
+# gradients, one pod's B 4 activations); 3 layers would need ~76 GB
+MOE_POD_LAYERS = 2
 
 KERNELS = [
     {
@@ -1495,7 +1582,8 @@ def serve_on_card(torch, cfg, *, seed: int = 0) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     batch = serve.make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator().manual_seed(seed + 1), "cuda")
-    res, err, scale = decode_vs_forward(torch, params, cfg, batch)
+    res, diffs, scale = decode_vs_forward(torch, params, cfg, batch)
+    err = float(diffs.max())
     toks = res["tokens"]
     if err >= LM_BF16_REL * scale:
         raise SystemExit(f"{cfg.name}: decode logits differ from the train forward by {err:.4g} "
@@ -1510,8 +1598,9 @@ def serve_on_card(torch, cfg, *, seed: int = 0) -> dict:
 def decode_vs_forward(torch, params, cfg, batch) -> tuple:
     """``serve.generate`` for LM_GEN tokens, then the train-mode forward over
     the LM_PROMPT + LM_GEN - 1 positions its steps read: the run, the
-    largest difference between each step's logits and the forward's, and
-    the forward's largest logit magnitude."""
+    largest difference between each step's logits and the forward's for
+    each row and step (B, LM_GEN) on the host (step 0: the prefill's last
+    position), and the forward's largest logit magnitude."""
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
@@ -1527,16 +1616,18 @@ def decode_vs_forward(torch, params, cfg, batch) -> tuple:
                          f"of the forward's shape {tuple(want.shape)}")
     if not torch.equal(res["tokens"], steps.argmax(-1).to(torch.int32)):
         raise SystemExit(f"{cfg.name}: the greedy tokens are not their logits' argmax")
-    return res, float((steps - want).abs().max()), float(want.abs().max())
+    return res, (steps - want).abs().amax(-1).cpu(), float(want.abs().max())
 
 
 @contextmanager
 def planted_decode_fault(kind: str):
     """One of DECODE_FAULTS in ``models/attention``'s decode step, for the
-    length of the block (the module's functions are restored after)."""
-    from repro_torch.models import attention
+    length of the block (``lm``'s GQA entry and the module's functions are
+    restored after)."""
+    from repro_torch.models import attention, lm
 
-    fwd, dec = attention.gqa_forward, attention.decode_attention
+    mixer, dec = lm._MIXERS["attn"], attention.decode_attention
+    fwd = mixer[1]
 
     def faulty_forward(p, cfg, x, *, mode, cache=None, cache_index=None, **kw):
         if mode == "decode" and kind == "cache_index - 1":
@@ -1552,13 +1643,13 @@ def planted_decode_fault(kind: str):
         m[:, int(mask[0].nonzero()[-1])] = False
         return dec(q, k, v, m)
 
-    attention.gqa_forward = faulty_forward
+    lm._MIXERS["attn"] = (mixer[0], faulty_forward, mixer[2])
     if kind == "own position masked":
         attention.decode_attention = own_position_masked
     try:
         yield
     finally:
-        attention.gqa_forward, attention.decode_attention = fwd, dec
+        lm._MIXERS["attn"], attention.decode_attention = mixer, dec
 
 
 def planted_faults(torch, cfg, params, batch) -> dict:
@@ -1567,8 +1658,8 @@ def planted_faults(torch, cfg, params, batch) -> dict:
     out = {}
     for kind in DECODE_FAULTS:
         with planted_decode_fault(kind):
-            _, err, scale = decode_vs_forward(torch, params, cfg, batch)
-        out[kind] = err / scale
+            _, diffs, scale = decode_vs_forward(torch, params, cfg, batch)
+        out[kind] = float(diffs.max()) / scale
     passed = [k for k, rel in out.items() if not rel > LM_BF16_REL]
     if passed:
         raise SystemExit(f"{cfg.name}: LM_BF16_REL = {LM_BF16_REL} passes the planted decode "
@@ -1606,13 +1697,17 @@ def profile_decode(torch, cfg, params, batch, n: int = 8) -> dict:
 def serve_times(cfg, run: dict, smi: str) -> dict:
     """Prefill ms, decode ms/token (mean of decodes 2..), and the decode
     step's bound: the bytes it must read (every weight but the embedding
-    table, of which it gathers B rows, plus the cache) over HBM's rate."""
+    table, of which it gathers B rows, plus the cache: GQA's k and v, MLA's
+    latent and rope key, ``lm.cache_shapes``) over HBM's rate."""
+    from repro_torch.models import lm
+    from repro_torch.pytree import leaves
+
     timed = run["timed"]
     dec = timed["decode_ms"]
     p = run["params"]
     emb = p["embed"].numel() * p["embed"].element_size()
-    cache_bytes = (2 * cfg.num_layers * LM_BATCH * (LM_PROMPT + LM_GEN) * cfg.num_kv_heads
-                   * cfg.head_dim * p["embed"].element_size())
+    cache_bytes = sum(t.numel() * t.element_size() for t in leaves(
+        lm.cache_shapes(cfg, LM_BATCH, LM_PROMPT + LM_GEN)))
     read = run["weight_bytes"] - emb + LM_BATCH * cfg.d_model * p["embed"].element_size() + cache_bytes
     return {
         "arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype, "batch": LM_BATCH,
@@ -1621,7 +1716,8 @@ def serve_times(cfg, run: dict, smi: str) -> dict:
         "first_run_prefill_ms": run["first_run"]["prefill_ms"],
         "weight_bytes": run["weight_bytes"],
         "bound_ms_all_weights": run["weight_bytes"] / HBM_BYTES_PER_S * 1e3,
-        "bound_ms_decode_step": read / HBM_BYTES_PER_S * 1e3,
+        "bound_ms_decode_step": read / HBM_BYTES_PER_S * 1e3, "decode_read_bytes": read,
+        "cache_bytes": cache_bytes,
         "init_s": run["init_s"], "card": smi,
     }
 
@@ -1904,24 +2000,30 @@ def _profile_step(torch, fn) -> dict:
     }
 
 
-def model_flops(cfg, params, tokens: int, seq: int) -> float:
-    """6 N T (N without the embedding table) + 6 L H hd S T (causal attention)."""
-    from repro_torch.models import nn
+def model_flops(cfg, tokens: int, seq: int) -> float:
+    """6 N T + 3 L H (Dk + Dv) S T: N the active parameters
+    (``lm.count_params_analytic``: a token's top-k experts, not all of them)
+    without the embedding table; causal attention with q/k head dim Dk and
+    v head dim Dv (head_dim both for GQA; MLA's Dk adds qk_rope_dim)."""
+    from repro_torch.models import lm
 
-    n = nn.count_params(params) - params["embed"].numel()
-    return 6.0 * n * tokens + 6.0 * cfg.num_layers * cfg.num_heads * cfg.head_dim * seq * tokens
+    n = lm.count_params_analytic(cfg)[1] - cfg.padded_vocab * cfg.d_model
+    dk = cfg.head_dim + (cfg.qk_rope_dim if cfg.attn_impl == "mla" else 0)
+    return (6.0 * n * tokens
+            + 3.0 * cfg.num_layers * cfg.num_heads * (dk + cfg.head_dim) * seq * tokens)
 
 
-def train_tinyllama(torch, smi: str) -> dict:
-    """c: tinyllama-1.1b at full width and depth, bf16, AdamW, remat on,
-    through ``launch/train.train``: TRAIN_STEPS steps of B = TRAIN_BATCH,
-    S = TRAIN_SEQ; then one more step under torch.profiler."""
-    from repro_torch import configs
+def train_lm(torch, smi: str, cfg) -> dict:
+    """c (4e: tinyllama-1.1b at full width and depth; 4f: deepseek-v2-lite
+    at full width, MOE_TRAIN_LAYERS layers), bf16, AdamW, remat on, through
+    ``launch/train.train``: TRAIN_STEPS steps of B = TRAIN_BATCH, S =
+    TRAIN_SEQ, losses finite and falling (an MoE model's aux losses finite
+    and positive); then one more step under torch.profiler."""
     from repro_torch.config import RunPlan
     from repro_torch.fl import steps
     from repro_torch.launch import train
+    from repro_torch.models import lm
 
-    cfg = configs.get_config("tinyllama-1.1b")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     set_counts(dict.fromkeys(COUNTED, 0))
@@ -1930,16 +2032,20 @@ def train_tinyllama(torch, smi: str) -> dict:
                       global_batch=TRAIN_BATCH, device="cuda", log=lambda *a: None)
     wall = time.perf_counter() - t0
     got = counts()
-    losses = run["losses"]
+    losses, auxes = run["losses"], run["auxes"]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise SystemExit(f"tinyllama training: losses {losses} not finite or not falling")
+        raise SystemExit(f"{cfg.name} training: losses {losses} not finite or not falling")
+    if cfg.moe_num_experts and not all(np.isfinite(a) and a > 0 for a in auxes):
+        raise SystemExit(f"{cfg.name} training: aux losses {auxes} not finite and positive")
     if got != dict.fromkeys(COUNTED, 0):
-        raise SystemExit(f"tinyllama training: launches {got}, expected none")
+        raise SystemExit(f"{cfg.name} training: launches {got}, expected none")
     steady = float(np.mean(run["step_ms"][1:]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = model_flops(cfg, run["state"]["params"], tokens, TRAIN_SEQ)
+    flops = model_flops(cfg, tokens, TRAIN_SEQ)
     out = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype, "remat": cfg.remat,
-           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": cfg.learning_rate, "losses": losses,
+           "remat_policy": cfg.remat_policy, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "lr": cfg.learning_rate, "losses": losses, "auxes": auxes,
+           "params_total_active": list(lm.count_params_analytic(cfg)),
            "step_ms": run["step_ms"], "ms_per_step": steady, "tokens_per_s": tokens / steady * 1e3,
            "model_flops_per_step": flops, "mfu": flops / (steady * 1e-3) / BF16_FLOPS,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": got,
@@ -1952,22 +2058,36 @@ def train_tinyllama(torch, smi: str) -> dict:
     return out
 
 
-def train_podded(torch, qz, ops, ref) -> dict:
-    """d: the podded ``totoro_tree_q8`` step, PODS pods, the same model and
-    batch (pod p takes rows p B / PODS ..), POD_STEPS steps through
-    ``launch/train.train``: one quantize and one dequantize launch per
-    leaf a step; then, on the next batch's gradients (``steps.pod_grads``,
-    the step's own), the aggregate within one quantization step
-    (max |g| / 127) of the plain pod mean, and both kernels bit-equal to
-    their plain versions on the embed leaf's rows and the largest leaf's;
-    one step under torch.profiler."""
-    from repro_torch import configs
+def hop_leaves(grads_pod) -> dict:
+    """The podded gradient leaves whose rows the hop's kernels are checked
+    on: the embedding table's, the largest leaf's and, in an MoE model, the
+    largest routed-expert stack's (``blocks/pos*/ffn/w{i,g,o}``)."""
+    from repro_torch.pytree import key_paths, leaves
+
+    named = dict(zip(key_paths(grads_pod), leaves(grads_pod)))
+    out = {"embed": named["embed"], "largest": max(named.values(), key=lambda t: t.numel())}
+    experts = [t for p, t in named.items() if p.startswith("blocks/") and "/ffn/w" in p
+               and t.dim() == 5]  # (pods, blocks, E, in, out)
+    if experts:
+        out["expert"] = max(experts, key=lambda t: t.numel())
+    return out
+
+
+def train_podded(torch, qz, ops, ref, cfg, timed: str) -> dict:
+    """d: the podded ``totoro_tree_q8`` step, PODS pods, B = TRAIN_BATCH
+    and S = TRAIN_SEQ (pod p takes rows p B / PODS ..), POD_STEPS steps
+    through ``launch/train.train``: one quantize and one dequantize launch
+    per leaf a step; then, on the next batch's gradients
+    (``steps.pod_grads``, the step's own), the aggregate within one
+    quantization step (max |g| / 127) of the plain pod mean, and both
+    kernels bit-equal to their plain versions on the rows of each of
+    ``hop_leaves``; both kernels timed on the ``timed`` one's rows; one
+    step under torch.profiler."""
     from repro_torch.config import RunPlan
     from repro_torch.fl import steps
     from repro_torch.launch import train
     from repro_torch.pytree import leaves
 
-    cfg = configs.get_config("tinyllama-1.1b")
     plan = RunPlan(aggregation="totoro_tree_q8")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1998,11 +2118,9 @@ def train_podded(torch, qz, ops, ref) -> dict:
             worst = max(worst, d / step_size)
         del agg
         # the hop's two kernels against their plain versions, bit for bit,
-        # on the embed leaf's rows and on the largest leaf's
-        bit_equal = {}
-        for leaf in ("embed", "largest"):
-            g = (grads_pod["embed"] if leaf == "embed"
-                 else max(leaves(grads_pod), key=lambda t: t.numel()))
+        # on the rows of each of hop_leaves
+        bit_equal, rows_of = {}, {}
+        for leaf, g in hop_leaves(grads_pod).items():
             rows = steps.pod_rows(g)
             u = halves[: rows.shape[0]]
             q, scale = ops.qsgd_quantize(rows, u)
@@ -2011,8 +2129,11 @@ def train_podded(torch, qz, ops, ref) -> dict:
             del rq, rs
             bit_equal[f"{leaf}_dequantize"] = _bits_equal(
                 torch, ops.qsgd_dequantize(q, scale), ref.dequantize_ref(q, scale))
+            rows_of[leaf] = [rows.shape[0], 256]
+            if leaf == timed:
+                big, hb, bq, bs = rows, u, q, scale
+            del rows, u, q, scale
         n_rows = sum(steps.pod_rows_count(g) for g in leaves(grads_pod))
-        big, hb, bq, bs = rows, u, q, scale  # the largest leaf's
         R = big.shape[0]
         reps = dict(calls=3, replays=3)
         hop_rows = {
@@ -2024,7 +2145,7 @@ def train_podded(torch, qz, ops, ref) -> dict:
                                          R * 256, library=lambda: torch.mul(bq, bs),
                                          shape=[R, 256], **reps),
         }
-        del grads_pod, halves, g, rows, u, q, scale, big, hb, bq, bs
+        del grads_pod, halves, g, big, hb, bq, bs
     if worst > 1.0 + 1e-6 or not all(bit_equal.values()):
         raise SystemExit(f"q8 hop: aggregate {worst:.4g} quantization steps from the pod mean, "
                          f"or a kernel differs from its plain version ({bit_equal})")
@@ -2040,11 +2161,12 @@ def train_podded(torch, qz, ops, ref) -> dict:
         "pods": PODS, "steps": POD_STEPS, "losses": run["losses"], "step_ms": run["step_ms"],
         "ms_per_step": float(np.mean(run["step_ms"][1:])), "peak_mem_gb": peak, "wall_s": wall,
         "launches": got, "leaves": n_leaves, "agg_vs_mean_in_q_steps": worst,
-        "hop_bit_equal": bit_equal, "hop_rows_per_step": n_rows,
+        "hop_bit_equal": bit_equal, "hop_rows_per_step": n_rows, "checked_rows": rows_of,
+        "timed_leaf": timed, "arch": cfg.name, "layers": cfg.num_layers,
         "hop_bytes_per_step": hop_bytes, "hop_bytes_per_step_no_uniforms": hop_bytes_own,
         "hop_bound_ms": sum(hop_bytes.values()) / HBM_BYTES_PER_S * 1e3,
         "hop_bound_ms_no_uniforms": sum(hop_bytes_own.values()) / HBM_BYTES_PER_S * 1e3,
-        "hop_kernels_ms": prof["q8_hop_kernels_ms"], "profile": prof, "largest_leaf": hop_rows,
+        "hop_kernels_ms": prof["q8_hop_kernels_ms"], "profile": prof, "timed_rows": hop_rows,
     }
 
 
@@ -2105,6 +2227,8 @@ def checkpoint_resume(torch) -> dict:
 
 def drive_training(torch, smi: str, qz, ops, ref) -> dict:
     """Phase 4e, with bf16 GEMMs accumulating in f32 (restored after)."""
+    from repro_torch import configs
+
     bf16_rr = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     try:
@@ -2112,11 +2236,405 @@ def drive_training(torch, smi: str, qz, ops, ref) -> dict:
         out["a_f32_card_vs_cpu"] = train_f32_card_vs_cpu(torch)
         with uncounted():
             out["b_flash_backward"] = flash_backward_on_card(torch)
-        out["c_tinyllama"] = train_tinyllama(torch, smi)
-        out["d_podded_q8"] = train_podded(torch, qz, ops, ref)
+        tiny = configs.get_config("tinyllama-1.1b")
+        out["c_tinyllama"] = train_lm(torch, smi, tiny)
+        out["d_podded_q8"] = train_podded(torch, qz, ops, ref, tiny, "largest")
         with uncounted():
             out["e_checkpoint"] = checkpoint_resume(torch)
         torch.cuda.empty_cache()
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = bf16_rr
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: the MoE family (deepseek-v2-lite-16b)
+
+
+class RoutingRecorder:
+    """Keeps every top-k expert choice the MoE layers make (``moe.top_k``
+    wrapped for one run): the (G, T, k) indices of each call, on the host,
+    in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe, self._orig, self.idx = moe, moe.top_k, []
+
+        def recorded(gates, k):
+            w, idx = self._orig(gates, k)
+            self.idx.append(idx.detach().cpu())
+            return w, idx
+
+        moe.top_k = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.top_k = self._orig
+
+
+def _n_moe(cfg) -> int:
+    from repro_torch.models import lm
+
+    return sum(f == "moe" for _, f in lm.layer_pattern(cfg)) * lm.num_blocks(cfg)
+
+
+def moe_f32_card_vs_cpu(torch) -> dict:
+    """a: MOE_ARCH at full width, MOE_F32_LAYERS layers, f32 (remat on,
+    TF32 off), B = TRAIN_F32_BATCH, S = TRAIN_F32_SEQ, the same weights and
+    batch on the card and on the CPU: the train-mode forward's logits
+    within LM_F32_REL of the largest, its aux loss, the loss within
+    TRAIN_LOSS_RTOL, every gradient leaf (``grads_and_metrics``; the
+    routers' included) within TRAIN_GRAD_REL of its largest, and every
+    top-k expert index of the forward and of the backward's recompute
+    equal on both sides."""
+    from repro_torch import configs
+    from repro_torch.config import RunPlan
+    from repro_torch.fl import steps
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.pytree import tree_map
+
+    cfg = configs.get_config(MOE_ARCH).replace(num_layers=MOE_F32_LAYERS, dtype="float32",
+                                               param_dtype="float32")
+    params = lm.init_params(torch.Generator().manual_seed(2), cfg)
+    sc = train.StreamConfig(cfg.vocab_size, TRAIN_F32_SEQ, TRAIN_F32_BATCH)
+    batch = train.make_batch(cfg, sc, 0, None, "cpu")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with RoutingRecorder() as rec:
+            with torch.no_grad():
+                logits, _, aux = lm.forward(p, cfg, tokens=b["tokens"], mode="train")
+            g, m = steps.grads_and_metrics(cfg, RunPlan(), p, b)
+        runs[dev] = {"logits": logits.cpu(), "aux": float(aux), "loss": float(m["loss"]),
+                     "aux_step": float(m["aux"]), "grads": tree_map(lambda t: t.cpu(), g),
+                     "idx": rec.idx}
+        del p, g, logits
+    cpu, card = runs["cpu"], runs["cuda"]
+    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(card["idx"], cpu["idx"]))
+    routed = sum(int(a[..., 0].numel()) for a in cpu["idx"])
+    out = {"layers": MOE_F32_LAYERS, "loss_cpu": cpu["loss"], "loss_card": card["loss"],
+           "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+           "aux_cpu": cpu["aux"], "aux_card": card["aux"],
+           "aux_rel": abs(card["aux"] - cpu["aux"]) / abs(cpu["aux"]),
+           "aux_step_equals_forward": card["aux_step"] == card["aux"],
+           "logits_rel": _rel(torch, card["logits"], cpu["logits"]),
+           "grad_rel": _leaf_rels(torch, card["grads"], cpu["grads"]),
+           "topk_calls": len(card["idx"]), "tokens_routed": routed,
+           "tokens_routed_differently": flips}
+    out["grad_rel_max"] = max(out["grad_rel"].values())
+    out["router_grad_rel"] = {k: v for k, v in out["grad_rel"].items() if k.endswith("router")}
+    if flips or len(card["idx"]) != len(cpu["idx"]) or len(cpu["idx"]) != 3 * _n_moe(cfg):
+        raise SystemExit(f"MoE f32 card vs CPU: {flips} of {routed} token routings differ "
+                         f"(top-k calls {len(card['idx'])} and {len(cpu['idx'])})")
+    if (not out["loss_rel"] <= TRAIN_LOSS_RTOL or not out["aux_rel"] <= TRAIN_LOSS_RTOL
+            or not out["logits_rel"] <= LM_F32_REL or not out["grad_rel_max"] <= TRAIN_GRAD_REL
+            or not cpu["aux"] > 0):
+        raise SystemExit(f"MoE f32 card vs CPU past its bounds: {out}")
+    return out
+
+
+def moe_route_share(torch, cfg) -> dict:
+    """c: one MoE FFN of ``cfg`` at the training shape (B = TRAIN_BATCH, S =
+    TRAIN_SEQ, bf16), forward plus backward, eager (CUDA events, host cost
+    included): the whole ``moe.moe_forward``, and ``moe.route`` alone (the
+    (G, T, E, C) one-hot dispatch and combine built in k passes) on the
+    gates ``moe_forward`` handed it.  route's share of the FFN is a floor
+    under the dense dispatch's: its two einsums are not timed apart."""
+    from repro_torch.models import moe
+    from repro_torch.pytree import tree_map
+
+    p = tree_map(lambda t: t.cuda().requires_grad_(True),
+                 moe.init_moe(torch.Generator().manual_seed(6), cfg))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model, device="cuda", generator=gen)
+    x = x.to(cfg.adtype).requires_grad_(True)
+    route, handed = moe.route, []
+
+    def handing(gates, k, capacity):
+        handed.append((gates, k, capacity))
+        return route(gates, k, capacity)
+
+    moe.route = handing
+    try:
+        with torch.no_grad():
+            moe.moe_forward(p, cfg, x)
+    finally:
+        moe.route = route
+    gates, k, capacity = handed[0]
+    gates.requires_grad_(True)
+
+    def whole():
+        out, aux = moe.moe_forward(p, cfg, x)
+        (out.float().sum() + aux).backward()
+
+    def route_alone():
+        _, comb, aux = route(gates, k, capacity)
+        (comb.sum() + aux).backward()
+
+    ms = {name: eager_ms(torch, fn, iters=5, warmup=2)
+          for name, fn in (("moe_forward", whole), ("route", route_alone))}
+    ms["route_share"] = ms["route"] / ms["moe_forward"]
+    ms["shape_gtec"] = [*gates.shape, capacity]
+    return ms
+
+
+def moe_remat_agreement(torch) -> dict:
+    """c: MOE_ARCH at full width, MOE_REMAT_LAYERS layers, bf16, B =
+    TRAIN_BATCH, S = TRAIN_SEQ: the gradients with remat ("nothing": the
+    block recomputed in the backward, routing included) and without, on the
+    card; the recompute's top-k indices equal the forward's, the loss and
+    aux equal, every leaf bit-equal but the embedding table's (within
+    MOE_REMAT_EMBED_REL of its largest)."""
+    from repro_torch import configs
+    from repro_torch.config import RunPlan
+    from repro_torch.ckpt import key_paths
+    from repro_torch.fl import steps
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.pytree import leaves
+
+    cfg = configs.get_config(MOE_ARCH).replace(num_layers=MOE_REMAT_LAYERS)
+    params = lm.init_params(torch.Generator().manual_seed(4), cfg, device="cuda")
+    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), 0,
+                             None, "cuda")
+    with RoutingRecorder() as rec:
+        on, m_on = steps.grads_and_metrics(cfg, RunPlan(), params, batch)
+    off, m_off = steps.grads_and_metrics(cfg.replace(remat=False), RunPlan(), params, batch)
+    torch.cuda.synchronize()
+    n = _n_moe(cfg)
+    recompute_same = len(rec.idx) == 2 * n and all(
+        torch.equal(rec.idx[i], rec.idx[n + i]) for i in range(n))
+    unequal = [p for p, a, b in zip(key_paths(on), leaves(on), leaves(off)) if not torch.equal(a, b)]
+    out = {"layers": MOE_REMAT_LAYERS, "remat_policy": cfg.remat_policy,
+           "recompute_routes_the_same": recompute_same,
+           "loss_equal": bool(torch.equal(m_on["loss"], m_off["loss"])),
+           "aux_equal": bool(torch.equal(m_on["aux"], m_off["aux"])),
+           "leaves": len(leaves(on)), "leaves_not_bit_equal": unequal,
+           "embed_rel": _rel(torch, on["embed"], off["embed"])}
+    if (not recompute_same or not out["loss_equal"] or not out["aux_equal"]
+            or set(unequal) - {"embed"} or out["embed_rel"] > MOE_REMAT_EMBED_REL):
+        raise SystemExit(f"MoE remat against no remat on the card: {out}")
+    return out
+
+
+def routing_flips(idx: list, n_moe: int) -> dict:
+    """Token routings (a token's top-k expert set in one MoE layer) of a
+    ``decode_vs_forward`` run that differ between the serving path (the
+    prefill over the prompt, then each decode step) and the train forward
+    over the same positions, and for each row the first of its LM_GEN
+    logits entries such a flip reaches (LM_GEN: none).  ``idx``:
+    RoutingRecorder's calls, in order:
+    the prefill's n_moe, LM_GEN - 1 decode steps' n_moe each, the
+    forward's n_moe."""
+    B, P = LM_BATCH, LM_PROMPT
+    pre, fwd = idx[:n_moe], idx[-n_moe:]
+    dec = idx[n_moe:-n_moe]
+    if len(dec) != (LM_GEN - 1) * n_moe:
+        raise SystemExit(f"MoE serving: {len(idx)} top-k calls, not {(LM_GEN + 1) * n_moe}")
+    sets = lambda t: t.reshape(B, -1, t.shape[-1]).sort(-1).values
+    flips = {"prefill": 0, "decode": 0}
+    # a row's logits from the first one a flip reaches on (a prompt flip
+    # reaches the prefill's, entry 0; decode step s's, entry s + 1 and, by
+    # the cache, every later one)
+    first = [LM_GEN] * B
+    for layer in range(n_moe):
+        want = sets(fwd[layer])  # (B, P + LM_GEN - 1, k)
+        row_pre = (sets(pre[layer]) != want[:, :P]).any(-1)  # (B, P)
+        flips["prefill"] += int(row_pre.sum())
+        for r in row_pre.any(-1).nonzero().flatten().tolist():
+            first[r] = 0
+        for step in range(LM_GEN - 1):
+            row = (sets(dec[step * n_moe + layer])[:, 0] != want[:, P + step]).any(-1)
+            flips["decode"] += int(row.sum())
+            for r in row.nonzero().flatten().tolist():
+                first[r] = min(first[r], step + 1)
+    flips["routings"] = n_moe * B * (P + LM_GEN - 1)
+    flips["first_logits_reached_per_row"] = first
+    return flips
+
+
+@contextmanager
+def planted_moe_fault(kind: str):
+    """One of MOE_DECODE_FAULTS in the decode step, for the length of the
+    block: the shared experts left out of each MoE layer's decode output,
+    or the rope half of MLA's absorbed scores left out (the step reads a
+    zero rope-key cache)."""
+    import torch
+
+    from repro_torch.models import lm, moe
+
+    mixer, ffn = lm._MIXERS["mla"], moe.moe_forward
+    mla = mixer[1]
+
+    def no_shared(p, cfg, x):
+        if x.shape[1] == 1:  # a decode step's one token
+            p = {k: v for k, v in p.items() if k != "shared"}
+            cfg = cfg.replace(moe_num_shared=0)
+        return ffn(p, cfg, x)
+
+    def no_rope(p, cfg, x, *, mode, cache=None, **kw):
+        if mode != "decode":
+            return mla(p, cfg, x, mode=mode, cache=cache, **kw)
+        zero = {"c_kv": cache["c_kv"], "k_rope": torch.zeros_like(cache["k_rope"])}
+        return mla(p, cfg, x, mode=mode, cache=zero, **kw)[0], cache
+
+    if kind == "shared experts dropped":
+        moe.moe_forward = no_shared
+    else:
+        lm._MIXERS["mla"] = (mixer[0], no_rope, mixer[2])
+    try:
+        yield
+    finally:
+        lm._MIXERS["mla"], moe.moe_forward = mixer, ffn
+
+
+def moe_decode_gate(torch, idx: list, n_moe: int, diffs, scale: float, bound: float,
+                    max_flips: int, min_clean: int) -> dict:
+    """One ``decode_vs_forward`` run read under its own routing flips
+    (``routing_flips`` of its RoutingRecorder calls ``idx``): it passes when
+    at most ``max_flips`` token routings differ, at least ``min_clean`` of
+    the B x (LM_GEN - 1) decode entries are reached by no flip, and those
+    entries and the prefill's (step 0) are within ``bound`` of the largest
+    logit ``scale``."""
+    flips = routing_flips(idx, n_moe)
+    reach = torch.tensor(flips["first_logits_reached_per_row"])
+    clean = torch.arange(LM_GEN)[None, :] < reach[:, None]  # (B, LM_GEN): no flip reaches
+    n_flips, n_clean = flips["prefill"] + flips["decode"], int(clean[:, 1:].sum())
+    rel = float(diffs[clean].max()) / scale if clean.any() else float("inf")
+    return {"flips": n_flips, "max_flips": max_flips, "routing_flips": flips,
+            "decode_entries_no_flip_reaches": n_clean, "min_clean": min_clean,
+            "rel_no_flip": rel, "rel_all": float(diffs.max()) / scale, "bound": bound,
+            "passed": n_flips <= max_flips and n_clean >= min_clean and rel < bound}
+
+
+def moe_decode_check(torch, cfg, params, batch, bound: float, max_flips: int,
+                     min_clean: int) -> dict:
+    """Decode against the train forward, both dropless, through
+    ``decode_vs_forward``: the sound run and each of MOE_DECODE_FAULTS,
+    each read by ``moe_decode_gate`` under the flips it makes itself.  The
+    sound run must pass and every fault fail."""
+    dropless = cfg.replace(capacity_factor=64.0)
+    n_moe = _n_moe(cfg)
+    out = {"faults": {}}
+    for kind in (None,) + MOE_DECODE_FAULTS:
+        with RoutingRecorder() as rec, (planted_moe_fault(kind) if kind else nullcontext()):
+            res, diffs, scale = decode_vs_forward(torch, params, dropless, batch)
+        gate = moe_decode_gate(torch, rec.idx, n_moe, diffs, scale, bound, max_flips, min_clean)
+        if kind:
+            out["faults"][kind] = gate
+            continue
+        out.update(gate, max_abs_logit=scale, tokens_row0=res["tokens"][0].tolist(),
+                   rel_per_entry=[[round(float(v) / scale, 5) for v in row] for row in diffs])
+    caught = [k for k, g in out["faults"].items() if not g["passed"]]
+    if not out["passed"] or len(caught) != len(MOE_DECODE_FAULTS):
+        raise SystemExit(f"{cfg.name} ({cfg.dtype}): decode against the dropless train forward "
+                         f"fails its gate, or the gate passes a planted fault (caught only "
+                         f"{caught}): {out}")
+    return out
+
+
+def moe_decode_f32(torch) -> dict:
+    """b, the strict gate: MOE_ARCH at full width, MOE_F32_LAYERS layers,
+    f32 (TF32 off), on the card: ``moe_decode_check`` with no flip allowed
+    and every entry within MOE_F32_DECODE_REL."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = configs.get_config(MOE_ARCH).replace(num_layers=MOE_F32_LAYERS, dtype="float32",
+                                               param_dtype="float32")
+    params = lm.init_params(torch.Generator().manual_seed(22), cfg, device="cuda")
+    batch = serve.make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator().manual_seed(23), "cuda")
+    out = moe_decode_check(torch, cfg, params, batch, MOE_F32_DECODE_REL, 0,
+                           LM_BATCH * (LM_GEN - 1))
+    return dict(out, layers=MOE_F32_LAYERS)
+
+
+def serve_moe(torch, smi: str) -> dict:
+    """b: MOE_ARCH at full width, MOE_SERVE_LAYERS layers, bf16, through
+    ``launch/serve``'s functions (batch LM_BATCH, prompt LM_PROMPT, LM_GEN
+    generated): ``moe_decode_check`` within LM_BF16_REL, at most
+    MOE_BF16_MAX_FLIPS flips and MOE_BF16_MIN_CLEAN clean decode entries.
+    Then two runs at the config's capacity, the second timed, its top-k
+    choices kept: the decode bound over all 64 experts' weights, and over
+    the experts the batch's tokens were routed to."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.pytree import leaves
+
+    cfg = configs.get_config(MOE_ARCH).replace(num_layers=MOE_SERVE_LAYERS)
+    n_moe = _n_moe(cfg)
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator().manual_seed(20), cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = serve.make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator().manual_seed(21), "cuda")
+    check = moe_decode_check(torch, cfg, params, batch, LM_BF16_REL, MOE_BF16_MAX_FLIPS,
+                             MOE_BF16_MIN_CLEAN)
+    first = serve.generate(params, cfg, batch, LM_GEN)
+    with RoutingRecorder() as timed_rec:
+        timed = serve.generate(params, cfg, batch, LM_GEN)
+    run = {"params": params, "timed": timed, "first_run": first, "init_s": init_s,
+           "weight_bytes": sum(t.numel() * t.element_size() for t in leaves(params))}
+    out = serve_times(cfg, run, smi)
+    # experts a decode step reads: those its B tokens were routed to, per layer
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff * params["embed"].element_size()
+    dec = timed_rec.idx[n_moe:]
+    used = [sum(int(dec[s * n_moe + l].unique().numel()) for l in range(n_moe))
+            for s in range(LM_GEN - 1)]
+    unread = n_moe * cfg.moe_num_experts - float(np.mean(used[1:]))
+    out.update(
+        decode_vs_forward=check,
+        experts_read_per_decode_step=used, moe_layers=n_moe, num_experts=cfg.moe_num_experts,
+        bound_ms_routed_experts=(out["decode_read_bytes"] - unread * per_expert)
+        / HBM_BYTES_PER_S * 1e3,
+        params_total_active=list(lm.count_params_analytic(cfg)))
+    with uncounted():
+        out["decode_profile"] = profile_decode(torch, cfg, params, batch)
+    return out
+
+
+def drive_moe(torch, smi: str, qz, ops, ref) -> dict:
+    """Phase 4f, with bf16 GEMMs accumulating in f32 (restored after); a,
+    b, c and d of the module docstring, every launch counter set to 0 just
+    before each and read just after."""
+    from repro_torch import configs
+
+    bf16_rr = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        out = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+        set_counts(dict.fromkeys(COUNTED, 0))
+        out["a_f32_card_vs_cpu"] = moe_f32_card_vs_cpu(torch)
+        out["a_launches"] = counts()
+        torch.cuda.empty_cache()
+        set_counts(dict.fromkeys(COUNTED, 0))
+        out["b_decode_f32"] = moe_decode_f32(torch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out["b_serve"] = serve_moe(torch, smi)
+        out["b_launches"] = counts()
+        out["b_serve"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        cfg = configs.get_config(MOE_ARCH)
+        out["c_train"] = train_lm(torch, smi, cfg.replace(num_layers=MOE_TRAIN_LAYERS))
+        torch.cuda.empty_cache()
+        with uncounted():
+            out["c_remat"] = moe_remat_agreement(torch)
+            torch.cuda.empty_cache()
+            out["c_route"] = moe_route_share(torch, cfg)
+        torch.cuda.empty_cache()
+        out["d_podded_q8"] = train_podded(torch, qz, ops, ref,
+                                          cfg.replace(num_layers=MOE_POD_LAYERS), "expert")
+        torch.cuda.empty_cache()
+        for tag in ("a_launches", "b_launches"):
+            if out[tag] != dict.fromkeys(COUNTED, 0):
+                raise SystemExit(f"MoE {tag[0]}: launches {out[tag]}, expected none")
         return out
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = bf16_rr
@@ -2450,6 +2968,72 @@ def main() -> int:
         f"restored vs {e['next_loss_uninterrupted']!r} uninterrupted (bit-equal: "
         f"{e['next_loss_bit_equal']})")
 
+    # -- 4f. the MoE family: deepseek-v2-lite-16b ---------------------------------
+    moe = drive_moe(torch, smi, qz, ops, ref)
+    a = moe["a_f32_card_vs_cpu"]
+    log(f"[4f moe a] {MOE_ARCH} full width, {a['layers']} layers, f32, B={TRAIN_F32_BATCH} "
+        f"S={TRAIN_F32_SEQ}, remat on, TF32 {moe['allow_tf32']}: logits within "
+        f"{a['logits_rel']:.3g} of the largest (bound {LM_F32_REL}); loss card {a['loss_card']:.7f} "
+        f"CPU {a['loss_cpu']:.7f}, rel {a['loss_rel']:.3g}; aux card {a['aux_card']:.7f} CPU "
+        f"{a['aux_cpu']:.7f}, rel {a['aux_rel']:.3g} (rtol {TRAIN_LOSS_RTOL}); gradients within "
+        f"{a['grad_rel_max']:.3g} of each leaf's largest (bound {TRAIN_GRAD_REL}), routers "
+        f"{json.dumps(a['router_grad_rel'])}; {a['tokens_routed_differently']} of "
+        f"{a['tokens_routed']} token routings differ over {a['topk_calls']} top-k calls")
+    log(f"[4f moe a] {json.dumps(a)}")
+    strict = moe["b_decode_f32"]
+    log(f"[4f moe b] {MOE_ARCH} full width, {strict['layers']} layers, f32, B={LM_BATCH} prompt "
+        f"{LM_PROMPT} + {LM_GEN} generated, decode vs dropless train forward (the strict gate): "
+        f"{strict['rel_all']:.4g} of the largest logit on all {LM_BATCH * LM_GEN} entries (bound "
+        f"{MOE_F32_DECODE_REL}), {strict['flips']} of {strict['routing_flips']['routings']} routings "
+        f"differing (none allowed); planted faults, each under its own flips "
+        f"{json.dumps(strict['faults'])}")
+    b = moe["b_serve"]
+    dvf = b["decode_vs_forward"]
+    log(f"[4f moe b] {MOE_ARCH} {b['layers']} layers {b['dtype']} B={LM_BATCH} prompt {LM_PROMPT} "
+        f"+ {LM_GEN} generated: prefill {b['prefill_ms']:.3f} ms (first call "
+        f"{b['first_run_prefill_ms']:.3f}), decode {b['decode_ms_per_token']:.3f} ms/token (mean "
+        f"of decodes 2-{LM_GEN - 1}, host clock after synchronize); decode bounds "
+        f"{b['bound_ms_decode_step']:.4f} ms reading all {b['num_experts']} experts a layer, "
+        f"{b['bound_ms_routed_experts']:.4f} ms reading the routed ones (mean "
+        f"{float(np.mean(b['experts_read_per_decode_step'][1:])) / b['moe_layers']:.2f} a layer); "
+        f"decode vs dropless train forward {dvf['rel_no_flip']:.4g} of the largest logit on "
+        f"the {dvf['decode_entries_no_flip_reaches']} of {LM_BATCH * (LM_GEN - 1)} decode entries "
+        f"no routing flip reaches (bound {LM_BF16_REL}, at least {MOE_BF16_MIN_CLEAN} entries; "
+        f"{dvf['rel_all']:.4g} on all), {dvf['flips']} routings differing (at most "
+        f"{MOE_BF16_MAX_FLIPS}) {json.dumps(dvf['routing_flips'])}; planted faults, each under "
+        f"its own flips {json.dumps(dvf['faults'])}; idle "
+        f"{b['decode_profile']['device_idle_share']:.3f}; peak {b['peak_mem_gb']:.2f} GB; init "
+        f"{b['init_s']:.1f} s; card: {smi}")
+    log(f"[4f moe b] {json.dumps({k: v for k, v in b.items() if k != 'card'})}")
+    c = moe["c_train"]
+    log(f"[4f moe c] {MOE_ARCH} {c['layers']} layers {c['dtype']} AdamW lr {c['lr']} remat "
+        f"{c['remat']} ({c['remat_policy']}), B={c['batch']} S={c['seq']}: losses "
+        f"{[round(x, 4) for x in c['losses']]}, aux {[round(x, 4) for x in c['auxes']]}; "
+        f"{c['ms_per_step']:.1f} ms/step (steps 2-{TRAIN_STEPS}), {c['tokens_per_s']:.0f} "
+        f"tokens/s, MFU {c['mfu']:.4f} on {c['params_total_active'][1]:,} active of "
+        f"{c['params_total_active'][0]:,} parameters ({c['model_flops_per_step']:.4g} model "
+        f"FLOPs a step); peak memory {c['peak_mem_gb']:.2f} GB; idle "
+        f"{c['profile']['device_idle_share']:.3f}; card: {smi}")
+    log(f"[4f moe c] one step under torch.profiler: {json.dumps(c['profile'])}")
+    log(f"[4f moe c] {json.dumps({k: v for k, v in c.items() if k not in ('profile', 'card')})}")
+    log(f"[4f moe c] remat on vs off, {MOE_REMAT_LAYERS} layers: {json.dumps(moe['c_remat'])}")
+    share = moe["c_route"]
+    log(f"[4f moe c] one MoE FFN at the training shape, fwd + bwd (eager, CUDA events): "
+        f"{json.dumps(share)}; its two FFNs' routing (once each way) "
+        f"{2 * share['route'] / c['ms_per_step']:.3f} of a step")
+    d = moe["d_podded_q8"]
+    log(f"[4f moe d] podded totoro_tree_q8, {MOE_ARCH} {d['layers']} layers, {d['pods']} pods, "
+        f"{d['steps']} steps: losses {[round(x, 4) for x in d['losses']]}; "
+        f"{d['ms_per_step']:.1f} ms/step (steps 2-{d['steps']}); launches "
+        f"{json.dumps(d['launches'])} ({d['leaves']} leaves a step); aggregate within "
+        f"{d['agg_vs_mean_in_q_steps']:.4f} quantization steps of the pod mean; kernels bit-equal "
+        f"to ref on {json.dumps(d['checked_rows'])} rows: {json.dumps(d['hop_bit_equal'])}; hop "
+        f"kernels {json.dumps(d['hop_kernels_ms'])} ms a step against a byte bound of "
+        f"{d['hop_bound_ms']:.3f} ms ({d['hop_bound_ms_no_uniforms']:.3f} without the uniforms); "
+        f"peak memory {d['peak_mem_gb']:.2f} GB; card: {smi}")
+    log(f"[4f moe d] {json.dumps({k: v for k, v in d.items() if k != 'profile'})}")
+    log(f"[4f moe d] one step under torch.profiler: {json.dumps(d['profile'])}")
+
     # -- 5. times -------------------------------------------------------------
     f32_levels = sorted({sh[:3] for sh in path_shapes if sh[3] == f32})  # sync, async, placement
     rows = [time_tree_aggregate(torch, ta, ref, g, c, l, f32) for g, c, l in f32_levels]
@@ -2535,17 +3119,21 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             larger={R: {k: comp_rows[R][name][k] for k in brief} for R in (4096, 65536)},
         )
-    hop = tr["d_podded_q8"]
-    for entry in KERNELS[2:4]:  # phase 4e d: the podded step's cross-pod hop
+    hops = {"4e d": tr["d_podded_q8"], "4f d": moe["d_podded_q8"]}
+    for entry in KERNELS[2:4]:  # phases 4e d and 4f d: the podded steps' cross-pod hop
         name = entry["name"]
-        r = hop["largest_leaf"][name]
-        entry["q8_hop"] = dict(
-            launches=hop["launches"][name], launches_from="phase 4e d: podded q8 train steps",
-            launches_per_step=hop["leaves"], hop_kernel_ms_per_step=hop["hop_kernels_ms"][name],
-            hop_bound_ms_per_step=hop["hop_bytes_per_step"][name] / HBM_BYTES_PER_S * 1e3,
+        entry["launches_from"] = {"4b compressed async runs": entry["launches"],
+                                  **{f"{tag} podded q8 train steps ({h['arch']}, {h['layers']} "
+                                     f"layers)": h["launches"][name] for tag, h in hops.items()}}
+        entry["launches"] += sum(h["launches"][name] for h in hops.values())
+        entry["q8_hop"] = {tag: dict(
+            arch=h["arch"], layers=h["layers"], launches=h["launches"][name],
+            launches_per_step=h["leaves"], hop_kernel_ms_per_step=h["hop_kernels_ms"][name],
+            hop_bound_ms_per_step=h["hop_bytes_per_step"][name] / HBM_BYTES_PER_S * 1e3,
             hop_bound_ms_per_step_no_uniforms=(
-                hop["hop_bytes_per_step_no_uniforms"][name] / HBM_BYTES_PER_S * 1e3),
-            largest_leaf={k: r[k] for k in brief})
+                h["hop_bytes_per_step_no_uniforms"][name] / HBM_BYTES_PER_S * 1e3),
+            timed_leaf=h["timed_leaf"], timed_rows={k: h["timed_rows"][name][k] for k in brief})
+            for tag, h in hops.items()}
     KERNELS[2]["residual_instance"] = dict(  # the EF commits' launches, counted in both
         launches=sum(async_counts[t]["qsgd_quantize_residual"]
                      for t in ("compressed", "compressed-qsgd-downlink")),

@@ -2,9 +2,10 @@
 
 Answers to ``repro/ckpt.py`` with its file format: ``save`` writes
 ``replicas`` identical copies under ``directory/replica_i/step_N``, each
-an ``arrays.npz`` of the leaves (``a0``, ``a1``, ... in sorted-key order)
+an ``arrays.npz`` of the leaves (``a0``, ``a1``, ... in leaf order)
 and a ``manifest.json`` of their ``/``-joined key paths (``opt/m/blocks/
-pos0/ffn/wg``: the paths ``jax.tree.flatten_with_path`` gives a dict),
+pos0/ffn/wg``, ``params/first/0/mixer/wq``: the paths
+``jax.tree.flatten_with_path`` gives, ``pytree.key_paths``),
 numpy dtype names, shapes and the npz's SHA1, written to ``.tmp`` and
 then renamed; ``restore`` reads the first replica whose SHA1 checks, so
 the loop survives the loss of any k-1 replicas.
@@ -31,14 +32,7 @@ import numpy as np
 import torch
 from numpy.lib import format as npy
 
-from .pytree import leaves, unflatten_like
-
-
-def key_paths(tree: Any, prefix: str = "") -> list[str]:
-    """Each leaf's ``/``-joined keys, in sorted-key (leaf) order."""
-    if isinstance(tree, dict):
-        return [p for k in sorted(tree) for p in key_paths(tree[k], f"{prefix}{k}/")]
-    return [prefix[:-1]]
+from .pytree import key_paths, leaves, unflatten_like
 
 
 def _sha1(path: str) -> str:

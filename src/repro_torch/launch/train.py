@@ -77,8 +77,9 @@ def train(cfg, plan: RunPlan, *, steps: int, seq_len: int = 128, global_batch: i
           non_iid: float = 0.0, log_every: int = 5, log=print) -> dict:
     """Steps ``start .. steps - 1`` of the training loop (``start`` is 0, or
     the resumed checkpoint's step).  Returns the final state, the start
-    step, each step's loss and each step's time (ms, host clock after a
-    synchronize)."""
+    step, each step's loss and aux loss (the MoE layers' load-balance
+    loss; 0 for a dense model) and each step's time (ms, host clock after
+    a synchronize)."""
     device = resolve_device(device)
     params = lm.init_params(torch.Generator().manual_seed(0), cfg, device=device)
     podded = plan.aggregation == "totoro_tree_q8" and num_pods > 1
@@ -93,7 +94,7 @@ def train(cfg, plan: RunPlan, *, steps: int, seq_len: int = 128, global_batch: i
     sc = StreamConfig(vocab_size=cfg.vocab_size, seq_len=seq_len, batch_per_shard=global_batch,
                       non_iid_alpha=non_iid)
     rng = np.random.default_rng(0)
-    losses, step_ms = [], []
+    losses, auxes, step_ms = [], [], []
     t0 = time.perf_counter()
     for step in range(start, steps):
         # deadline-style straggler mitigation: dropped clients' examples
@@ -106,6 +107,7 @@ def train(cfg, plan: RunPlan, *, steps: int, seq_len: int = 128, global_batch: i
         _sync(device)
         step_ms.append((time.perf_counter() - ts) * 1e3)
         losses.append(float(metrics["loss"]))
+        auxes.append(float(metrics["aux"]))
         if step % log_every == 0 or step == steps - 1:
             log(f"step {step}: loss={losses[-1]:.4f} "
                 f"({(time.perf_counter() - t0) / max(step - start + 1, 1) * 1e3:.0f} ms/step)")
@@ -114,7 +116,8 @@ def train(cfg, plan: RunPlan, *, steps: int, seq_len: int = 128, global_batch: i
     if ckpt_dir:
         ckpt.save(state, ckpt_dir, step=steps, replicas=replicas)
         log(f"final checkpoint at step {steps} ({replicas} replicas)")
-    return {"state": state, "start_step": start, "losses": losses, "step_ms": step_ms}
+    return {"state": state, "start_step": start, "losses": losses, "auxes": auxes,
+            "step_ms": step_ms}
 
 
 def main(argv=None) -> None:

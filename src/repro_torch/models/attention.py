@@ -1,7 +1,6 @@
-"""Attention for the dense decoder: chunked-causal (flash-style) GQA with a
-KV cache.
+"""Attention: chunked-causal (flash-style) GQA and MLA with their caches.
 
-Answers to the GQA half of ``repro/models/attention.py``:
+Answers to the GQA and MLA parts of ``repro/models/attention.py``:
 
 - ``chunked_attention`` is the reference's ``_flash`` core, plain
   PyTorch in the reference's chunk order: for each query chunk, an online
@@ -13,7 +12,14 @@ Answers to the GQA half of ``repro/models/attention.py``:
   and ``lse`` in f32, in the reference's order;
 - ``decode_attention`` is the reference's single-token attention over the
   whole cache under a length mask;
-- ``gqa_forward`` runs the train, prefill and decode modes.
+- ``gqa_forward`` runs the train, prefill and decode modes;
+- ``mla_forward`` (deepseek-v2's multi-head latent attention) runs them
+  too: train and prefill up-project the latent ``c_kv`` to per-head keys
+  and values and go through ``chunked_attention`` (q and k head dim
+  ``head_dim + qk_rope_dim``, v head dim ``head_dim``); decode is the
+  absorbed form over a cache of the latent (B, S, kv_lora_rank) and the
+  shared rope key (B, S, qk_rope_dim), its score and value products
+  accumulating in f32 where the reference asks for an f32 result.
 
 Numerics kept from the reference: scores and the PV product take bf16 (or
 f32) inputs and accumulate in f32 (XLA's ``preferred_element_type``), so
@@ -25,7 +31,7 @@ g``), so the train path repeats each kv head G times in place
 One deliberate divergence (ROADMAP §3, parity rule 9): the reference
 writes the decode step's key and value with ``dynamic_update_slice``,
 which clamps an out-of-range ``cache_index`` and silently overwrites the
-cache's last slot; the port raises ``IndexError``.  The port's decode
+cache's last slot; the port raises ``IndexError`` (GQA and MLA alike).  The port's decode
 writes the cache in place and returns it (the reference's server donates
 its cache buffer to the same end).
 
@@ -34,7 +40,7 @@ forward rounds them to the value dtype before its PV product), and in
 train mode sees k and v already repeated to H heads (G = 1 inside the
 core), so ``repeat_interleave``'s backward sums the G copies of dk and dv.
 
-MLA and cross-attention are still to port (ROADMAP §1 item 4).
+Cross-attention is still to port (ROADMAP §1 item 4).
 """
 from __future__ import annotations
 
@@ -264,6 +270,15 @@ def _project(x, w):
     return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
+def _cache_slot(cache_index, Smax: int) -> int:
+    """The decode step's cache position as an int; out of range it raises
+    (the reference clamps it: parity rule 9)."""
+    idx = int(cache_index)
+    if not 0 <= idx < Smax:
+        raise IndexError(f"cache_index {idx} outside a cache of {Smax} positions")
+    return idx
+
+
 def gqa_forward(p, cfg, x, *, positions, mode, cache=None, cache_index=None, causal=True):
     """mode: 'train'/'prefill' (full seq) or 'decode' (one token).
 
@@ -295,9 +310,7 @@ def gqa_forward(p, cfg, x, *, positions, mode, cache=None, cache_index=None, cau
     elif mode == "decode":
         k_cache, v_cache = cache["k"], cache["v"]
         Smax = k_cache.shape[1]
-        idx = int(cache_index)
-        if not 0 <= idx < Smax:  # the reference clamps here (parity rule 9)
-            raise IndexError(f"cache_index {idx} outside a cache of {Smax} positions")
+        idx = _cache_slot(cache_index, Smax)
         k_cache[:, idx] = k[:, 0].to(k_cache.dtype)
         v_cache[:, idx] = v[:, 0].to(v_cache.dtype)
         pos_ids = torch.arange(Smax, dtype=torch.int32, device=x.device)
@@ -326,3 +339,96 @@ def gqa_init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.adtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.adtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA block (deepseek-v2 style)
+
+
+def init_mla(gen: torch.Generator, cfg) -> nn.Params:
+    d, H = cfg.d_model, cfg.num_heads
+    lora, rope_d = cfg.kv_lora_rank, cfg.qk_rope_dim
+    nope_d = v_d = cfg.head_dim  # qk_nope dim == v dim == head_dim
+    qd = nope_d + rope_d
+    ks = nn.split_keys(gen, 5)
+    dt = cfg.pdtype
+    return {
+        "wq": dense_init(ks[0], d, (H * qd,), dt).reshape(d, H, qd),
+        "w_dkv": dense_init(ks[1], d, (lora + rope_d,), dt),
+        "kv_norm": torch.zeros((lora,), dtype=dt),
+        "w_uk": dense_init(ks[2], lora, (H * nope_d,), dt).reshape(lora, H, nope_d),
+        "w_uv": dense_init(ks[3], lora, (H * v_d,), dt).reshape(lora, H, v_d),
+        "wo": dense_init(ks[4], H * v_d, (d,), dt).reshape(H, v_d, d),
+    }
+
+
+def _mla_qc(p, cfg, x, positions):
+    """(q_nope, q_rope, c_kv, k_rope): per-head queries split at head_dim,
+    the normed latent and the one rope key all heads share."""
+    lora, nope_d = cfg.kv_lora_rank, cfg.head_dim
+    q = _project(x, p["wq"])
+    q_nope, q_rope = q[..., :nope_d], q[..., nope_d:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c = x @ p["w_dkv"].to(x.dtype)
+    c_kv = rms_norm(c[..., :lora], p["kv_norm"])
+    k_rope = apply_rope(c[..., None, lora:], positions, cfg.rope_theta)[:, :, 0]  # (B, S, rope)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_forward(p, cfg, x, *, positions, mode, cache=None, cache_index=None):
+    """mode: 'train'/'prefill' (full seq) or 'decode' (one token).
+
+    Returns (out, new_cache); new_cache is None in train mode, the prompt's
+    {"c_kv", "k_rope"} in prefill, and in decode ``cache`` written in place
+    at ``cache_index`` (a Python int or a 0-d tensor in [0, max_len)).
+    """
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    rope_d, nope_d = cfg.qk_rope_dim, cfg.head_dim
+    scale = 1.0 / math.sqrt(nope_d + rope_d)
+    q_nope, q_rope, c_kv, k_rope = _mla_qc(p, cfg, x, positions)
+
+    if mode in ("train", "prefill"):
+        # up-projected attention: every head's key and value from the latent
+        k_nope = _project(c_kv, p["w_uk"])
+        v = _project(c_kv, p["w_uv"])
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope_d)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = chunked_attention(q, k, v, causal=True, chunk_q=cfg.attn_chunk,
+                                chunk_kv=cfg.attn_chunk, scale=scale)
+        new_cache = {"c_kv": c_kv, "k_rope": k_rope} if mode == "prefill" else None
+    elif mode == "decode":
+        c_cache, r_cache = cache["c_kv"], cache["k_rope"]
+        Smax = c_cache.shape[1]
+        idx = _cache_slot(cache_index, Smax)
+        c_cache[:, idx] = c_kv[:, 0].to(c_cache.dtype)
+        r_cache[:, idx] = k_rope[:, 0].to(r_cache.dtype)
+        # absorbed: q_abs (B, H, lora) = q_nope @ w_uk, in the activations' dtype
+        q_abs = torch.einsum("bthd,lhd->bthl", q_nope, p["w_uk"].to(x.dtype))[:, 0]
+        s = torch.einsum("bhl,bsl->bhs", q_abs.float(), c_cache.float())
+        s = s + torch.einsum("bthr,bsr->bhs", q_rope.float(), r_cache.float())
+        s = s * scale
+        mask = torch.arange(Smax, device=x.device) <= idx
+        s = torch.where(mask[None, None, :], s, NEG_INF)
+        a = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhs,bsl->bhl", a.to(c_cache.dtype).float(), c_cache.float())
+        out = torch.einsum("bhl,lhd->bhd", o_lat.to(x.dtype), p["w_uv"].to(x.dtype))[:, None]
+        new_cache = {"c_kv": c_cache, "k_rope": r_cache}
+    else:
+        raise ValueError(mode)
+
+    out = out.flatten(-2) @ p["wo"].to(x.dtype).flatten(0, 1)
+    return out, new_cache
+
+
+def mla_cache_shape(cfg, batch: int, max_len: int) -> dict:
+    """The cache's shapes and dtype as meta tensors (no allocation)."""
+    return {
+        "c_kv": torch.empty((batch, max_len, cfg.kv_lora_rank), dtype=cfg.adtype, device="meta"),
+        "k_rope": torch.empty((batch, max_len, cfg.qk_rope_dim), dtype=cfg.adtype, device="meta"),
+    }
+
+
+def mla_init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
+    return {k: torch.zeros(t.shape, dtype=t.dtype, device=device)
+            for k, t in mla_cache_shape(cfg, batch, max_len).items()}

@@ -7,11 +7,17 @@ out)``, so the JAX package's parameters carry over through
 ``convert.params_from_numpy``.  The reference's ``lax.scan`` over the
 stack becomes a Python loop over its leading axis.
 
-Only the dense ``("attn", "dense")`` pattern runs here.  Configs whose
-pattern holds MLA, MoE, Mamba or RWKV layers raise ``NotImplementedError``
-naming the ROADMAP item that ports them; nothing falls back.  (The only
-configs with ``first_dense`` layers are MoE ones, so the leading-layer
-path comes with MoE.)
+Layers mix with GQA (``"attn"``) or MLA (``"mla"``) and feed a dense
+SwiGLU or an MoE FFN (``models/moe.py``); ``first_dense`` leading layers
+(deepseek-v2's dense layer 0, with its own ``first_dense_d_ff``) run
+before the blocks, as ``params["first"]`` and ``cache["first"]``, lists
+of layer dicts as in the reference.  Configs whose pattern holds Mamba
+or RWKV layers raise ``NotImplementedError`` naming the ROADMAP item that
+ports them; nothing falls back.
+
+Each MoE layer returns its load-balance loss as a tensor in the graph,
+and ``forward`` sums them (the router gets the aux gradient); a dense
+layer's is 0.0.
 
 Train mode runs under autograd: attention goes through the flash
 backward (``attention._Flash``), each stacked leaf is split into its
@@ -42,15 +48,21 @@ import torch.utils.checkpoint
 
 from ..pytree import leaves, tree_map
 from . import attention as attn
+from . import moe as moe_mod
 from . import nn
 from .nn import dense_init, embed_init, rms_norm
 
 _NOT_PORTED = {
-    "mla": "MLA attention (models/attention.py, ROADMAP §1 item 4)",
     "mamba": "Mamba layers (models/ssm.py, ROADMAP §1 item 4)",
     "rwkv": "RWKV time mixing (models/rwkv.py, ROADMAP §1 item 4)",
-    "moe": "MoE layers (models/moe.py, ROADMAP §1 item 4)",
     "rwkv_cm": "RWKV channel mixing (models/rwkv.py, ROADMAP §1 item 4)",
+}
+
+
+# (init, forward, cache shapes) of each mixer kind
+_MIXERS = {
+    "attn": (attn.init_gqa, attn.gqa_forward, attn.gqa_cache_shape),
+    "mla": (attn.init_mla, attn.mla_forward, attn.mla_cache_shape),
 }
 
 
@@ -102,17 +114,21 @@ def _check_ported(cfg) -> list[tuple[str, str]]:
     """The layer pattern, or NotImplementedError for a kind not ported yet."""
     pat = layer_pattern(cfg)
     _require_ported(cfg, *(k for pair in pat for k in pair))
-    if cfg.first_dense:  # only MoE configs have leading dense layers
-        raise NotImplementedError(f"{cfg.name}: leading dense layers come with "
-                                  f"{_NOT_PORTED['moe']}")
     return pat
+
+
+def _first_mixer(cfg) -> str:
+    """The mixer of the ``first_dense`` leading layers."""
+    return "mla" if cfg.attn_impl == "mla" else "attn"
 
 
 # ---------------------------------------------------------------------------
 # single layer (one (mixer, ffn) pair)
 
 
-def _init_ffn(gen, cfg, *, d_ff: int | None = None):
+def _init_ffn(gen, cfg, kind: str, *, d_ff: int | None = None):
+    if kind == "moe":
+        return moe_mod.init_moe(gen, cfg)
     d = cfg.d_model
     ff = d_ff or cfg.d_ff
     ks = nn.split_keys(gen, 3)
@@ -129,21 +145,24 @@ def init_layer(gen, cfg, mixer: str, ffn: str, *, d_ff: int | None = None):
     k1, k2 = nn.split_keys(gen, 2)
     return {
         "norm1": torch.zeros((cfg.d_model,), dtype=cfg.pdtype),
-        "mixer": attn.init_gqa(k1, cfg),
+        "mixer": _MIXERS[mixer][0](k1, cfg),
         "norm2": torch.zeros((cfg.d_model,), dtype=cfg.pdtype),
-        "ffn": _init_ffn(k2, cfg, d_ff=d_ff),
+        "ffn": _init_ffn(k2, cfg, ffn, d_ff=d_ff),
     }
 
 
-def _mixer_sublayer(p, cfg, x, *, positions, mode, cache=None, cache_index=None):
+def _mixer_sublayer(p, cfg, x, mixer: str, *, positions, mode, cache=None, cache_index=None):
     h = rms_norm(x, p["norm1"])
-    return attn.gqa_forward(p["mixer"], cfg, h, positions=positions, mode=mode,
+    return _MIXERS[mixer][1](p["mixer"], cfg, h, positions=positions, mode=mode,
                             cache=cache.get("mix") if cache else None, cache_index=cache_index)
 
 
-def _ffn_sublayer(p, x):
+def _ffn_sublayer(p, cfg, x, ffn: str):
+    """(out, aux): an MoE FFN's load-balance loss, a dense one's 0.0."""
     h = rms_norm(x, p["norm2"])
-    return nn.swiglu(h, p["ffn"]["wi"], p["ffn"]["wg"], p["ffn"]["wo"])
+    if ffn == "moe":
+        return moe_mod.moe_forward(p["ffn"], cfg, h)
+    return nn.swiglu(h, p["ffn"]["wi"], p["ffn"]["wg"], p["ffn"]["wo"]), 0.0
 
 
 def _checkpoint(fn, *args):
@@ -152,22 +171,25 @@ def _checkpoint(fn, *args):
 
 def apply_layer(p, cfg, x, mixer: str, ffn: str, *, positions, mode, cache=None, cache_index=None,
                 remat_sublayers: bool = False):
-    """Returns (x, new_cache, aux); a dense layer's aux loss is 0.0.
+    """Returns (x, new_cache, aux); a dense layer's aux loss is 0.0, an MoE
+    layer's a 0-d f32 tensor.
 
     ``remat_sublayers`` (train mode) recomputes each sublayer, norm and
     mixer, norm and FFN, in the backward from its input.
     """
     _require_ported(cfg, mixer, ffn)
     if remat_sublayers:
-        x = x + _checkpoint(lambda y: _mixer_sublayer(p, cfg, y, positions=positions,
+        x = x + _checkpoint(lambda y: _mixer_sublayer(p, cfg, y, mixer, positions=positions,
                                                       mode=mode)[0], x)
-        return x + _checkpoint(lambda y: _ffn_sublayer(p, y), x), None, 0.0
-    out, nc = _mixer_sublayer(p, cfg, x, positions=positions, mode=mode, cache=cache,
+        out, aux = _checkpoint(lambda y: _ffn_sublayer(p, cfg, y, ffn), x)
+        return x + out, None, aux
+    out, nc = _mixer_sublayer(p, cfg, x, mixer, positions=positions, mode=mode, cache=cache,
                               cache_index=cache_index)
     x = x + out
-    x = x + _ffn_sublayer(p, x)
+    out, aux = _ffn_sublayer(p, cfg, x, ffn)
+    x = x + out
     new_cache = {"mix": nc} if mode in ("prefill", "decode") else None
-    return x, new_cache, 0.0
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -192,6 +214,12 @@ def init_params(gen: torch.Generator, cfg, *, device="cpu") -> nn.Params:
     }
     if not cfg.tie_embeddings:
         params["head"] = dense_init(keys[1], cfg.d_model, (cfg.padded_vocab,), cfg.pdtype).to(device)
+    if cfg.first_dense:
+        params["first"] = [
+            tree_map(lambda t: t.to(device), init_layer(
+                fk, cfg, _first_mixer(cfg), "dense", d_ff=cfg.first_dense_d_ff or cfg.d_ff))
+            for fk in nn.split_keys(keys[2], cfg.first_dense)
+        ]
 
     layers: list[list] = [[] for _ in pat]
     for bkey in nn.split_keys(keys[3], nb):
@@ -215,8 +243,9 @@ def forward(params, cfg, *, tokens=None, embeds=None, mode="train", cache=None, 
     """Returns (logits, new_cache, aux_loss).
 
     tokens: (B, S) int or embeds: (B, S, d).  cache: the stacked cache
-    {'blocks': ...} for decode, written in place and returned; prefill
-    returns a new one of the prompt's length.
+    {'blocks': ..., 'first': [...]} for decode, written in place and
+    returned; prefill returns a new one of the prompt's length.  aux_loss:
+    the sum of the MoE layers' load-balance losses, a 0-d f32 tensor.
     """
     pat = _check_ported(cfg)
     x = embed_tokens(params, cfg, tokens) if embeds is None else embeds.to(cfg.adtype)
@@ -227,6 +256,15 @@ def forward(params, cfg, *, tokens=None, embeds=None, mode="train", cache=None, 
             positions = torch.full((B, 1), int(cache_index), dtype=torch.int32, device=x.device)
         else:
             positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    first_caches = []
+    for i, lp in enumerate(params.get("first", [])):
+        x, nc, a = apply_layer(lp, cfg, x, _first_mixer(cfg), "dense", positions=positions,
+                               mode=mode, cache=cache["first"][i] if cache is not None else None,
+                               cache_index=cache_index)
+        aux = aux + a
+        first_caches.append(nc)
 
     # each stacked leaf split into its blocks once: under autograd the
     # backward of the split is one stack, not a zeroed stack per block
@@ -248,7 +286,6 @@ def forward(params, cfg, *, tokens=None, embeds=None, mode="train", cache=None, 
                 new_cache[name] = nc
         return x, aux, new_cache
 
-    aux = 0.0
     per_block = []
     for i in range(num_blocks(cfg)):
         if remat and not per_sublayer:  # "nothing": the whole block recomputed
@@ -269,11 +306,11 @@ def forward(params, cfg, *, tokens=None, embeds=None, mode="train", cache=None, 
         vmask = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
         logits = logits.masked_fill(~vmask, -1e9)
 
-    # a tensor made from the dense layers' 0.0 (the MoE port must keep its
-    # aux losses in the graph instead)
-    aux = torch.tensor(aux, dtype=torch.float32, device=x.device)
     if mode == "prefill":
-        return logits, {"blocks": _stack(per_block)}, aux
+        new_cache = {"blocks": _stack(per_block)}
+        if first_caches:
+            new_cache["first"] = first_caches
+        return logits, new_cache, aux
     if mode == "decode":  # the per-block caches are views of ``cache``
         return logits, cache, aux
     return logits, None, aux
@@ -311,11 +348,15 @@ def cache_shapes(cfg, batch: int, max_len: int):
     """The stacked cache tree as meta tensors: shapes and dtypes, no memory."""
     pat = _check_ported(cfg)
     nb = num_blocks(cfg)
-    return {"blocks": {
+    out: dict[str, Any] = {"blocks": {
         f"pos{pos}": {"mix": tree_map(lambda t: t.expand((nb,) + tuple(t.shape)),
-                                         attn.gqa_cache_shape(cfg, batch, max_len))}
-        for pos in range(len(pat))
+                                      _MIXERS[mixer][2](cfg, batch, max_len))}
+        for pos, (mixer, _) in enumerate(pat)
     }}
+    if cfg.first_dense:
+        out["first"] = [{"mix": _MIXERS[_first_mixer(cfg)][2](cfg, batch, max_len)}
+                        for _ in range(cfg.first_dense)]
+    return out
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device=None):
@@ -330,13 +371,20 @@ def init_cache(cfg, batch: int, max_len: int, *, device=None):
 
 
 def count_params_analytic(cfg) -> tuple[int, int]:
-    """(total_params, active_params); padded query heads (llava) are not
-    counted.  Configs this port cannot build yet raise."""
+    """(total_params, active_params): padded query heads (llava) are not
+    counted, and active subtracts the experts a token is not routed to.
+    Configs this port cannot build yet raise."""
     with torch.device("meta"):
         shapes = init_params(torch.Generator(), cfg, device="meta")
     total = sum(math.prod(x.shape) for x in leaves(shapes))
+    pat = layer_pattern(cfg)
     H_pad, _ = attn.padded_heads(cfg)
     if H_pad != cfg.num_heads and cfg.attn_impl == "gqa":
-        n_attn = sum(1 for m, _ in layer_pattern(cfg) if m == "attn") * num_blocks(cfg)
+        n_attn = sum(1 for m, _ in pat if m == "attn") * num_blocks(cfg) + cfg.first_dense
         total -= n_attn * (H_pad - cfg.num_heads) * cfg.head_dim * cfg.d_model * 2
-    return total, total
+    active = total
+    if cfg.moe_num_experts:
+        n_moe = sum(1 for _, f in pat if f == "moe") * num_blocks(cfg)
+        per_expert = 3 * cfg.d_model * cfg.moe_d_ff
+        active = total - n_moe * (cfg.moe_num_experts - cfg.moe_top_k) * per_expert
+    return total, active

@@ -1,0 +1,138 @@
+"""Mixture-of-Experts: GShard-style dense dispatch with token dropping.
+
+Answers to ``repro/models/moe.py``: tokens are cut into groups of
+``moe_group_size``; each group routes its tokens to their top-k experts
+through one-hot (G, T, E, C) dispatch and combine tensors, each expert
+taking at most C tokens a group (the rest are dropped); the experts run
+as batched products over their (E, C·G, d) inputs; a Switch load-balance
+loss comes back beside the output; optional shared experts (deepseek-v2)
+run on every token through ``nn.swiglu``.  The router is f32 in every
+config (its logits are ``x.float() @ router``); dispatch and combine are
+cast to the activations' dtype where the reference casts them.
+
+Parity points with the reference (ROADMAP §3, rules 11 and 12):
+
+- ``jax.lax.top_k`` puts the lower index first among equal values, and
+  equal gates are real (a zero token or a zero router row gives a uniform
+  softmax); ``torch.topk`` does not promise any order on ties.  The port
+  takes the first k of a stable descending ``torch.sort``, which keeps
+  equal values in index order;
+- the reference drops an overflowing token by ``one_hot(capacity,
+  capacity)``, an all-zero row in JAX; ``torch.nn.functional.one_hot``
+  raises on it.  The port compares the position with ``arange(C)``,
+  which is the same one-hot, zero past the range.
+
+The k passes run in the reference's order, each pass's positions
+continuing from the counts of the passes before it, so the same tokens
+are dropped.  Nothing here adds with atomics (no ``index_add_`` or
+``scatter_add_``): remat recomputes the routing in the backward and must
+route the same way.
+
+``moe_specs`` comes with ``launch/specs.py`` (ROADMAP §1 item 7).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from . import nn
+from .nn import dense_init
+
+
+def init_moe(gen: torch.Generator, cfg) -> nn.Params:
+    d, E, ff = cfg.d_model, cfg.moe_num_experts, cfg.moe_d_ff
+    ks = nn.split_keys(gen, 5)
+    dt = cfg.pdtype
+    p = {
+        "router": dense_init(ks[0], d, (E,), torch.float32),
+        "wi": _expert_init(ks[1], E, d, ff, dt),
+        "wg": _expert_init(ks[2], E, d, ff, dt),
+        "wo": _expert_init(ks[3], E, ff, d, dt),
+    }
+    if cfg.moe_num_shared:
+        sff = cfg.moe_num_shared * ff
+        kk = nn.split_keys(ks[4], 3)
+        p["shared"] = {
+            "wi": dense_init(kk[0], d, (sff,), dt),
+            "wg": dense_init(kk[1], d, (sff,), dt),
+            "wo": dense_init(kk[2], sff, (d,), dt),
+        }
+    return p
+
+
+def _expert_init(gen: torch.Generator, E: int, din: int, dout: int, dt) -> torch.Tensor:
+    return nn.truncated_normal_init(gen, (E, din, dout), dt, 1.0 / math.sqrt(din))
+
+
+def _capacity(cfg, tokens_per_group: int) -> int:
+    c = int(cfg.moe_top_k * tokens_per_group * cfg.capacity_factor / cfg.moe_num_experts)
+    return max(8, (c + 7) // 8 * 8)
+
+
+def top_k(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest values, the
+    lower index first among equal ones."""
+    w, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return w[..., :k], idx[..., :k]
+
+
+def route(gates: torch.Tensor, k: int, capacity: int):
+    """gates: (G, T, E) probabilities.  Returns (dispatch, combine, aux_loss).
+
+    dispatch/combine: (G, T, E, C) in the gates' dtype.  GShard-style
+    cumulative-position routing with per-group capacity and token dropping.
+    """
+    G, T, E = gates.shape
+    w, idx = top_k(gates, k)  # (G, T, k)
+    w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-9)
+
+    # aux load-balance loss (Switch): E * mean_e(frac_tokens_e * mean_prob_e)
+    me = torch.mean(gates, dim=1)  # (G, E)
+    ce = torch.mean(F.one_hot(idx[..., 0], E).to(gates.dtype), dim=1)  # (G, E)
+    aux = E * torch.mean(torch.sum(me * ce, dim=-1))
+
+    slots = torch.arange(capacity, device=gates.device)
+    dispatch = torch.zeros((G, T, E, capacity), dtype=gates.dtype, device=gates.device)
+    combine = torch.zeros((G, T, E, capacity), dtype=gates.dtype, device=gates.device)
+    counts = torch.zeros((G, E), dtype=torch.int64, device=gates.device)
+    for j in range(k):
+        onehot = F.one_hot(idx[..., j], E)  # (G, T, E) int64
+        pos = torch.cumsum(onehot, dim=1) - 1 + counts[:, None, :]
+        keep = (pos < capacity) & (onehot > 0)
+        counts = counts + torch.sum(onehot, dim=1)
+        # one_hot(where(keep, pos, C), C): a position of C is a zero row
+        d_j = (torch.where(keep, pos, capacity)[..., None] == slots).to(gates.dtype)
+        dispatch = dispatch + d_j
+        combine = combine + d_j * w[..., j][..., None, None]
+    return dispatch, combine, aux
+
+
+def moe_forward(p, cfg, x: torch.Tensor):
+    """x: (B, S, d) -> (out, aux_loss)."""
+    B, S, d = x.shape
+    T_all = B * S
+    gsz = min(cfg.moe_group_size, T_all)
+    G = T_all // gsz
+    assert G * gsz == T_all, (B, S, gsz)
+    E, k = cfg.moe_num_experts, cfg.moe_top_k
+    C = _capacity(cfg, gsz)
+
+    xg = x.reshape(G, gsz, d)
+    logits = torch.einsum("gtd,de->gte", xg.float(), p["router"])
+    gates = torch.softmax(logits, dim=-1)
+    dispatch, combine, aux = route(gates, k, C)
+    dispatch = dispatch.to(x.dtype)
+
+    expert_in = torch.einsum("gtec,gtd->ecgd", dispatch, xg).reshape(E, C * G, d)
+    h = torch.bmm(expert_in, p["wi"].to(x.dtype))
+    g = torch.bmm(expert_in, p["wg"].to(x.dtype))
+    h = F.silu(g) * h
+    expert_out = torch.bmm(h, p["wo"].to(x.dtype)).reshape(E, C, G, d)
+    out = torch.einsum("gtec,ecgd->gtd", combine.to(x.dtype), expert_out).reshape(B, S, d)
+
+    if cfg.moe_num_shared:
+        s = p["shared"]
+        out = out + nn.swiglu(x, s["wi"], s["wg"], s["wo"])
+    return out, aux

@@ -1,7 +1,7 @@
 """Optimizers: sgd/momentum, adamw (+f32 master), adafactor (factored).
 
-Answers to ``repro/optim.py`` in its pure-function style, on dict pytrees
-of tensors (``repro_torch.pytree``): ``opt.init(params) -> state``;
+Answers to ``repro/optim.py`` in its pure-function style, on pytrees of
+tensors (``repro_torch.pytree``): ``opt.init(params) -> state``;
 ``opt.update(grads, state, params) -> (new_params, new_state)``.  Each
 update returns new tensors and leaves its inputs as they were.
 
@@ -190,10 +190,10 @@ def adafactor(
 
 
 def _per_leaf(tree, like) -> list:
-    """The subtrees of ``tree`` at ``like``'s leaf positions, in order."""
-    if isinstance(like, dict):
-        return [x for k in sorted(like) for x in _per_leaf(tree[k], like[k])]
-    return [tree]
+    """The subtrees of ``tree`` at ``like``'s leaf positions, in leaf order."""
+    out = []
+    tree_map(lambda _, sub: out.append(sub), like, tree)
+    return out
 
 
 def make_optimizer(cfg) -> Optimizer:

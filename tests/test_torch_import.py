@@ -55,6 +55,7 @@ def test_every_module_imports_without_jax_or_repro(tmp_path):
         "repro_torch.models.nn", "repro_torch.models.attention", "repro_torch.models.lm",
         "repro_torch.fl.steps", "repro_torch.launch.serve",
         "repro_torch.optim", "repro_torch.ckpt", "repro_torch.launch.train",
+        "repro_torch.models.moe",
     } <= names
 
 

@@ -1,4 +1,5 @@
-"""The port's dense GQA decoder against ``repro.models`` on the CPU.
+"""The port's decoder (dense GQA; MLA and MoE) against ``repro.models`` on
+the CPU.
 
 Parameters come from the JAX package's seeded init and cross over with
 ``repro_torch.convert`` (bfloat16 leaves bit for bit); inputs are numpy
@@ -9,8 +10,9 @@ from a seed.  Tolerances, f32 unless said:
   ``sin``/``cos``/``pow`` may differ by an ulp);
 - attention (``chunked_attention``, ``decode_attention``, ``gqa_forward``):
   rtol = atol = 1e-5, the JAX package's own kernel tolerance;
-- ``lm.forward`` logits on the reduced dense configs (2 layers, d 128):
-  rtol = atol = 1e-5 (measured max |d| 3e-6 at logits up to 4.3);
+- ``lm.forward`` logits on the reduced configs (2 layers, d 128; the MoE
+  ones 3, a leading dense layer and two MoE blocks): rtol = atol = 1e-5
+  (measured max |d| 3e-6 at logits up to 4.3); the MoE aux loss rtol 1e-5;
 - decode against the port's own train forward: < 5e-4, the bound of
   ``tests/test_models_smoke.py``;
 - bfloat16: 2^-4 of the largest logit magnitude, for the port against JAX
@@ -38,7 +40,7 @@ from repro_torch.launch import serve
 from repro_torch.models import attention as ta
 from repro_torch.models import lm as tlm
 from repro_torch.models import nn as tnn
-from repro_torch.pytree import leaves
+from repro_torch.pytree import key_paths, leaves
 
 PRIM = dict(rtol=1e-6, atol=1e-6)
 ATTN = dict(rtol=1e-5, atol=1e-5)
@@ -47,7 +49,8 @@ DECODE_ATOL = 5e-4
 BF16_REL = 2.0**-4
 
 DENSE = ["tinyllama-1.1b", "qwen3-8b", "mistral-large-123b", "deepseek-67b", "llava-next-34b"]
-NOT_DENSE = ["rwkv6-7b", "jamba-1.5-large-398b", "moonshot-v1-16b-a3b", "deepseek-v2-lite-16b"]
+MOE = ["deepseek-v2-lite-16b", "moonshot-v1-16b-a3b"]  # MLA + MoE + a dense layer 0; GQA + MoE
+NOT_PORTED = ["rwkv6-7b", "jamba-1.5-large-398b"]
 
 
 def _cfgs(arch, **kw):
@@ -268,7 +271,7 @@ def test_llava_padded_heads_exact_math():
 # the decoder
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_init_params_layout_matches_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     jp = jlm.init_params(jax.random.key(0), jcfg)
@@ -289,14 +292,14 @@ def test_init_params_layout_matches_jax(arch):
 @pytest.mark.parametrize("arch", list(jconfigs.ARCH_IDS))
 def test_count_params_analytic_matches_jax(arch):
     tcfg = tconfigs.get_config(arch)
-    if arch in NOT_DENSE:
+    if arch in NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlm.count_params_analytic(tcfg)
         return
     assert tlm.count_params_analytic(tcfg) == jlm.count_params_analytic(jconfigs.get_config(arch))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_cache_shapes_match_jax(arch):
     jcfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
     jshp, _ = jlm.cache_shapes(jcfg, 4, 4096)
@@ -308,14 +311,19 @@ def test_cache_shapes_match_jax(arch):
     assert all(not t.any() for t in leaves(small))
 
 
-@pytest.mark.parametrize("arch", DENSE + ["seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", DENSE + ["seamless-m4t-medium"] + MOE)
 def test_forward_train_logits_match_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     jp, tp = _params(jcfg)
     batch = _inputs(jcfg, 2, 128, seed=1)  # attn_chunk 64: two query and two key chunks
     jl, _, jaux = jlm.forward(jp, jcfg, mode="train", **batch)
     tl, tcache, taux = tlm.forward(tp, tcfg, mode="train", **_t(batch))
-    assert tcache is None and float(taux) == float(jaux) == 0.0
+    assert tcache is None and taux.dtype == torch.float32 and taux.shape == ()
+    if arch in MOE:  # the two MoE blocks' load-balance losses
+        assert float(jaux) > 0
+        np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+    else:
+        assert float(taux) == float(jaux) == 0.0
     assert tl.shape == (2, 128, tcfg.padded_vocab) and tl.dtype == torch.float32
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
 
@@ -331,16 +339,17 @@ def test_forward_masks_padded_vocab_like_jax():
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-8b"] + MOE)
 def test_lm_loss_and_train_loss_match_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     jp, tp = _params(jcfg)
     batch = _inputs(jcfg, 2, 32, seed=4)
     labels = np.random.default_rng(5).integers(-1, jcfg.vocab_size, (2, 32)).astype(np.int32)
-    jloss, (jce, _) = jlm.train_loss(jp, jcfg, dict(batch, labels=labels))
-    tloss, (tce, _) = tlm.train_loss(tp, tcfg, dict(_t(batch), labels=torch.from_numpy(labels)))
+    jloss, (jce, jaux) = jlm.train_loss(jp, jcfg, dict(batch, labels=labels))
+    tloss, (tce, taux) = tlm.train_loss(tp, tcfg, dict(_t(batch), labels=torch.from_numpy(labels)))
     np.testing.assert_allclose(float(tloss), float(jloss), **LOGITS)
     np.testing.assert_allclose(float(tce), float(jce), **LOGITS)
+    np.testing.assert_allclose(float(taux), float(jaux), **LOGITS)
 
 
 def test_prefill_cache_matches_jax():
@@ -357,10 +366,31 @@ def test_prefill_cache_matches_jax():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **ATTN)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_prefill_cache_matches_jax(arch):
+    """The MoE configs' prefill: logits, and a cache whose leaves (the
+    leading layer's list entry included) follow JAX's in order and value."""
+    jcfg, tcfg = _cfgs(arch)
+    jp, tp = _params(jcfg)
+    batch = _inputs(jcfg, 2, 64, seed=6)
+    jl, jc, jaux = jlm.forward(jp, jcfg, mode="prefill", **batch)
+    tl, tc, taux = tlm.forward(tp, tcfg, mode="prefill", **_t(batch))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+    assert isinstance(tc.get("first", []), list) and (arch == MOE[0]) == ("first" in tc)
+    jflat = jax.tree_util.tree_flatten_with_path(jc)[0]
+    assert [("/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in kp)) for kp, _ in
+            jflat] == key_paths(tc)
+    for a, (_, b) in zip(leaves(tc), jflat):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **ATTN)
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_decode_matches_train_forward(arch):
-    """``tests/test_models_smoke.py``'s decode check, in the port."""
-    cfg = tconfigs.get_reduced(arch)
+    """``tests/test_models_smoke.py``'s decode check, in the port (MoE made
+    dropless, as there: capacity factor 64)."""
+    cfg = tconfigs.get_reduced(arch).replace(capacity_factor=64.0)
     params = tlm.init_params(torch.Generator().manual_seed(0), cfg)
     B, S, P0 = 2, 32, 24
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(1))
@@ -414,7 +444,7 @@ def test_bf16_params_round_trip_bit_for_bit():
         np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
 
 
-@pytest.mark.parametrize("arch", NOT_DENSE)
+@pytest.mark.parametrize("arch", NOT_PORTED)
 def test_non_dense_archs_raise(arch):
     jcfg, tcfg = _cfgs(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -422,7 +452,6 @@ def test_non_dense_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlm.init_cache(tcfg, 2, 8)
     jp = jax.tree.map(np.asarray, jlm.init_params(jax.random.key(0), jcfg))
-    jp.pop("first", None)  # deepseek-v2's leading layer is a list, not a dict
     tp = params_from_numpy(jp, "cpu")
     batch = _inputs(jcfg, 2, 16, seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -458,7 +487,7 @@ def _jax_serve(jcfg, jp, batch, G):
     return np.asarray(jnp.stack(out, axis=1))
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-8b", "llava-next-34b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-8b", "llava-next-34b"] + MOE)
 def test_reduced_serve_greedy_tokens_match_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     jp, tp = _params(jcfg)

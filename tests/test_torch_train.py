@@ -7,9 +7,10 @@ seeded init and cross with ``repro_torch.convert``.  Tolerances (f32):
   ``chunked_attention``): rtol = atol = 1e-5, the JAX package's kernel
   tolerance;
 - ``train_loss`` gradients on the reduced configs: each leaf within
-  GRAD_REL = 1e-5 of its largest magnitude (measured 2.6e-7 .. 1.1e-6:
-  the same f32 math summed in other orders); the loss rtol 1e-6
-  (measured equal);
+  GRAD_REL = 1e-5 of its largest magnitude (measured 2.6e-7 .. 1.1e-6,
+  1.5e-6 on the MoE configs: the same f32 math summed in other orders);
+  the loss rtol 1e-6 (measured equal); the MoE router's gradient, with the
+  aux loss weighted 1, within rtol 1e-4 / atol 1e-5 of ``jax.grad``'s;
 - remat on against off, in the port: bit for bit (remat recomputes the
   same operations on the same inputs), but for the embedding table's
   gradient, whose CPU backward adds a repeated token's rows in an order
@@ -53,6 +54,7 @@ from repro_torch.pytree import leaves, tree_map
 ATTN = dict(rtol=1e-5, atol=1e-5)
 GRAD_REL = 1e-5
 TRAJ_RTOL = 1e-5
+MOE = ["deepseek-v2-lite-16b", "moonshot-v1-16b-a3b"]
 
 
 def _cfgs(arch, **kw):
@@ -144,7 +146,7 @@ def test_flash_backward_bf16_keeps_dtypes_and_tracks_f32():
 # gradients
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-8b"] + MOE)
 def test_train_loss_gradients_match_jax(arch):
     """S = 128 at the reduced attn_chunk 64: two query and two key chunks."""
     jcfg, tcfg = _cfgs(arch)
@@ -157,6 +159,48 @@ def test_train_loss_gradients_match_jax(arch):
     np.testing.assert_allclose(float(m["loss"]), float(jce), rtol=1e-6)
     assert all(x.dtype == torch.float32 for x in leaves(g))
     _close_to_max(g, jg, GRAD_REL)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_router_gradient_matches_jax_grad(arch):
+    """The routers' gradients, through the gates' top-k weights and the aux
+    loss (weighted 1 here, so that its share shows), against ``jax.grad``;
+    the aux loss reaches the metrics as the reference's does."""
+    jcfg, tcfg = _cfgs(arch, moe_aux_weight=1.0)
+    jp, tp = _params(jcfg)
+    batch = _batch(jcfg, 2, 64, seed=7)
+    jg, jm = jsteps.grads_and_metrics(jcfg, JRunPlan(), jp,
+                                      {k: jnp.asarray(v) for k, v in batch.items()})
+    g, m = tsteps.grads_and_metrics(tcfg, RunPlan(), tp, _t(batch))
+    np.testing.assert_allclose(float(m["aux"]), float(jm["aux"]), rtol=1e-5)
+    want = np.asarray(jg["blocks"]["pos0"]["ffn"]["router"])
+    got = g["blocks"]["pos0"]["ffn"]["router"]
+    assert got.dtype == torch.float32 and got.shape == want.shape == (2, jcfg.d_model, 8)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+    # the aux loss alone moves the router: without it the gradient differs
+    g0, _ = tsteps.grads_and_metrics(tcfg.replace(moe_aux_weight=0.0), RunPlan(), tp, _t(batch))
+    assert float((g0["blocks"]["pos0"]["ffn"]["router"] - got).abs().max()) > 1e-3 * np.abs(
+        want).max()
+
+
+@pytest.mark.parametrize("policy", ["nothing", "save_mixer_ffn"])
+def test_remat_changes_no_moe_gradient(policy):
+    """Remat recomputes the routing in the backward: it must route the same
+    tokens, so every gradient (the routers' included) is bit-equal."""
+    jcfg, tcfg = _cfgs("deepseek-v2-lite-16b")
+    _, tp = _params(jcfg)
+    batch = _t(_batch(jcfg, 2, 128, seed=2))
+    off, m_off = tsteps.grads_and_metrics(tcfg, RunPlan(), tp, batch)
+    on, m_on = tsteps.grads_and_metrics(tcfg.replace(remat=True, remat_policy=policy), RunPlan(),
+                                        tp, batch)
+    assert torch.equal(m_on["loss"], m_off["loss"]) and torch.equal(m_on["aux"], m_off["aux"])
+    for name in on:
+        if name == "embed":  # the CPU's embedding backward adds repeated rows in any order
+            torch.testing.assert_close(on[name], off[name], rtol=0, atol=1e-6 * float(
+                off[name].abs().max()))
+            continue
+        for a, b in zip(leaves(on[name]), leaves(off[name])):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("policy", ["nothing", "save_mixer_ffn"])
@@ -185,7 +229,7 @@ def test_remat_recomputes_the_blocks_in_the_backward(monkeypatch):
     batch = _t(_batch(jcfg, 2, 64, seed=2))
     calls = []
     orig = tlm._ffn_sublayer
-    monkeypatch.setattr(tlm, "_ffn_sublayer", lambda p, x: calls.append(1) or orig(p, x))
+    monkeypatch.setattr(tlm, "_ffn_sublayer", lambda *a: calls.append(1) or orig(*a))
     for remat, policy, want in ((False, "nothing", 2), (True, "nothing", 4),
                                 (True, "save_mixer_ffn", 4)):
         calls.clear()
@@ -355,6 +399,40 @@ def test_five_step_loss_trajectory_matches_jax(aggregation, num_pods):
     if num_pods > 1:  # every pod applied the same aggregate
         for t in leaves(state):
             assert torch.equal(t[0], t[1])
+
+
+@pytest.mark.parametrize("aggregation,num_pods", [("totoro_tree", 1), ("totoro_tree_q8", 2)])
+def test_moe_five_step_loss_trajectory_matches_jax(aggregation, num_pods):
+    """deepseek-v2's reduced config (a list of leading layers, MLA, MoE)
+    through the plain and the podded step: losses and aux losses against
+    JAX's ``build_train_step``; the podded hop takes every leaf, the
+    routers and the expert stacks included."""
+    jcfg, tcfg = _cfgs("deepseek-v2-lite-16b", learning_rate=2e-3)
+    jp, tp = _params(jcfg)
+    plan_j, plan_t = JRunPlan(aggregation=aggregation), RunPlan(aggregation=aggregation)
+    sc = jdata.StreamConfig(jcfg.vocab_size, 64, 8)
+    podded = num_pods > 1
+    with jax.set_mesh(_mesh()):
+        jstate = jsteps.init_train_state(jcfg, jax.tree.map(jnp.asarray, jp), num_pods=num_pods,
+                                         podded=podded)
+        fn = jax.jit(jsteps.build_train_step(jcfg, plan_j, num_pods=num_pods))
+        want = []
+        for s in range(5):
+            jstate, m = fn(jstate, {k: jnp.asarray(v) for k, v in
+                                    jdata.learnable_lm_batch(sc, 0, s).items()})
+            want.append((float(m["loss"]), float(m["aux"])))
+    state = tsteps.init_train_state(tcfg, tp, num_pods=num_pods, podded=podded)
+    step = tsteps.build_train_step(tcfg, plan_t, num_pods=num_pods)
+    got = []
+    for s in range(5):
+        state, m = step(state, ttrain.make_batch(tcfg, ttrain.StreamConfig(tcfg.vocab_size, 64, 8),
+                                                 s, None, "cpu"))
+        got.append((float(m["loss"]), float(m["aux"])))
+    np.testing.assert_allclose(got, want, rtol=TRAJ_RTOL)
+    assert got[-1][0] < got[0][0] - 0.5 and all(a > 0 for _, a in got)
+    assert isinstance(state["params"]["first"], list)
+    for a, b in zip(leaves(state), jax.tree.leaves(jstate)):
+        assert tuple(a.shape) == b.shape and str(a.dtype)[6:] == str(b.dtype)
 
 
 def test_podded_step_launch_structure(monkeypatch):
