@@ -97,11 +97,13 @@ the CPU):
       none of the seven kernels: its counters must read 0;
    e. LM training, with bf16 GEMMs accumulating in f32 (restored after):
       a. tinyllama-1.1b at full width and 2 layers in f32 (remat on, TF32
-         off), B = 2, S = 128: the gradients and one AdamW
-         ``build_train_step`` step on the card against the CPU (loss
-         within TRAIN_LOSS_RTOL; every gradient leaf within TRAIN_GRAD_REL
-         and AdamW's m and v within TRAIN_ADAM_REL of the leaf's largest
-         magnitude);
+         off), B = 2, S = 128, through ``lm_f32_card_vs_cpu`` (phases 4f a
+         and 4g a call it too): the train forward's logits and the
+         gradients on the card against the CPU (logits within LM_F32_REL of
+         the largest, loss within TRAIN_LOSS_RTOL, every gradient leaf
+         within TRAIN_GRAD_REL of the leaf's largest magnitude), and
+         ``build_train_step``'s AdamW update from the same weights and
+         gradients on both (every leaf within TRAIN_ADAM_REL);
       b. the flash backward at FLASH_SHAPE (B 8, S 1024, 32 heads of 64
          after the repeat, causal, two chunks of 512 each way): ``_Flash``
          in bf16 and in f32 against autograd through the plain chunked
@@ -116,15 +118,19 @@ the CPU):
          synchronize), tokens/s, MFU (6 N T with N without the embedding
          table, plus 6 L H hd S T, over 989 TFLOP/s), peak memory, one
          step's idle share, device ops and top five under
-         torch.profiler; the seven kernels' counters must read 0;
+         torch.profiler; the seven kernels' counters must read 0.
+         Phases 4e, 4f and 4g each run with the script's own heap frozen
+         (``frozen_heap``), the garbage collections of c's and d's loops
+         timed;
       d. the podded ``totoro_tree_q8`` step, 2 pods, the same model and
          batch, 3 steps through ``launch/train.train``: exactly one
          ``qsgd_quantize`` and one ``qsgd_dequantize`` launch per leaf a
          step (12 + 12), the aggregate of the next batch's gradients
          within one quantization step (max |g| / 127) of the plain pod
-         mean, and on the embedding leaf's rows and the largest leaf's
-         (1,982,464 of 256) both kernels bit-equal to ``ref.quantize_ref``
-         and ``ref.dequantize_ref``; the hop's kernel time a step
+         mean, and on every leaf's rows (8,594,128 of 256) both kernels
+         bit-equal to ``ref.quantize_ref`` and ``ref.dequantize_ref``, a
+         gate that each of HOP_FAULTS, planted in a kernel's output on the
+         smallest leaf, must fail; the hop's kernel time a step
          (profiler) beside its byte bound, with and without the uniforms'
          bytes, both kernels timed at the largest leaf's rows, and the
          step's peak memory;
@@ -142,7 +148,8 @@ the CPU):
          off), B = 2, S = 128, the same weights and batch on the card and
          on the CPU: train-forward logits within LM_F32_REL of the largest,
          the loss and aux loss within TRAIN_LOSS_RTOL, every gradient leaf
-         (the router's included) within TRAIN_GRAD_REL of its largest, and
+         (the router's included) within TRAIN_GRAD_REL of its largest,
+         AdamW's update from the same inputs within TRAIN_ADAM_REL, and
          every top-k expert index of the forward and of the backward's
          recompute equal on both sides;
       b. decode against the train forward through ``launch/serve``'s
@@ -169,17 +176,60 @@ the CPU):
          step's idle share and top ops; then remat on against off at 2
          layers on the card: the recompute's routing equal to the
          forward's, every gradient leaf bit-equal but the embedding's
-         (within MOE_REMAT_EMBED_REL of its largest); then one MoE FFN's
+         (within REMAT_EMBED_REL of its largest); then one MoE FFN's
          forward and backward at the training shape, whole and its
          routing (``moe.route``: the one-hot dispatch and combine) alone;
       d. the podded ``totoro_tree_q8`` step at 2 layers (the largest depth
          whose two pods of weights, AdamW state and f32 gradients fit), 2
          pods, 3 steps: one quantize and one dequantize launch per leaf a
          step (29 + 29), the aggregate within a quantization step of the
-         pod mean, both hop kernels bit-equal to ``ref`` on the embedding's
-         rows and the largest expert stack's (1,441,792 of 256), timed on
-         the expert stack's, and the hop's kernel time a step beside its
-         byte bound;
+         pod mean, both hop kernels bit-equal to ``ref`` on every leaf's
+         rows (the gate failing on HOP_FAULTS), timed on the largest expert
+         stack's (1,441,792 of 256), and the hop's kernel time a step
+         beside its byte bound;
+   g. the recurrent families, with bf16 GEMMs accumulating in f32: rwkv6-7b
+      (RWKV-6, d 4096, 64 wkv heads of 64, d_ff 14336, vocab 65,536) and
+      jamba-1.5-large-398b's Mamba layer (d 8192, d_inner 16384, d_state
+      16, dt_rank 512, f32 weights); every gate is also run once with a
+      fault planted in the port at run time, which must fail it:
+      a. f32, TF32 off, card against the CPU on the same weights and
+         inputs: rwkv6-7b at 2 layers, B = 2, S = 128 (two wkv chunks of
+         64), through ``lm_f32_card_vs_cpu`` under phase 4e a's bounds;
+         jamba's ("mamba", "dense") layer alone through
+         ``lm.apply_layer`` in train mode, its output and the gradients of
+         every parameter and of the input under the same bounds; jamba's
+         reduced model (16 layers) through ``launch/serve``'s functions,
+         the prefill's and every decode step's logits and the prefill's
+         cache within LM_F32_REL, the tokens identical.  Planted (card side
+         only): each of RECURRENT_F32_FAULTS;
+      b. rwkv6-7b at full width and depth (32 layers) through
+         ``launch/serve``'s functions (batch 4, prompt 32, 16 generated),
+         the weights from one seeded init with every constant-at-init leaf
+         (mix_*, decay_0, bonus_u, ln_*) redrawn from RWKV_LEAF_SEED:
+         decode against the train forward in f32 within
+         RWKV_F32_DECODE_REL of the largest logit, each of
+         RWKV_DECODE_FAULTS planted in the wkv state update above it; the
+         same readings in bf16 (15.07 GB) recorded, not gated, and the
+         forward's own spread between two sequence lengths in each dtype;
+         prefill ms, decode ms/token beside the weight-read
+         bound, the init time, a decode step's idle share, device ops and
+         top ops;
+      c. rwkv6-7b training at full width and 7 layers, bf16,
+         AdamW, remat, 6 steps of B 8, S 1024 through
+         ``launch/train.train`` (ms/step, tokens/s, MFU on 6 N T without the
+         wkv core's FLOPs, peak memory, one step's idle share and top ops);
+         then remat on against off at 2 layers on the card
+         (``remat_agreement``, as phase 4f c), every gradient leaf
+         bit-equal but the embedding's (within REMAT_EMBED_REL);
+      d. the podded ``totoro_tree_q8`` step at 2 layers, 2 pods, 3 steps:
+         one quantize and one dequantize launch per leaf a step (26 + 26),
+         both hop kernels bit-equal to ``ref`` on every leaf's rows
+         (7,611,232 of 256), the gate failing on each of HOP_FAULTS, timed
+         on the largest leaf's (the embedding's, 2,097,152 of 256 for two
+         pods); the hop's kernel time a step beside its bound;
+      e. jamba's Mamba sublayer at full width in its own dtypes, B 4, S
+         1024: forward plus backward ms, the share of the chunk loop
+         (``ssm.selective_scan``), peak memory; a lead, not a gate;
 5. times: each kernel's device time (a CUDA graph of calls between CUDA
    events) beside its bound, its plain version and one PyTorch call
    computing the same function where there is one (timed in turns, a b b
@@ -199,6 +249,7 @@ prints no result, without a CUDA card or without the repository's
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -274,6 +325,9 @@ FLASH_F32_REL = 1e-5
 FLASH_FAULTS = ("delta dropped", "dk/dv of the last query chunk only")
 # c, d, e: tinyllama-1.1b in bf16 through launch/train's loop
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, POD_STEPS, PODS = 8, 1024, 6, 3, 2
+# d (and 4f d, 4g d): faults planted in a hop kernel's output, each of
+# which the hop's bit-equality gate must catch on one leaf's rows
+HOP_FAULTS = ("a lattice point a step off", "a dequantized value an ulp off")
 CKPT_LAYERS, CKPT_STEPS, CKPT_REPLICAS = 2, 2, 2
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 peak (NVIDIA data sheet, 700 W)
 # The MoE family (phase 4f): deepseek-v2-lite-16b at full width (MLA, 64
@@ -309,14 +363,57 @@ MOE_BF16_MIN_CLEAN = LM_BATCH * (LM_GEN - 1) // 2
 # c: bf16 training at 3 layers (dense + 2 MoE blocks, 1.67e9 parameters);
 # remat on against off at 2 layers: every gradient leaf bit-equal (the
 # recompute routes the same tokens) but the embedding table's, whose
-# backward adds repeated tokens' rows, within MOE_REMAT_EMBED_REL of its
-# largest
+# backward adds repeated tokens' rows, within REMAT_EMBED_REL of its
+# largest (``remat_agreement``, which phase 4g c calls too)
 MOE_TRAIN_LAYERS, MOE_REMAT_LAYERS = 3, 2
-MOE_REMAT_EMBED_REL = 2.0**-8
+REMAT_EMBED_REL = 2.0**-8
 # d: the podded q8 step at 2 layers, reckoned at ~55 GB (2 pods x 1.085e9
 # parameters x 14 B of bf16 weights and AdamW state, the pods' f32
 # gradients, one pod's B 4 activations); 3 layers would need ~76 GB
 MOE_POD_LAYERS = 2
+# The recurrent families (phase 4g): rwkv6-7b (RWKV-6: 32 layers of d 4096,
+# 64 wkv heads of 64, d_ff 14336, vocab 65,536; 7.53e9 parameters) and
+# jamba-1.5-large-398b's Mamba layer (d 8192, d_inner 16384, d_state 16,
+# dt_rank 512, f32 weights).  a: f32 (TF32 off) card against the CPU under
+# phase 4e a's bounds, each gate failed by one of RECURRENT_F32_FAULTS,
+# planted on the card's side: rwkv6-7b at 2 layers, jamba's ("mamba",
+# "dense") layer alone, jamba's reduced model through prefill and decode
+RWKV_ARCH, JAMBA_ARCH = "rwkv6-7b", "jamba-1.5-large-398b"
+RWKV_F32_LAYERS = 2
+RECURRENT_F32_FAULTS = ("wkv state not carried across chunks",
+                        "scan state not carried across chunks", "ssm state not carried in decode")
+# b: serving at full depth, the weights from one seeded init with every
+# leaf that is a constant at init (mix_*, decay_0, bonus_u, ln_*) redrawn
+# from RWKV_LEAF_SEED: at init decay_0 = -6 holds every decay at 0.9975 and
+# bonus_u = 0 drops the bonus term, which hides faults there.  Decode
+# against the train forward, as a share of the largest logit, within
+# RWKV_F32_DECODE_REL; each of RWKV_DECODE_FAULTS, planted in the decode
+# step's wkv state update, must read above it.  The gate is f32 (TF32
+# off): on these weights the model carries rounding far (a head's
+# output at position 0 is one vector times the scalar r_0 . (u k_0), which
+# the group norm's eps 1e-5 amplifies where it nears zero).  The first
+# card run on them read f32 decode 3.57e-3 of the largest logit, the
+# faults 0.55 to 1.05 and the forward's own length spread 0.12; bf16
+# decode 0.144, its spread 0.51 and the decay fault 0.59, so bf16 cannot
+# be gated and is recorded.  RWKV_F32_DECODE_REL, set from that run: 2^-6,
+# 4.4x over the sound reading and 35x under the least fault
+RWKV_SERVE_LAYERS = 32
+RWKV_LEAF_SEED = 37
+RWKV_DECODE_FAULTS = ("k and v swapped in the state update",
+                      "the token's kv left out of the state",
+                      "the decay left out of the state update")
+RWKV_F32_DECODE_REL = 2.0**-6
+# c: bf16 training, AdamW, remat, at the deepest that peaks under ~70 GB:
+# reckoned from phase 4f c's 53.5 GB at 1.67e9 parameters as 6 layers (1.85e9),
+# which peaked at 59.2 GB on the card, about 6.2 GB a layer over 22 GB for
+# the embedding, the head and the logits, so 7 layers (2.07e9) at ~65 GB;
+# then remat on against off at 2 layers: every gradient leaf bit-equal but
+# the embedding table's, within REMAT_EMBED_REL of its largest
+RWKV_TRAIN_LAYERS, RWKV_REMAT_LAYERS = 7, 2
+# d: the podded q8 step at 2 layers (0.974e9 parameters a pod)
+RWKV_POD_LAYERS = 2
+# e: jamba's Mamba sublayer at full width, bf16 activations, f32 weights
+MAMBA_BATCH = 4
 
 KERNELS = [
     {
@@ -1620,36 +1717,51 @@ def decode_vs_forward(torch, params, cfg, batch) -> tuple:
 
 
 @contextmanager
-def planted_decode_fault(kind: str):
-    """One of DECODE_FAULTS in ``models/attention``'s decode step, for the
-    length of the block (``lm``'s GQA entry and the module's functions are
-    restored after)."""
-    from repro_torch.models import attention, lm
-
-    mixer, dec = lm._MIXERS["attn"], attention.decode_attention
-    fwd = mixer[1]
-
-    def faulty_forward(p, cfg, x, *, mode, cache=None, cache_index=None, **kw):
-        if mode == "decode" and kind == "cache_index - 1":
-            cache_index = int(cache_index) - 1
-        if mode == "decode" and kind == "k/v write dropped":
-            out, _ = fwd(p, cfg, x, mode=mode, cache={k: v.clone() for k, v in cache.items()},
-                         cache_index=cache_index, **kw)
-            return out, cache
-        return fwd(p, cfg, x, mode=mode, cache=cache, cache_index=cache_index, **kw)
-
-    def own_position_masked(q, k, v, mask):
-        m = mask.clone()
-        m[:, int(mask[0].nonzero()[-1])] = False
-        return dec(q, k, v, m)
-
-    lm._MIXERS["attn"] = (mixer[0], faulty_forward, mixer[2])
-    if kind == "own position masked":
-        attention.decode_attention = own_position_masked
+def planted(owner, name: str, make):
+    """``owner.name`` (``owner[name]`` where ``owner`` is a dict, as
+    ``lm._MIXERS``) replaced by ``make(original)`` for the length of the
+    block (a fault planted in the port at run time), restored after."""
+    table = isinstance(owner, dict)
+    orig = owner[name] if table else getattr(owner, name)
+    put = owner.__setitem__ if table else lambda n, v: setattr(owner, n, v)
+    put(name, make(orig))
     try:
         yield
     finally:
-        lm._MIXERS["attn"], attention.decode_attention = mixer, dec
+        put(name, orig)
+
+
+def planted_decode_fault(kind: str):
+    """One of DECODE_FAULTS in the GQA decode step, as a ``planted``
+    context: ``lm``'s attention mixer entry, or
+    ``attention.decode_attention``."""
+    from repro_torch.models import attention, lm
+
+    if kind == "own position masked":
+        def masked(dec):
+            def own_position_masked(q, k, v, mask):
+                m = mask.clone()
+                m[:, int(mask[0].nonzero()[-1])] = False
+                return dec(q, k, v, m)
+            return own_position_masked
+        return planted(attention, "decode_attention", masked)
+    if kind not in DECODE_FAULTS:
+        raise ValueError(kind)
+
+    def faulty(entry):
+        fwd = entry[1]
+
+        def forward(p, cfg, x, *, mode, cache=None, cache_index=None, **kw):
+            if mode != "decode":
+                return fwd(p, cfg, x, mode=mode, cache=cache, cache_index=cache_index, **kw)
+            if kind == "cache_index - 1":
+                return fwd(p, cfg, x, mode=mode, cache=cache, cache_index=int(cache_index) - 1,
+                           **kw)
+            out, _ = fwd(p, cfg, x, mode=mode, cache={k: v.clone() for k, v in cache.items()},
+                         cache_index=cache_index, **kw)  # the k/v write lost
+            return out, cache
+        return (entry[0], forward, entry[2])
+    return planted(lm._MIXERS, "attn", faulty)
 
 
 def planted_faults(torch, cfg, params, batch) -> dict:
@@ -1846,45 +1958,149 @@ def _leaf_rels(torch, got: dict, want: dict) -> dict:
                                                                   leaves(want))}
 
 
-def train_f32_card_vs_cpu(torch) -> dict:
-    """a: tinyllama-1.1b at full width and TRAIN_F32_LAYERS layers in f32
-    (remat on, TF32 off): the gradients (``grads_and_metrics``) and one
-    ``build_train_step`` step (AdamW) from the same weights and batch on
-    the card and on the CPU."""
-    from repro_torch import configs
+def _card_vs_cpu_run(torch, fn, inputs: dict, fault: str | None = None) -> dict:
+    """``fn(inputs on dev)`` on the CPU and on the card and, with ``fault``
+    (one of RECURRENT_F32_FAULTS), on the card again under it: each a dict
+    of host tensors (or trees)."""
+    from repro_torch.pytree import tree_map
+
+    plan = [("cpu", "cpu", nullcontext()), ("card", "cuda", nullcontext())]
+    if fault:
+        plan.append(("fault", "cuda", recurrent_fault(fault)))
+    runs = {}
+    for tag, dev, ctx in plan:
+        with ctx:
+            runs[tag] = tree_map(lambda t: t.detach().cpu(),
+                                 fn(tree_map(lambda t: t.to(dev), inputs)))
+        torch.cuda.empty_cache()
+    return runs
+
+
+def _gate(out: dict, bounds: dict) -> bool:
+    return all(out[k] <= b for k, b in bounds.items())
+
+
+def lm_f32_card_vs_cpu(torch, arch: str, layers: int, seed: int, fault: str | None = None) -> dict:
+    """a (phases 4e, 4f, 4g): ``arch`` at full width and ``layers`` layers
+    in f32 (remat on, TF32 off), B = TRAIN_F32_BATCH, S = TRAIN_F32_SEQ, the
+    same weights and batch on the card and on the CPU: the train-mode
+    forward's logits within LM_F32_REL of the largest; the loss (and an MoE
+    model's aux loss, which must be positive) within TRAIN_LOSS_RTOL; every
+    gradient leaf (``grads_and_metrics``; the routers' included) within
+    TRAIN_GRAD_REL of its largest; every top-k expert index of the forward
+    and of the backward's recompute equal.  Then the optimizer alone:
+    ``build_train_step``'s update (AdamW: m, v, the master weights) on the
+    card and on the CPU from the same inputs, the CPU's weights and
+    gradients, every leaf within TRAIN_ADAM_REL of its largest (from the
+    gradients each side computed, the first step's m is 0.1 g and would
+    only repeat the gradient check).  With ``fault``, the card run under it
+    must fail the gate."""
+    from repro_torch import configs, optim
     from repro_torch.config import RunPlan
     from repro_torch.fl import steps
     from repro_torch.launch import train
     from repro_torch.models import lm
     from repro_torch.pytree import tree_map
 
-    cfg = configs.get_config("tinyllama-1.1b").replace(
-        num_layers=TRAIN_F32_LAYERS, dtype="float32", param_dtype="float32")
-    params = lm.init_params(torch.Generator().manual_seed(2), cfg)
-    sc = train.StreamConfig(cfg.vocab_size, TRAIN_F32_SEQ, TRAIN_F32_BATCH)
-    batch = train.make_batch(cfg, sc, 0, None, "cpu")
-    plan = RunPlan()
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        p = tree_map(lambda t: t.to(dev), params)
-        b = {k: v.to(dev) for k, v in batch.items()}
-        g, m = steps.grads_and_metrics(cfg, plan, p, b)
-        new, _ = steps.build_train_step(cfg, plan)(steps.init_train_state(cfg, p), b)
-        runs[dev] = {"loss": float(m["loss"]), "grads": tree_map(lambda t: t.cpu(), g),
-                     "m": tree_map(lambda t: t.cpu(), new["opt"]["m"]),
-                     "v": tree_map(lambda t: t.cpu(), new["opt"]["v"])}
-        del p, g, new
-    cpu, card = runs["cpu"], runs["cuda"]
-    out = {"loss_cpu": cpu["loss"], "loss_card": card["loss"],
-           "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
-           "grad_rel": _leaf_rels(torch, card["grads"], cpu["grads"]),
-           "m_rel": _leaf_rels(torch, card["m"], cpu["m"]),
-           "v_rel": _leaf_rels(torch, card["v"], cpu["v"])}
-    out.update(grad_rel_max=max(out["grad_rel"].values()), m_rel_max=max(out["m_rel"].values()),
-               v_rel_max=max(out["v_rel"].values()))
-    if (not out["loss_rel"] <= TRAIN_LOSS_RTOL or not out["grad_rel_max"] <= TRAIN_GRAD_REL or not out["m_rel_max"] <= TRAIN_ADAM_REL
-            or not out["v_rel_max"] <= TRAIN_ADAM_REL):
-        raise SystemExit(f"train step f32, card vs CPU, past its bounds: {out}")
+    cfg = configs.get_config(arch).replace(num_layers=layers, dtype="float32",
+                                           param_dtype="float32")
+    params = lm.init_params(torch.Generator().manual_seed(seed), cfg)
+    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_F32_SEQ,
+                                                     TRAIN_F32_BATCH), 0, None, "cpu")
+    opt = optim.make_optimizer(cfg)
+    n_moe = _n_moe(cfg)
+
+    def fn(inp):
+        p, b = inp["params"], inp["batch"]
+        with RoutingRecorder() as rec:
+            with torch.no_grad():
+                logits, _, aux = lm.forward(p, cfg, tokens=b["tokens"], mode="train")
+            g, m = steps.grads_and_metrics(cfg, RunPlan(), p, b)
+        return {"logits": logits, "aux": torch.as_tensor(aux), "loss": m["loss"],
+                "aux_step": torch.as_tensor(m["aux"]), "grads": g, "idx": rec.idx}
+
+    runs = _card_vs_cpu_run(torch, fn, {"params": params, "batch": batch}, fault)
+    cpu = runs["cpu"]
+
+    def update(dev):  # the plain train step's optimizer update
+        p, g = (tree_map(lambda t: t.to(dev), x) for x in (params, cpu["grads"]))
+        new, state = opt.update(g, opt.init(p), p)
+        return tree_map(lambda t: t.cpu(), {"params": new, "opt": state})
+
+    adam = _leaf_rels(torch, update("cuda"), update("cpu"))
+    torch.cuda.empty_cache()
+
+    def read(run):
+        flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                    for a, b in zip(run["idx"], cpu["idx"]))
+        grads = _leaf_rels(torch, run["grads"], cpu["grads"])
+        rel = lambda k: abs(float(run[k]) - float(cpu[k])) / max(abs(float(cpu[k])), 1e-30)
+        return {"logits_rel": _rel(torch, run["logits"], cpu["logits"]), "loss_rel": rel("loss"),
+                "aux_rel": rel("aux") if n_moe else 0.0, "grad_rel_max": max(grads.values()),
+                "tokens_routed_differently": flips,
+                "topk_calls_off": abs(len(run["idx"]) - (2 + cfg.remat) * n_moe),
+                "grad_rel": grads}
+
+    bounds = {"logits_rel": LM_F32_REL, "loss_rel": TRAIN_LOSS_RTOL, "aux_rel": TRAIN_LOSS_RTOL,
+              "grad_rel_max": TRAIN_GRAD_REL, "tokens_routed_differently": 0, "topk_calls_off": 0}
+    card = runs["card"]
+    out = dict(read(card), arch=arch, layers=layers, adam_rel_max=max(adam.values()),
+               loss_cpu=float(cpu["loss"]),
+               loss_card=float(card["loss"]), aux_cpu=float(cpu["aux"]),
+               aux_card=float(card["aux"]), aux_step_equals_forward=bool(
+                   torch.equal(card["aux_step"], card["aux"])),
+               topk_calls=len(card["idx"]), tokens_routed=sum(int(a[..., 0].numel())
+                                                              for a in cpu["idx"]))
+    out["router_grad_rel"] = {k: v for k, v in out["grad_rel"].items() if k.endswith("router")}
+    passed = (_gate(out, bounds) and out["adam_rel_max"] <= TRAIN_ADAM_REL
+              and (not n_moe or out["aux_cpu"] > 0))
+    if fault:
+        bad = read(runs["fault"])
+        out["planted_fault"] = {"kind": fault, **{k: bad[k] for k in bounds}}
+    if not passed or (fault and _gate(bad, bounds)):
+        raise SystemExit(f"{arch} f32 card vs CPU: the gate fails, or passes the planted fault: "
+                         f"{out}")
+    return out
+
+
+def remat_agreement(torch, arch: str, layers: int, seed: int) -> dict:
+    """c (phases 4f, 4g): ``arch`` at full width, ``layers`` layers, bf16,
+    B = TRAIN_BATCH, S = TRAIN_SEQ, on the card: the gradients with remat
+    ("nothing": the block recomputed in the backward, its routing and its
+    chunk checkpoints with it) and without; the recompute's top-k indices
+    equal the forward's, the loss and aux equal, every leaf bit-equal but
+    the embedding table's (within REMAT_EMBED_REL of its largest: its
+    backward adds repeated tokens' rows in any order)."""
+    from repro_torch import configs
+    from repro_torch.ckpt import key_paths
+    from repro_torch.config import RunPlan
+    from repro_torch.fl import steps
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.pytree import leaves
+
+    cfg = configs.get_config(arch).replace(num_layers=layers)
+    params = lm.init_params(torch.Generator().manual_seed(seed), cfg, device="cuda")
+    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), 0,
+                             None, "cuda")
+    with RoutingRecorder() as rec:
+        on, m_on = steps.grads_and_metrics(cfg, RunPlan(), params, batch)
+    off, m_off = steps.grads_and_metrics(cfg.replace(remat=False), RunPlan(), params, batch)
+    torch.cuda.synchronize()
+    n = _n_moe(cfg)
+    recompute_same = len(rec.idx) == 2 * n and all(
+        torch.equal(rec.idx[i], rec.idx[n + i]) for i in range(n))
+    unequal = [p for p, a, b in zip(key_paths(on), leaves(on), leaves(off)) if not torch.equal(a, b)]
+    out = {"arch": arch, "layers": layers, "remat_policy": cfg.remat_policy,
+           "recompute_routes_the_same": recompute_same,
+           "loss_equal": bool(torch.equal(m_on["loss"], m_off["loss"])),
+           "aux_equal": bool(torch.equal(torch.as_tensor(m_on["aux"]),
+                                         torch.as_tensor(m_off["aux"]))),
+           "leaves": len(leaves(on)), "leaves_not_bit_equal": unequal,
+           "embed_rel": _rel(torch, on["embed"], off["embed"])}
+    if (not recompute_same or not out["loss_equal"] or not out["aux_equal"]
+            or set(unequal) - {"embed"} or out["embed_rel"] > REMAT_EMBED_REL):
+        raise SystemExit(f"{arch} remat against no remat on the card: {out}")
     return out
 
 
@@ -1894,25 +2110,19 @@ def _chunks(x, chunk: int, G: int):
     return x.reshape(B, S // chunk, chunk, H // G, G, D).transpose(0, 1)
 
 
-@contextmanager
 def planted_flash_fault(kind: str, nq: int):
-    """One of FLASH_FAULTS in ``models/attention``'s flash backward, for the
-    length of the block (``_bwd_q_chunk`` is restored after)."""
+    """One of FLASH_FAULTS in ``models/attention``'s flash backward
+    (``_bwd_q_chunk``), as a ``planted`` context."""
     from repro_torch.models import attention
 
-    orig = attention._bwd_q_chunk
-
-    def faulty(iq, q_i, do_i, lse_i, delta_i, *rest):
-        if kind == "delta dropped":
-            return orig(iq, q_i, do_i, lse_i, delta_i * 0, *rest)
-        dq, dk, dv = orig(iq, q_i, do_i, lse_i, delta_i, *rest)
-        return (dq, dk, dv) if iq == nq - 1 else (dq, dk * 0, dv * 0)
-
-    attention._bwd_q_chunk = faulty
-    try:
-        yield
-    finally:
-        attention._bwd_q_chunk = orig
+    def make(orig):
+        def faulty(iq, q_i, do_i, lse_i, delta_i, *rest):
+            if kind == "delta dropped":
+                return orig(iq, q_i, do_i, lse_i, delta_i * 0, *rest)
+            dq, dk, dv = orig(iq, q_i, do_i, lse_i, delta_i, *rest)
+            return (dq, dk, dv) if iq == nq - 1 else (dq, dk * 0, dv * 0)
+        return faulty
+    return planted(attention, "_bwd_q_chunk", make)
 
 
 def flash_backward_on_card(torch) -> dict:
@@ -2000,25 +2210,63 @@ def _profile_step(torch, fn) -> dict:
     }
 
 
+@contextmanager
+def frozen_heap():
+    """For the block: the script's own heap (every object alive now) out
+    of the garbage collector's reach (``gc.freeze``), so that a phase's
+    timed loops pay for collecting their own objects only, as in a
+    process that runs that phase alone.  Blocks do not nest."""
+    gc.collect()
+    gc.freeze()
+    try:
+        yield
+    finally:
+        gc.unfreeze()
+
+
+def gc_during(fn) -> tuple:
+    """``fn()`` and the count and ms of the garbage collections made
+    meanwhile (``gc.callbacks``)."""
+    got, start = {"collections": 0, "ms": 0.0}, [0.0]
+
+    def timer(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            got["collections"] += 1
+            got["ms"] += (time.perf_counter() - start[0]) * 1e3
+
+    gc.callbacks.append(timer)
+    try:
+        return fn(), got
+    finally:
+        gc.callbacks.remove(timer)
+
+
 def model_flops(cfg, tokens: int, seq: int) -> float:
     """6 N T + 3 L H (Dk + Dv) S T: N the active parameters
     (``lm.count_params_analytic``: a token's top-k experts, not all of them)
-    without the embedding table; causal attention with q/k head dim Dk and
-    v head dim Dv (head_dim both for GQA; MLA's Dk adds qk_rope_dim)."""
+    without the embedding table; L the attention layers, causal, with q/k
+    head dim Dk and v head dim Dv (head_dim both for GQA; MLA's Dk adds
+    qk_rope_dim).  The recurrent mixers' cores are left out: RWKV's chunked
+    wkv products and Mamba's scan count only through their weights in N."""
     from repro_torch.models import lm
 
     n = lm.count_params_analytic(cfg)[1] - cfg.padded_vocab * cfg.d_model
     dk = cfg.head_dim + (cfg.qk_rope_dim if cfg.attn_impl == "mla" else 0)
-    return (6.0 * n * tokens
-            + 3.0 * cfg.num_layers * cfg.num_heads * (dk + cfg.head_dim) * seq * tokens)
+    n_attn = (sum(m in ("attn", "mla") for m, _ in lm.layer_pattern(cfg)) * lm.num_blocks(cfg)
+              + cfg.first_dense)
+    return 6.0 * n * tokens + 3.0 * n_attn * cfg.num_heads * (dk + cfg.head_dim) * seq * tokens
 
 
 def train_lm(torch, smi: str, cfg) -> dict:
     """c (4e: tinyllama-1.1b at full width and depth; 4f: deepseek-v2-lite
-    at full width, MOE_TRAIN_LAYERS layers), bf16, AdamW, remat on, through
-    ``launch/train.train``: TRAIN_STEPS steps of B = TRAIN_BATCH, S =
-    TRAIN_SEQ, losses finite and falling (an MoE model's aux losses finite
-    and positive); then one more step under torch.profiler."""
+    at full width, MOE_TRAIN_LAYERS layers; 4g: rwkv6-7b at full width,
+    RWKV_TRAIN_LAYERS layers), bf16, AdamW, remat on, through
+    ``launch/train.train`` (its garbage collections timed, ``gc_during``):
+    TRAIN_STEPS steps of B = TRAIN_BATCH, S = TRAIN_SEQ, losses finite and
+    falling (an MoE model's aux losses finite and positive); then one more
+    step under torch.profiler."""
     from repro_torch.config import RunPlan
     from repro_torch.fl import steps
     from repro_torch.launch import train
@@ -2028,8 +2276,9 @@ def train_lm(torch, smi: str, cfg) -> dict:
     torch.cuda.reset_peak_memory_stats()
     set_counts(dict.fromkeys(COUNTED, 0))
     t0 = time.perf_counter()
-    run = train.train(cfg, RunPlan(), steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
-                      global_batch=TRAIN_BATCH, device="cuda", log=lambda *a: None)
+    run, collected = gc_during(lambda: train.train(
+        cfg, RunPlan(), steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        device="cuda", log=lambda *a: None))
     wall = time.perf_counter() - t0
     got = counts()
     losses, auxes = run["losses"], run["auxes"]
@@ -2049,7 +2298,7 @@ def train_lm(torch, smi: str, cfg) -> dict:
            "step_ms": run["step_ms"], "ms_per_step": steady, "tokens_per_s": tokens / steady * 1e3,
            "model_flops_per_step": flops, "mfu": flops / (steady * 1e-3) / BF16_FLOPS,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": got,
-           "wall_s": wall, "card": smi}
+           "wall_s": wall, "gc_in_train": collected, "card": smi}
     step = steps.build_train_step(cfg, RunPlan())
     batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH),
                              TRAIN_STEPS, None, "cuda")
@@ -2058,19 +2307,63 @@ def train_lm(torch, smi: str, cfg) -> dict:
     return out
 
 
-def hop_leaves(grads_pod) -> dict:
-    """The podded gradient leaves whose rows the hop's kernels are checked
-    on: the embedding table's, the largest leaf's and, in an MoE model, the
-    largest routed-expert stack's (``blocks/pos*/ffn/w{i,g,o}``)."""
-    from repro_torch.pytree import key_paths, leaves
+def timed_leaf(named: dict, kind: str) -> str:
+    """The path of the podded gradient leaf the hop's kernels are timed
+    on: the largest (``kind`` "largest") or the largest routed-expert
+    stack (``"expert"``: ``blocks/pos*/ffn/w*``, (pods, blocks, E, in,
+    out))."""
+    pool = [p for p, t in named.items() if kind == "largest"
+            or (p.startswith("blocks/") and "/ffn/w" in p and t.dim() == 5)]
+    return max(pool, key=lambda p: named[p].numel())
 
-    named = dict(zip(key_paths(grads_pod), leaves(grads_pod)))
-    out = {"embed": named["embed"], "largest": max(named.values(), key=lambda t: t.numel())}
-    experts = [t for p, t in named.items() if p.startswith("blocks/") and "/ffn/w" in p
-               and t.dim() == 5]  # (pods, blocks, E, in, out)
-    if experts:
-        out["expert"] = max(experts, key=lambda t: t.numel())
+
+def hop_bits_equal(torch, ops, ref, named: dict, halves) -> dict:
+    """For each podded gradient leaf of ``named`` (path: (pods, ...)),
+    whether both hop kernels match their plain versions bit for bit on its
+    rows (``steps.pod_rows``): the int8 lattice and the scales
+    ``ops.qsgd_quantize`` gives against ``ref.quantize_ref``'s, and
+    ``ops.qsgd_dequantize`` of them against ``ref.dequantize_ref``'s."""
+    from repro_torch.fl import steps
+
+    out = {}
+    for path, g in named.items():
+        rows = steps.pod_rows(g)
+        u = halves[: rows.shape[0]]
+        q, scale = ops.qsgd_quantize(rows, u)
+        rq, rs = ref.quantize_ref(rows, u)
+        same = bool(torch.equal(q, rq)) and _bits_equal(torch, scale, rs)
+        del rows, rq, rs
+        out[path] = same and _bits_equal(torch, ops.qsgd_dequantize(q, scale),
+                                         ref.dequantize_ref(q, scale))
     return out
+
+
+def planted_hop_fault(kind: str, ops):
+    """One of HOP_FAULTS in a hop kernel's output, as a ``planted``
+    context on ``ops``: the first lattice point of a quantize launch a
+    step off, or the first value of a dequantize launch an ulp off."""
+    import torch
+
+    def lattice(kernel):
+        def quantize(rows, u):
+            q, scale = kernel(rows, u)
+            q = q.clone()
+            q.view(-1)[0] += 1 if int(q.view(-1)[0]) < 127 else -1
+            return q, scale
+        return quantize
+
+    def ulp(kernel):
+        def dequantize(q, scale):
+            d = kernel(q, scale).clone()
+            d.view(-1)[:1].view(torch.int32)[0] += 1  # the f32's bits: one ulp
+            return d
+        return dequantize
+
+    if kind == "a lattice point a step off":
+        return planted(ops, "qsgd_quantize", lattice)
+    if kind == "a dequantized value an ulp off":
+        return planted(ops, "qsgd_dequantize", ulp)
+    raise ValueError(kind)
 
 
 def train_podded(torch, qz, ops, ref, cfg, timed: str) -> dict:
@@ -2080,21 +2373,23 @@ def train_podded(torch, qz, ops, ref, cfg, timed: str) -> dict:
     per leaf a step; then, on the next batch's gradients
     (``steps.pod_grads``, the step's own), the aggregate within one
     quantization step (max |g| / 127) of the plain pod mean, and both
-    kernels bit-equal to their plain versions on the rows of each of
-    ``hop_leaves``; both kernels timed on the ``timed`` one's rows; one
-    step under torch.profiler."""
+    kernels bit-equal to their plain versions on the rows of every leaf
+    (``hop_bits_equal``), a gate that each of HOP_FAULTS, planted on the
+    smallest leaf, must fail; both kernels timed on the rows of
+    ``timed_leaf(.., timed)``; one step under torch.profiler."""
     from repro_torch.config import RunPlan
     from repro_torch.fl import steps
     from repro_torch.launch import train
-    from repro_torch.pytree import leaves
+    from repro_torch.pytree import key_paths, leaves
 
     plan = RunPlan(aggregation="totoro_tree_q8")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     set_counts(dict.fromkeys(COUNTED, 0))
     t0 = time.perf_counter()
-    run = train.train(cfg, plan, steps=POD_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                      device="cuda", num_pods=PODS, log=lambda *a: None)
+    run, collected = gc_during(lambda: train.train(
+        cfg, plan, steps=POD_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, device="cuda",
+        num_pods=PODS, log=lambda *a: None))
     wall = time.perf_counter() - t0
     got = counts()
     state = run.pop("state")
@@ -2117,24 +2412,20 @@ def train_podded(torch, qz, ops, ref, cfg, timed: str) -> dict:
             d = float((a - g.mean(0)).abs().max())
             worst = max(worst, d / step_size)
         del agg
-        # the hop's two kernels against their plain versions, bit for bit,
-        # on the rows of each of hop_leaves
-        bit_equal, rows_of = {}, {}
-        for leaf, g in hop_leaves(grads_pod).items():
-            rows = steps.pod_rows(g)
-            u = halves[: rows.shape[0]]
-            q, scale = ops.qsgd_quantize(rows, u)
-            rq, rs = ref.quantize_ref(rows, u)
-            bit_equal[f"{leaf}_quantize"] = bool(torch.equal(q, rq) and _bits_equal(torch, scale, rs))
-            del rq, rs
-            bit_equal[f"{leaf}_dequantize"] = _bits_equal(
-                torch, ops.qsgd_dequantize(q, scale), ref.dequantize_ref(q, scale))
-            rows_of[leaf] = [rows.shape[0], 256]
-            if leaf == timed:
-                big, hb, bq, bs = rows, u, q, scale
-            del rows, u, q, scale
+        named = dict(zip(key_paths(grads_pod), leaves(grads_pod)))
+        bit_equal = hop_bits_equal(torch, ops, ref, named, halves)
+        small = min(named, key=lambda p: named[p].numel())
+        caught = {}
+        for kind in HOP_FAULTS:
+            with planted_hop_fault(kind, ops):
+                caught[kind] = not any(hop_bits_equal(torch, ops, ref, {small: named[small]},
+                                                      halves).values())
         n_rows = sum(steps.pod_rows_count(g) for g in leaves(grads_pod))
+        leaf = timed_leaf(named, timed)
+        big = steps.pod_rows(named[leaf])
         R = big.shape[0]
+        hb = halves[:R]
+        bq, bs = ops.qsgd_quantize(big, hb)
         reps = dict(calls=3, replays=3)
         hop_rows = {
             "qsgd_quantize": _time_row(torch, lambda: ops.qsgd_quantize(big, hb),
@@ -2145,10 +2436,12 @@ def train_podded(torch, qz, ops, ref, cfg, timed: str) -> dict:
                                          R * 256, library=lambda: torch.mul(bq, bs),
                                          shape=[R, 256], **reps),
         }
-        del grads_pod, halves, g, big, hb, bq, bs
-    if worst > 1.0 + 1e-6 or not all(bit_equal.values()):
+        del grads_pod, named, halves, g, big, hb, bq, bs
+    if worst > 1.0 + 1e-6 or not all(bit_equal.values()) or not all(caught.values()):
         raise SystemExit(f"q8 hop: aggregate {worst:.4g} quantization steps from the pod mean, "
-                         f"or a kernel differs from its plain version ({bit_equal})")
+                         f"or a kernel differs from its plain version on "
+                         f"{[p for p, ok in bit_equal.items() if not ok]}, or the gate passes a "
+                         f"planted fault ({caught})")
     pod_step = steps.build_train_step(cfg, plan, num_pods=PODS)
     with uncounted():
         prof = _profile_step(torch, lambda: pod_step(state, batch))
@@ -2160,9 +2453,10 @@ def train_podded(torch, qz, ops, ref, cfg, timed: str) -> dict:
     return {
         "pods": PODS, "steps": POD_STEPS, "losses": run["losses"], "step_ms": run["step_ms"],
         "ms_per_step": float(np.mean(run["step_ms"][1:])), "peak_mem_gb": peak, "wall_s": wall,
-        "launches": got, "leaves": n_leaves, "agg_vs_mean_in_q_steps": worst,
-        "hop_bit_equal": bit_equal, "hop_rows_per_step": n_rows, "checked_rows": rows_of,
-        "timed_leaf": timed, "arch": cfg.name, "layers": cfg.num_layers,
+        "gc_in_train": collected, "launches": got, "leaves": n_leaves, "agg_vs_mean_in_q_steps": worst,
+        "hop_leaves_bit_equal": sum(bit_equal.values()), "hop_rows_per_step": n_rows,
+        "hop_faults_caught": caught, "hop_fault_leaf": small,
+        "timed_leaf": leaf, "arch": cfg.name, "layers": cfg.num_layers,
         "hop_bytes_per_step": hop_bytes, "hop_bytes_per_step_no_uniforms": hop_bytes_own,
         "hop_bound_ms": sum(hop_bytes.values()) / HBM_BYTES_PER_S * 1e3,
         "hop_bound_ms_no_uniforms": sum(hop_bytes_own.values()) / HBM_BYTES_PER_S * 1e3,
@@ -2233,7 +2527,7 @@ def drive_training(torch, smi: str, qz, ops, ref) -> dict:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     try:
         out = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32}
-        out["a_f32_card_vs_cpu"] = train_f32_card_vs_cpu(torch)
+        out["a_f32_card_vs_cpu"] = lm_f32_card_vs_cpu(torch, "tinyllama-1.1b", TRAIN_F32_LAYERS, 2)
         with uncounted():
             out["b_flash_backward"] = flash_backward_on_card(torch)
         tiny = configs.get_config("tinyllama-1.1b")
@@ -2277,64 +2571,6 @@ def _n_moe(cfg) -> int:
     from repro_torch.models import lm
 
     return sum(f == "moe" for _, f in lm.layer_pattern(cfg)) * lm.num_blocks(cfg)
-
-
-def moe_f32_card_vs_cpu(torch) -> dict:
-    """a: MOE_ARCH at full width, MOE_F32_LAYERS layers, f32 (remat on,
-    TF32 off), B = TRAIN_F32_BATCH, S = TRAIN_F32_SEQ, the same weights and
-    batch on the card and on the CPU: the train-mode forward's logits
-    within LM_F32_REL of the largest, its aux loss, the loss within
-    TRAIN_LOSS_RTOL, every gradient leaf (``grads_and_metrics``; the
-    routers' included) within TRAIN_GRAD_REL of its largest, and every
-    top-k expert index of the forward and of the backward's recompute
-    equal on both sides."""
-    from repro_torch import configs
-    from repro_torch.config import RunPlan
-    from repro_torch.fl import steps
-    from repro_torch.launch import train
-    from repro_torch.models import lm
-    from repro_torch.pytree import tree_map
-
-    cfg = configs.get_config(MOE_ARCH).replace(num_layers=MOE_F32_LAYERS, dtype="float32",
-                                               param_dtype="float32")
-    params = lm.init_params(torch.Generator().manual_seed(2), cfg)
-    sc = train.StreamConfig(cfg.vocab_size, TRAIN_F32_SEQ, TRAIN_F32_BATCH)
-    batch = train.make_batch(cfg, sc, 0, None, "cpu")
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        p = tree_map(lambda t: t.to(dev), params)
-        b = {k: v.to(dev) for k, v in batch.items()}
-        with RoutingRecorder() as rec:
-            with torch.no_grad():
-                logits, _, aux = lm.forward(p, cfg, tokens=b["tokens"], mode="train")
-            g, m = steps.grads_and_metrics(cfg, RunPlan(), p, b)
-        runs[dev] = {"logits": logits.cpu(), "aux": float(aux), "loss": float(m["loss"]),
-                     "aux_step": float(m["aux"]), "grads": tree_map(lambda t: t.cpu(), g),
-                     "idx": rec.idx}
-        del p, g, logits
-    cpu, card = runs["cpu"], runs["cuda"]
-    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
-                for a, b in zip(card["idx"], cpu["idx"]))
-    routed = sum(int(a[..., 0].numel()) for a in cpu["idx"])
-    out = {"layers": MOE_F32_LAYERS, "loss_cpu": cpu["loss"], "loss_card": card["loss"],
-           "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
-           "aux_cpu": cpu["aux"], "aux_card": card["aux"],
-           "aux_rel": abs(card["aux"] - cpu["aux"]) / abs(cpu["aux"]),
-           "aux_step_equals_forward": card["aux_step"] == card["aux"],
-           "logits_rel": _rel(torch, card["logits"], cpu["logits"]),
-           "grad_rel": _leaf_rels(torch, card["grads"], cpu["grads"]),
-           "topk_calls": len(card["idx"]), "tokens_routed": routed,
-           "tokens_routed_differently": flips}
-    out["grad_rel_max"] = max(out["grad_rel"].values())
-    out["router_grad_rel"] = {k: v for k, v in out["grad_rel"].items() if k.endswith("router")}
-    if flips or len(card["idx"]) != len(cpu["idx"]) or len(cpu["idx"]) != 3 * _n_moe(cfg):
-        raise SystemExit(f"MoE f32 card vs CPU: {flips} of {routed} token routings differ "
-                         f"(top-k calls {len(card['idx'])} and {len(cpu['idx'])})")
-    if (not out["loss_rel"] <= TRAIN_LOSS_RTOL or not out["aux_rel"] <= TRAIN_LOSS_RTOL
-            or not out["logits_rel"] <= LM_F32_REL or not out["grad_rel_max"] <= TRAIN_GRAD_REL
-            or not cpu["aux"] > 0):
-        raise SystemExit(f"MoE f32 card vs CPU past its bounds: {out}")
-    return out
 
 
 def moe_route_share(torch, cfg) -> dict:
@@ -2382,45 +2618,6 @@ def moe_route_share(torch, cfg) -> dict:
     return ms
 
 
-def moe_remat_agreement(torch) -> dict:
-    """c: MOE_ARCH at full width, MOE_REMAT_LAYERS layers, bf16, B =
-    TRAIN_BATCH, S = TRAIN_SEQ: the gradients with remat ("nothing": the
-    block recomputed in the backward, routing included) and without, on the
-    card; the recompute's top-k indices equal the forward's, the loss and
-    aux equal, every leaf bit-equal but the embedding table's (within
-    MOE_REMAT_EMBED_REL of its largest)."""
-    from repro_torch import configs
-    from repro_torch.config import RunPlan
-    from repro_torch.ckpt import key_paths
-    from repro_torch.fl import steps
-    from repro_torch.launch import train
-    from repro_torch.models import lm
-    from repro_torch.pytree import leaves
-
-    cfg = configs.get_config(MOE_ARCH).replace(num_layers=MOE_REMAT_LAYERS)
-    params = lm.init_params(torch.Generator().manual_seed(4), cfg, device="cuda")
-    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), 0,
-                             None, "cuda")
-    with RoutingRecorder() as rec:
-        on, m_on = steps.grads_and_metrics(cfg, RunPlan(), params, batch)
-    off, m_off = steps.grads_and_metrics(cfg.replace(remat=False), RunPlan(), params, batch)
-    torch.cuda.synchronize()
-    n = _n_moe(cfg)
-    recompute_same = len(rec.idx) == 2 * n and all(
-        torch.equal(rec.idx[i], rec.idx[n + i]) for i in range(n))
-    unequal = [p for p, a, b in zip(key_paths(on), leaves(on), leaves(off)) if not torch.equal(a, b)]
-    out = {"layers": MOE_REMAT_LAYERS, "remat_policy": cfg.remat_policy,
-           "recompute_routes_the_same": recompute_same,
-           "loss_equal": bool(torch.equal(m_on["loss"], m_off["loss"])),
-           "aux_equal": bool(torch.equal(m_on["aux"], m_off["aux"])),
-           "leaves": len(leaves(on)), "leaves_not_bit_equal": unequal,
-           "embed_rel": _rel(torch, on["embed"], off["embed"])}
-    if (not recompute_same or not out["loss_equal"] or not out["aux_equal"]
-            or set(unequal) - {"embed"} or out["embed_rel"] > MOE_REMAT_EMBED_REL):
-        raise SystemExit(f"MoE remat against no remat on the card: {out}")
-    return out
-
-
 def routing_flips(idx: list, n_moe: int) -> dict:
     """Token routings (a token's top-k expert set in one MoE layer) of a
     ``decode_vs_forward`` run that differ between the serving path (the
@@ -2457,39 +2654,37 @@ def routing_flips(idx: list, n_moe: int) -> dict:
     return flips
 
 
-@contextmanager
 def planted_moe_fault(kind: str):
-    """One of MOE_DECODE_FAULTS in the decode step, for the length of the
-    block: the shared experts left out of each MoE layer's decode output,
-    or the rope half of MLA's absorbed scores left out (the step reads a
-    zero rope-key cache)."""
+    """One of MOE_DECODE_FAULTS in the decode step, as a ``planted``
+    context: the shared experts left out of each MoE layer's decode
+    output, or the rope half of MLA's absorbed scores left out (the step
+    reads a zero rope-key cache)."""
     import torch
 
     from repro_torch.models import lm, moe
 
-    mixer, ffn = lm._MIXERS["mla"], moe.moe_forward
-    mla = mixer[1]
-
-    def no_shared(p, cfg, x):
-        if x.shape[1] == 1:  # a decode step's one token
-            p = {k: v for k, v in p.items() if k != "shared"}
-            cfg = cfg.replace(moe_num_shared=0)
-        return ffn(p, cfg, x)
-
-    def no_rope(p, cfg, x, *, mode, cache=None, **kw):
-        if mode != "decode":
-            return mla(p, cfg, x, mode=mode, cache=cache, **kw)
-        zero = {"c_kv": cache["c_kv"], "k_rope": torch.zeros_like(cache["k_rope"])}
-        return mla(p, cfg, x, mode=mode, cache=zero, **kw)[0], cache
-
     if kind == "shared experts dropped":
-        moe.moe_forward = no_shared
-    else:
-        lm._MIXERS["mla"] = (mixer[0], no_rope, mixer[2])
-    try:
-        yield
-    finally:
-        lm._MIXERS["mla"], moe.moe_forward = mixer, ffn
+        def make(ffn):
+            def no_shared(p, cfg, x):
+                if x.shape[1] == 1:  # a decode step's one token
+                    p = {k: v for k, v in p.items() if k != "shared"}
+                    cfg = cfg.replace(moe_num_shared=0)
+                return ffn(p, cfg, x)
+            return no_shared
+        return planted(moe, "moe_forward", make)
+    if kind != "rope scores left out":
+        raise ValueError(kind)
+
+    def make(entry):
+        mla = entry[1]
+
+        def no_rope(p, cfg, x, *, mode, cache=None, **kw):
+            if mode != "decode":
+                return mla(p, cfg, x, mode=mode, cache=cache, **kw)
+            zero = {"c_kv": cache["c_kv"], "k_rope": torch.zeros_like(cache["k_rope"])}
+            return mla(p, cfg, x, mode=mode, cache=zero, **kw)[0], cache
+        return (entry[0], no_rope, entry[2])
+    return planted(lm._MIXERS, "mla", make)
 
 
 def moe_decode_gate(torch, idx: list, n_moe: int, diffs, scale: float, bound: float,
@@ -2610,7 +2805,7 @@ def drive_moe(torch, smi: str, qz, ops, ref) -> dict:
     try:
         out = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32}
         set_counts(dict.fromkeys(COUNTED, 0))
-        out["a_f32_card_vs_cpu"] = moe_f32_card_vs_cpu(torch)
+        out["a_f32_card_vs_cpu"] = lm_f32_card_vs_cpu(torch, MOE_ARCH, MOE_F32_LAYERS, 2)
         out["a_launches"] = counts()
         torch.cuda.empty_cache()
         set_counts(dict.fromkeys(COUNTED, 0))
@@ -2625,7 +2820,7 @@ def drive_moe(torch, smi: str, qz, ops, ref) -> dict:
         out["c_train"] = train_lm(torch, smi, cfg.replace(num_layers=MOE_TRAIN_LAYERS))
         torch.cuda.empty_cache()
         with uncounted():
-            out["c_remat"] = moe_remat_agreement(torch)
+            out["c_remat"] = remat_agreement(torch, MOE_ARCH, MOE_REMAT_LAYERS, 4)
             torch.cuda.empty_cache()
             out["c_route"] = moe_route_share(torch, cfg)
         torch.cuda.empty_cache()
@@ -2635,6 +2830,335 @@ def drive_moe(torch, smi: str, qz, ops, ref) -> dict:
         for tag in ("a_launches", "b_launches"):
             if out[tag] != dict.fromkeys(COUNTED, 0):
                 raise SystemExit(f"MoE {tag[0]}: launches {out[tag]}, expected none")
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = bf16_rr
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: the recurrent families (rwkv6-7b; jamba's Mamba layer)
+
+
+def recurrent_fault(kind: str):
+    """One of the faults that phase 4g plants, as a ``planted`` context:
+    one of RWKV_DECODE_FAULTS in the decode step's wkv state update (the
+    state it returns in place of ``w S + k v^T``), or one of
+    RECURRENT_F32_FAULTS (phase a, on the card's side only)."""
+    from repro_torch.models import rwkv, ssm
+
+    state_update = {
+        "k and v swapped in the state update":
+            lambda k, v, w, s: w[..., None] * s + v[..., :, None] * k[..., None, :],
+        "the token's kv left out of the state": lambda k, v, w, s: w[..., None] * s,
+        "the decay left out of the state update":
+            lambda k, v, w, s: s + k[..., :, None] * v[..., None, :],
+    }
+    if kind in state_update:
+        def make(step):
+            def faulty(r, k, v, w, u, state):
+                return step(r, k, v, w, u, state)[0], state_update[kind](k, v, w, state)
+            return faulty
+        return planted(rwkv, "_wkv_step", make)
+    if kind == "wkv state not carried across chunks":
+        return planted(rwkv, "_wkv_chunk",
+                       lambda chunk: lambda r, k, v, lw, u, state: chunk(r, k, v, lw, u,
+                                                                         state * 0.0))
+    if kind == "scan state not carried across chunks":
+        return planted(ssm, "_scan_chunk",
+                       lambda body: lambda dt, A, Bm, Cm, x, D, h: body(dt, A, Bm, Cm, x, D,
+                                                                        h * 0.0))
+    if kind == "ssm state not carried in decode":
+        return planted(ssm, "_ssm_step", lambda step: lambda a, bu, h: step(a, bu, h * 0.0))
+    raise ValueError(kind)
+
+
+def mamba_layer_f32_card_vs_cpu(torch) -> dict:
+    """a: jamba's ("mamba", "dense") layer alone at full width, f32 weights
+    and activations (TF32 off), B = TRAIN_F32_BATCH, S = TRAIN_F32_SEQ (two
+    scan chunks of 64): ``lm.apply_layer`` in train mode, its output within
+    LM_F32_REL of the largest, the gradients of a fixed random projection
+    of it (every parameter and the input) within TRAIN_GRAD_REL of each
+    one's largest; the card run with the scan state not carried from chunk
+    to chunk must fail that gate."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.pytree import leaves, tree_map, unflatten_like
+
+    cfg = configs.get_config(JAMBA_ARCH).replace(dtype="float32")
+    assert cfg.param_dtype == "float32"
+    params = lm.init_layer(torch.Generator().manual_seed(31), cfg, "mamba", "dense")
+    gen = torch.Generator().manual_seed(32)
+    x = torch.randn(TRAIN_F32_BATCH, TRAIN_F32_SEQ, cfg.d_model, generator=gen)
+    w = torch.randn(TRAIN_F32_BATCH, TRAIN_F32_SEQ, cfg.d_model, generator=gen)
+
+    def fn(inp):
+        p = tree_map(lambda t: t.detach().requires_grad_(True), inp["params"])
+        xin = inp["x"].detach().requires_grad_(True)
+        out = lm.apply_layer(p, cfg, xin, "mamba", "dense", positions=None, mode="train")[0]
+        g = torch.autograd.grad((out * inp["w"]).sum(), [xin] + leaves(p))
+        return {"out": out, "grads": {"x": g[0], "params": unflatten_like(p, list(g[1:]))}}
+
+    fault = RECURRENT_F32_FAULTS[1]
+    runs = _card_vs_cpu_run(torch, fn, {"params": params, "x": x, "w": w}, fault)
+    cpu = runs["cpu"]
+
+    def read(run):
+        rels = _leaf_rels(torch, run["grads"], cpu["grads"])
+        return {"out_rel": _rel(torch, run["out"], cpu["out"]), "grad_rel_max": max(rels.values()),
+                "grad_rel": rels}
+
+    bounds = {"out_rel": LM_F32_REL, "grad_rel_max": TRAIN_GRAD_REL}
+    out = dict(read(runs["card"]), d_model=cfg.d_model, d_inner=cfg.expand * cfg.d_model,
+               params=sum(t.numel() for t in leaves(params)))
+    bad = read(runs["fault"])
+    out["planted_fault"] = {"kind": fault, **{k: bad[k] for k in bounds}}
+    if not _gate(out, bounds) or _gate(bad, bounds):
+        raise SystemExit(f"{JAMBA_ARCH} Mamba layer f32 card vs CPU: the gate fails, or passes "
+                         f"the planted fault: {out}")
+    return out
+
+
+def jamba_reduced_card_vs_cpu(torch) -> dict:
+    """a: jamba's reduced config (16 layers: two pattern blocks of attention,
+    Mamba and MoE) end to end in f32 (TF32 off), through ``launch/serve``'s
+    functions: B LM_BATCH, prompt LM_PROMPT, LM_GEN generated.  The prefill's
+    and every decode step's logits within LM_F32_REL of the CPU's largest,
+    the prefill's cache (k, v, conv history, SSM state) within LM_F32_REL of
+    each leaf's largest, the tokens identical; the card run with the SSM
+    state not carried from decode step to decode step must fail that gate."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.pytree import leaves
+
+    cfg = configs.get_reduced(JAMBA_ARCH)
+    params = lm.init_params(torch.Generator().manual_seed(33), cfg)
+    batch = serve.make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator().manual_seed(34), "cpu")
+
+    def fn(inp):
+        with LogitsRecorder() as rec, torch.no_grad():
+            res = serve.generate(inp["params"], cfg, inp["batch"], LM_GEN)
+        with torch.no_grad():
+            _, pcache, _ = lm.forward(inp["params"], cfg, mode="prefill", **inp["batch"])
+        return {"logits": torch.stack(rec.logits, 1), "tokens": res["tokens"],
+                "cache": pcache}
+
+    fault = RECURRENT_F32_FAULTS[2]
+    runs = _card_vs_cpu_run(torch, fn, {"params": params, "batch": batch}, fault)
+    cpu = runs["cpu"]
+
+    def read(run):
+        return {"logits_rel": _rel(torch, run["logits"], cpu["logits"]),
+                "cache_rel_max": max(_leaf_rels(torch, run["cache"], cpu["cache"]).values()),
+                "tokens_differ": int((run["tokens"] != cpu["tokens"]).sum())}
+
+    bounds = {"logits_rel": LM_F32_REL, "cache_rel_max": LM_F32_REL, "tokens_differ": 0}
+    out = dict(read(runs["card"]), layers=cfg.num_layers, d_model=cfg.d_model,
+               cache_leaves=len(leaves(cpu["cache"])))
+    bad = read(runs["fault"])
+    out["planted_fault"] = {"kind": fault, **bad}
+    if not _gate(out, bounds) or _gate(bad, bounds):
+        raise SystemExit(f"{JAMBA_ARCH} reduced, card vs CPU: the gate fails, or passes the "
+                         f"planted fault: {out}")
+    return out
+
+
+def length_spread(torch, params, cfg, batch, tokens) -> float:
+    """The train forward's own spread: its logits over the LM_PROMPT +
+    LM_GEN - 1 positions a ``decode_vs_forward`` run reads (``tokens``, the
+    run's generated tokens) against its logits over the prompt alone, on
+    the prompt's positions, as a share of the former's largest logit over
+    the positions decode is compared on.  Two forwards of one model, same
+    weights and tokens, differing only in sequence length (so in chunk
+    length and GEMM shapes): how far the model carries arithmetic
+    differences of the size the serving path makes."""
+    from repro_torch.models import lm
+
+    with torch.no_grad():
+        seq = torch.cat([batch["tokens"], tokens[:, :-1]], dim=1)
+        full = lm.forward(params, cfg, tokens=seq, mode="train")[0].float()
+        short = lm.forward(params, cfg, tokens=batch["tokens"], mode="train")[0].float()
+    scale = float(full[:, LM_PROMPT - 1:].abs().max())
+    return float((full[:, :LM_PROMPT] - short).abs().max()) / scale
+
+
+def randomised_rwkv_leaves(torch, params, seed: int) -> None:
+    """Every RWKV leaf of ``params`` that is a constant at init redrawn in
+    place from ``seed``, as tests/test_torch_rwkv.py does: ``mix_*``
+    uniform in [0, 1]; ``decay_0`` uniform in [-6, -1], the range the
+    upstream RWKV-6 init spreads a layer's channels over (a decay of 0.9975
+    to 0.69 a token); ``bonus_u`` and ``ln_bias`` 0.5 N(0, 1);
+    ``ln_scale`` 1 + 0.3 N(0, 1)."""
+    from repro_torch.pytree import key_paths, leaves
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for path, t in zip(key_paths(params), leaves(params)):
+            name = path.rsplit("/", 1)[-1]
+            if name.startswith("mix_"):
+                t.copy_(torch.rand(t.shape, generator=gen))
+            elif name == "decay_0":
+                t.copy_(-6.0 + 5.0 * torch.rand(t.shape, generator=gen))
+            elif name in ("bonus_u", "ln_bias"):
+                t.copy_(0.5 * torch.randn(t.shape, generator=gen))
+            elif name == "ln_scale":
+                t.copy_(1.0 + 0.3 * torch.randn(t.shape, generator=gen))
+
+
+def rwkv_decode_readings(torch, cfg, params, batch) -> dict:
+    """Decode against the train forward (``decode_vs_forward``) as a share
+    of the largest logit: the sound run, each of RWKV_DECODE_FAULTS planted
+    in the decode step's wkv state update, and beside them the forward's
+    own ``length_spread``."""
+    res, diffs, scale = decode_vs_forward(torch, params, cfg, batch)
+    out = {"dtype": cfg.dtype, "rel": float(diffs.max()) / scale, "max_abs_logit": scale,
+           "rel_per_step": [round(float(v) / scale, 7) for v in diffs.amax(0)],
+           "length_spread": length_spread(torch, params, cfg, batch, res["tokens"]),
+           "tokens_row0": res["tokens"][0].tolist(), "faults": {}}
+    for kind in RWKV_DECODE_FAULTS:
+        with recurrent_fault(kind):
+            _, fd, fs = decode_vs_forward(torch, params, cfg, batch)
+        out["faults"][kind] = float(fd.max()) / fs
+    return out
+
+
+def serve_rwkv(torch, smi: str) -> dict:
+    """b: RWKV_ARCH at full width and RWKV_SERVE_LAYERS layers through
+    ``launch/serve``'s functions, weights from one seeded ``lm.init_params``
+    (its init time recorded) with the constant-at-init leaves redrawn
+    (``randomised_rwkv_leaves``).  ``rwkv_decode_readings`` in f32 (TF32
+    off), then on the same weights in the config's bf16 layout
+    (``decay_0`` and ``bonus_u`` stay f32); prefill ms, decode ms/token
+    beside the weight-read bound, a decode step's idle share and device
+    ops.  Then the gate, in f32: the sound run within RWKV_F32_DECODE_REL,
+    every planted fault above it (bf16's readings are recorded)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.pytree import leaves, tree_map
+
+    cfg = configs.get_config(RWKV_ARCH).replace(num_layers=RWKV_SERVE_LAYERS)
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator().manual_seed(35), cfg32, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    randomised_rwkv_leaves(torch, params, RWKV_LEAF_SEED)
+    batch = serve.make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator().manual_seed(36), "cuda")
+    readings = {"float32": rwkv_decode_readings(torch, cfg32, params, batch)}
+    with torch.device("meta"):
+        layout = lm.init_params(torch.Generator(), cfg, device="meta")
+    params = tree_map(lambda t, m: t.to(m.dtype), params, layout)  # bf16 but decay_0, bonus_u
+    torch.cuda.empty_cache()
+    readings["bfloat16"] = rwkv_decode_readings(torch, cfg, params, batch)
+    first = serve.generate(params, cfg, batch, LM_GEN)
+    timed = serve.generate(params, cfg, batch, LM_GEN)  # warm: the times reported
+    run = {"params": params, "timed": timed, "first_run": first, "init_s": init_s,
+           "weight_bytes": sum(t.numel() * t.element_size() for t in leaves(params))}
+    out = serve_times(cfg, run, smi)
+    out.update(decode_vs_forward_f32=readings["float32"], decode_vs_forward_bf16=readings["bfloat16"],
+               params_total=lm.count_params_analytic(cfg)[0], leaf_seed=RWKV_LEAF_SEED)
+    with uncounted():
+        out["decode_profile"] = profile_decode(torch, cfg, params, batch)
+    f32 = readings["float32"]
+    f32["bound"] = RWKV_F32_DECODE_REL
+    if not (f32["rel"] <= f32["bound"] and all(f > f32["bound"] for f in f32["faults"].values())):
+        raise SystemExit(f"{RWKV_ARCH}: f32 decode against the train forward fails its bound, or "
+                         f"the bound passes a planted fault: {json.dumps(readings)}")
+    return out
+
+
+def mamba_chunk_loop_share(torch) -> dict:
+    """e: jamba's Mamba sublayer (``ssm.mamba_forward``) at full width in
+    its own dtypes (f32 weights, bf16 activations), B = MAMBA_BATCH, S =
+    TRAIN_SEQ, forward plus backward, eager (CUDA events, host cost
+    included): the whole sublayer, and ``ssm.selective_scan`` alone (the
+    chunk loop: per chunk the log-depth scan, under its checkpoint) on the
+    inputs the sublayer handed it; the loop's share and the peak memory.
+    A lead for later work, not a gate."""
+    from repro_torch import configs
+    from repro_torch.models import ssm
+    from repro_torch.pytree import tree_map
+
+    cfg = configs.get_config(JAMBA_ARCH)
+    p = tree_map(lambda t: t.cuda().requires_grad_(True),
+                 ssm.init_mamba(torch.Generator().manual_seed(37), cfg))
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    x = torch.randn(MAMBA_BATCH, TRAIN_SEQ, cfg.d_model, device="cuda", generator=gen)
+    x = x.to(cfg.adtype).requires_grad_(True)
+    scan, handed = ssm.selective_scan, []
+
+    def handing(*args):
+        handed.append(args)
+        return scan(*args)
+
+    ssm.selective_scan = handing
+    try:
+        with torch.no_grad():
+            ssm.mamba_forward(p, cfg, x, mode="train")
+    finally:
+        ssm.selective_scan = scan
+    args = [a.detach().requires_grad_(a.is_floating_point()) if isinstance(a, torch.Tensor) else a
+            for a in handed[0]]
+
+    def whole():
+        out, _ = ssm.mamba_forward(p, cfg, x, mode="train")
+        out.float().sum().backward()
+
+    def loop_alone():
+        y, h = scan(*args)
+        (y.sum() + h.sum()).backward()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = {name: eager_ms(torch, fn, iters=3, warmup=1)
+          for name, fn in (("mamba_forward", whole), ("selective_scan", loop_alone))}
+    ms.update(chunk_loop_share=ms["selective_scan"] / ms["mamba_forward"],
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, batch=MAMBA_BATCH,
+              seq=TRAIN_SEQ, chunk=args[-1], d_inner=cfg.expand * cfg.d_model,
+              d_state=cfg.d_state, dtype=cfg.dtype, param_dtype=cfg.param_dtype)
+    return ms
+
+
+def drive_recurrent(torch, smi: str, qz, ops, ref) -> dict:
+    """Phase 4g, with bf16 GEMMs accumulating in f32 (restored after); a to
+    e of the module docstring, every launch counter set to 0 just before
+    each and read just after."""
+    from repro_torch import configs
+
+    bf16_rr = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        out = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+        set_counts(dict.fromkeys(COUNTED, 0))
+        out["a_rwkv_f32"] = lm_f32_card_vs_cpu(torch, RWKV_ARCH, RWKV_F32_LAYERS, 30,
+                                               RECURRENT_F32_FAULTS[0])
+        out["a_mamba_layer_f32"] = mamba_layer_f32_card_vs_cpu(torch)
+        out["a_jamba_reduced"] = jamba_reduced_card_vs_cpu(torch)
+        out["a_launches"] = counts()
+        torch.cuda.empty_cache()
+        set_counts(dict.fromkeys(COUNTED, 0))
+        torch.cuda.reset_peak_memory_stats()
+        out["b_serve"] = serve_rwkv(torch, smi)
+        out["b_launches"] = counts()
+        out["b_serve"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        cfg = configs.get_config(RWKV_ARCH)
+        out["c_train"] = train_lm(torch, smi, cfg.replace(num_layers=RWKV_TRAIN_LAYERS))
+        torch.cuda.empty_cache()
+        with uncounted():
+            out["c_remat"] = remat_agreement(torch, RWKV_ARCH, RWKV_REMAT_LAYERS, 36)
+        torch.cuda.empty_cache()
+        out["d_podded_q8"] = train_podded(torch, qz, ops, ref,
+                                          cfg.replace(num_layers=RWKV_POD_LAYERS), "largest")
+        torch.cuda.empty_cache()
+        set_counts(dict.fromkeys(COUNTED, 0))
+        out["e_mamba"] = mamba_chunk_loop_share(torch)
+        out["e_launches"] = counts()
+        torch.cuda.empty_cache()
+        for tag in ("a_launches", "b_launches", "e_launches"):
+            if out[tag] != dict.fromkeys(COUNTED, 0):
+                raise SystemExit(f"recurrent {tag[0]}: launches {out[tag]}, expected none")
         return out
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = bf16_rr
@@ -2923,14 +3447,16 @@ def main() -> int:
         raise SystemExit(f"serving path: launches {lm_run['launches']}, expected none")
 
     # -- 4e. the LM training path -----------------------------------------------
-    tr = drive_training(torch, smi, qz, ops, ref)
+    with frozen_heap():  # 4e, 4f and 4g each with the heap of phases 1-4d frozen
+        tr = drive_training(torch, smi, qz, ops, ref)
     a = tr["a_f32_card_vs_cpu"]
     log(f"[4e train a] tinyllama-1.1b full width, {TRAIN_F32_LAYERS} layers, f32, B="
-        f"{TRAIN_F32_BATCH} S={TRAIN_F32_SEQ}, remat on, TF32 {tr['allow_tf32']}: loss card "
+        f"{TRAIN_F32_BATCH} S={TRAIN_F32_SEQ}, remat on, TF32 {tr['allow_tf32']}: logits within "
+        f"{a['logits_rel']:.3g} of the largest (bound {LM_F32_REL}); loss card "
         f"{a['loss_card']:.7f} CPU {a['loss_cpu']:.7f}, rel {a['loss_rel']:.3g} (rtol "
         f"{TRAIN_LOSS_RTOL}); gradients within {a['grad_rel_max']:.3g} of each leaf's largest "
-        f"(bound {TRAIN_GRAD_REL}); AdamW m {a['m_rel_max']:.3g}, v {a['v_rel_max']:.3g} "
-        f"(bound {TRAIN_ADAM_REL})")
+        f"(bound {TRAIN_GRAD_REL}); AdamW's update from the same inputs within "
+        f"{a['adam_rel_max']:.3g} (bound {TRAIN_ADAM_REL})")
     log(f"[4e train a] {json.dumps(a)}")
     b = tr["b_flash_backward"]
     log(f"[4e train b] flash backward at {FLASH_SHAPE} (B, S, heads, head_dim), causal, chunks "
@@ -2953,7 +3479,9 @@ def main() -> int:
         f"{[round(x, 4) for x in d['losses']]}; {d['ms_per_step']:.1f} ms/step (steps 2-"
         f"{d['steps']}); launches {json.dumps(d['launches'])} ({d['leaves']} leaves a step); "
         f"aggregate within {d['agg_vs_mean_in_q_steps']:.4f} quantization steps of the pod mean; "
-        f"kernels bit-equal to ref.quantize_ref / dequantize_ref: {json.dumps(d['hop_bit_equal'])}; "
+        f"kernels bit-equal to ref.quantize_ref / dequantize_ref on {d['hop_leaves_bit_equal']} of "
+        f"{d['leaves']} leaves ({d['hop_rows_per_step']:,} rows), the gate failing on each planted "
+        f"fault ({d['hop_fault_leaf']}: {json.dumps(d['hop_faults_caught'])}); "
         f"hop kernels {json.dumps(d['hop_kernels_ms'])} ms a step against a byte bound of "
         f"{d['hop_bound_ms']:.3f} ms ({sum(d['hop_bytes_per_step'].values()) / 1e9:.3f} GB over "
         f"{HBM_BYTES_PER_S / 1e12} TB/s), {d['hop_bound_ms_no_uniforms']:.3f} ms without the "
@@ -2969,7 +3497,8 @@ def main() -> int:
         f"{e['next_loss_bit_equal']})")
 
     # -- 4f. the MoE family: deepseek-v2-lite-16b ---------------------------------
-    moe = drive_moe(torch, smi, qz, ops, ref)
+    with frozen_heap():
+        moe = drive_moe(torch, smi, qz, ops, ref)
     a = moe["a_f32_card_vs_cpu"]
     log(f"[4f moe a] {MOE_ARCH} full width, {a['layers']} layers, f32, B={TRAIN_F32_BATCH} "
         f"S={TRAIN_F32_SEQ}, remat on, TF32 {moe['allow_tf32']}: logits within "
@@ -2977,8 +3506,10 @@ def main() -> int:
         f"CPU {a['loss_cpu']:.7f}, rel {a['loss_rel']:.3g}; aux card {a['aux_card']:.7f} CPU "
         f"{a['aux_cpu']:.7f}, rel {a['aux_rel']:.3g} (rtol {TRAIN_LOSS_RTOL}); gradients within "
         f"{a['grad_rel_max']:.3g} of each leaf's largest (bound {TRAIN_GRAD_REL}), routers "
-        f"{json.dumps(a['router_grad_rel'])}; {a['tokens_routed_differently']} of "
-        f"{a['tokens_routed']} token routings differ over {a['topk_calls']} top-k calls")
+        f"{json.dumps(a['router_grad_rel'])}; AdamW's update from the same inputs within "
+        f"{a['adam_rel_max']:.3g} (bound {TRAIN_ADAM_REL}); {a['tokens_routed_differently']} of "
+        f"{a['tokens_routed']} "
+        f"token routings differ over {a['topk_calls']} top-k calls")
     log(f"[4f moe a] {json.dumps(a)}")
     strict = moe["b_decode_f32"]
     log(f"[4f moe b] {MOE_ARCH} full width, {strict['layers']} layers, f32, B={LM_BATCH} prompt "
@@ -3026,13 +3557,82 @@ def main() -> int:
         f"{d['steps']} steps: losses {[round(x, 4) for x in d['losses']]}; "
         f"{d['ms_per_step']:.1f} ms/step (steps 2-{d['steps']}); launches "
         f"{json.dumps(d['launches'])} ({d['leaves']} leaves a step); aggregate within "
-        f"{d['agg_vs_mean_in_q_steps']:.4f} quantization steps of the pod mean; kernels bit-equal "
-        f"to ref on {json.dumps(d['checked_rows'])} rows: {json.dumps(d['hop_bit_equal'])}; hop "
-        f"kernels {json.dumps(d['hop_kernels_ms'])} ms a step against a byte bound of "
+        f"{d['agg_vs_mean_in_q_steps']:.4f} quantization steps of the pod mean; "
+        f"kernels bit-equal to ref.quantize_ref / dequantize_ref on {d['hop_leaves_bit_equal']} of "
+        f"{d['leaves']} leaves ({d['hop_rows_per_step']:,} rows), the gate failing on each planted "
+        f"fault ({d['hop_fault_leaf']}: {json.dumps(d['hop_faults_caught'])}); "
+        f"hop kernels {json.dumps(d['hop_kernels_ms'])} ms a step against a byte bound of "
         f"{d['hop_bound_ms']:.3f} ms ({d['hop_bound_ms_no_uniforms']:.3f} without the uniforms); "
         f"peak memory {d['peak_mem_gb']:.2f} GB; card: {smi}")
     log(f"[4f moe d] {json.dumps({k: v for k, v in d.items() if k != 'profile'})}")
     log(f"[4f moe d] one step under torch.profiler: {json.dumps(d['profile'])}")
+
+    # -- 4g. the recurrent families: rwkv6-7b, jamba's Mamba layer ------------------
+    with frozen_heap():
+        rec = drive_recurrent(torch, smi, qz, ops, ref)
+    a = rec["a_rwkv_f32"]
+    log(f"[4g recurrent a] {RWKV_ARCH} full width, {a['layers']} layers, f32, B={TRAIN_F32_BATCH} "
+        f"S={TRAIN_F32_SEQ}, remat on, TF32 {rec['allow_tf32']}: logits within "
+        f"{a['logits_rel']:.3g} of the largest (bound {LM_F32_REL}); loss card {a['loss_card']:.7f} "
+        f"CPU {a['loss_cpu']:.7f}, rel {a['loss_rel']:.3g} (rtol {TRAIN_LOSS_RTOL}); gradients "
+        f"within {a['grad_rel_max']:.3g} of each leaf's largest (bound {TRAIN_GRAD_REL}); AdamW's "
+        f"update from the same inputs within {a['adam_rel_max']:.3g} (bound {TRAIN_ADAM_REL}); "
+        f"planted fault "
+        f"{json.dumps(a['planted_fault'])}")
+    log(f"[4g recurrent a] {json.dumps(a)}")
+    a = rec["a_mamba_layer_f32"]
+    log(f"[4g recurrent a] {JAMBA_ARCH} ('mamba', 'dense') layer at full width (d "
+        f"{a['d_model']}, d_inner {a['d_inner']}, {a['params']:,} parameters), f32, B="
+        f"{TRAIN_F32_BATCH} S={TRAIN_F32_SEQ}: output within {a['out_rel']:.3g} of the largest "
+        f"(bound {LM_F32_REL}); gradients within {a['grad_rel_max']:.3g} of each one's largest "
+        f"(bound {TRAIN_GRAD_REL}); planted fault {json.dumps(a['planted_fault'])}")
+    log(f"[4g recurrent a] {json.dumps(a)}")
+    a = rec["a_jamba_reduced"]
+    log(f"[4g recurrent a] {JAMBA_ARCH} reduced ({a['layers']} layers, d {a['d_model']}), f32, "
+        f"prefill + {LM_GEN - 1} decodes card vs CPU: logits within {a['logits_rel']:.3g}, cache "
+        f"within {a['cache_rel_max']:.3g} (bound {LM_F32_REL}), {a['tokens_differ']} tokens differ; "
+        f"planted fault {json.dumps(a['planted_fault'])}")
+    b = rec["b_serve"]
+    log(f"[4g recurrent b] {RWKV_ARCH} {b['layers']} layers {b['dtype']} ({b['params_total']:,} "
+        f"parameters, {b['weight_bytes'] / 1e9:.3f} GB) B={LM_BATCH} prompt {LM_PROMPT} + {LM_GEN} "
+        f"generated: prefill {b['prefill_ms']:.3f} ms (first call {b['first_run_prefill_ms']:.3f}), "
+        f"decode {b['decode_ms_per_token']:.3f} ms/token (mean of decodes 2-{LM_GEN - 1}, host "
+        f"clock after synchronize); bound {b['bound_ms_decode_step']:.4f} ms for the "
+        f"{b['decode_read_bytes'] / 1e9:.3f} GB a decode step reads at {HBM_BYTES_PER_S / 1e12} "
+        f"TB/s; constant-at-init leaves redrawn from seed {b['leaf_seed']}; decode vs train "
+        f"forward, f32 {json.dumps(b['decode_vs_forward_f32'])}, bf16 (not gated) "
+        f"{json.dumps(b['decode_vs_forward_bf16'])}; idle "
+        f"{b['decode_profile']['device_idle_share']:.3f}, "
+        f"{b['decode_profile']['device_ops_per_step']:.0f} device ops a step; peak "
+        f"{b['peak_mem_gb']:.2f} GB; init {b['init_s']:.1f} s; card: {smi}")
+    log(f"[4g recurrent b] {json.dumps({k: v for k, v in b.items() if k != 'card'})}")
+    c = rec["c_train"]
+    log(f"[4g recurrent c] {RWKV_ARCH} {c['layers']} layers {c['dtype']} AdamW lr {c['lr']} remat "
+        f"{c['remat']} ({c['remat_policy']}), B={c['batch']} S={c['seq']}: losses "
+        f"{[round(x, 4) for x in c['losses']]}; {c['ms_per_step']:.1f} ms/step (steps 2-"
+        f"{TRAIN_STEPS}), {c['tokens_per_s']:.0f} tokens/s, MFU {c['mfu']:.4f} on "
+        f"{c['params_total_active'][0]:,} parameters (6 N T; the chunked wkv core's FLOPs left "
+        f"out); peak memory {c['peak_mem_gb']:.2f} GB; idle "
+        f"{c['profile']['device_idle_share']:.3f}; card: {smi}")
+    log(f"[4g recurrent c] one step under torch.profiler: {json.dumps(c['profile'])}")
+    log(f"[4g recurrent c] {json.dumps({k: v for k, v in c.items() if k not in ('profile', 'card')})}")
+    log(f"[4g recurrent c] remat on vs off, {RWKV_REMAT_LAYERS} layers: {json.dumps(rec['c_remat'])}")
+    d = rec["d_podded_q8"]
+    log(f"[4g recurrent d] podded totoro_tree_q8, {RWKV_ARCH} {d['layers']} layers, {d['pods']} "
+        f"pods, {d['steps']} steps: losses {[round(x, 4) for x in d['losses']]}; "
+        f"{d['ms_per_step']:.1f} ms/step (steps 2-{d['steps']}); launches "
+        f"{json.dumps(d['launches'])} ({d['leaves']} leaves a step); aggregate within "
+        f"{d['agg_vs_mean_in_q_steps']:.4f} quantization steps of the pod mean; "
+        f"kernels bit-equal to ref.quantize_ref / dequantize_ref on {d['hop_leaves_bit_equal']} of "
+        f"{d['leaves']} leaves ({d['hop_rows_per_step']:,} rows), the gate failing on each planted "
+        f"fault ({d['hop_fault_leaf']}: {json.dumps(d['hop_faults_caught'])}); "
+        f"hop kernels {json.dumps(d['hop_kernels_ms'])} ms a step against a byte bound of "
+        f"{d['hop_bound_ms']:.3f} ms ({d['hop_bound_ms_no_uniforms']:.3f} without the uniforms); "
+        f"peak memory {d['peak_mem_gb']:.2f} GB; card: {smi}")
+    log(f"[4g recurrent d] {json.dumps({k: v for k, v in d.items() if k != 'profile'})}")
+    log(f"[4g recurrent d] one step under torch.profiler: {json.dumps(d['profile'])}")
+    log(f"[4g recurrent e] {JAMBA_ARCH} Mamba sublayer at full width, fwd + bwd (eager, CUDA "
+        f"events): {json.dumps(rec['e_mamba'])}; card: {smi}")
 
     # -- 5. times -------------------------------------------------------------
     f32_levels = sorted({sh[:3] for sh in path_shapes if sh[3] == f32})  # sync, async, placement
@@ -3119,8 +3719,8 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             larger={R: {k: comp_rows[R][name][k] for k in brief} for R in (4096, 65536)},
         )
-    hops = {"4e d": tr["d_podded_q8"], "4f d": moe["d_podded_q8"]}
-    for entry in KERNELS[2:4]:  # phases 4e d and 4f d: the podded steps' cross-pod hop
+    hops = {"4e d": tr["d_podded_q8"], "4f d": moe["d_podded_q8"], "4g d": rec["d_podded_q8"]}
+    for entry in KERNELS[2:4]:  # phases 4e d, 4f d and 4g d: the podded steps' cross-pod hop
         name = entry["name"]
         entry["launches_from"] = {"4b compressed async runs": entry["launches"],
                                   **{f"{tag} podded q8 train steps ({h['arch']}, {h['layers']} "

@@ -37,7 +37,10 @@ def make_batch(cfg, batch: int, prompt_len: int, gen: torch.Generator, device) -
 
 
 def merge_cache(full, pre):
-    """Write the prefill cache into the leading slots of ``full`` (in place)."""
+    """Write the prefill cache into the leading slots of ``full`` (in place):
+    a KV cache's first positions; a recurrent layer's leaves (RWKV's token
+    shifts and wkv state, Mamba's conv history and SSM state), which have
+    no sequence axis, whole."""
     def put(a, b):
         a[tuple(slice(0, n) for n in b.shape)] = b.to(a.dtype)
         return a

@@ -7,13 +7,17 @@ out)``, so the JAX package's parameters carry over through
 ``convert.params_from_numpy``.  The reference's ``lax.scan`` over the
 stack becomes a Python loop over its leading axis.
 
-Layers mix with GQA (``"attn"``) or MLA (``"mla"``) and feed a dense
-SwiGLU or an MoE FFN (``models/moe.py``); ``first_dense`` leading layers
-(deepseek-v2's dense layer 0, with its own ``first_dense_d_ff``) run
-before the blocks, as ``params["first"]`` and ``cache["first"]``, lists
-of layer dicts as in the reference.  Configs whose pattern holds Mamba
-or RWKV layers raise ``NotImplementedError`` naming the ROADMAP item that
-ports them; nothing falls back.
+Layers mix with GQA (``"attn"``), MLA (``"mla"``), Mamba (``"mamba"``,
+``models/ssm.py``) or RWKV-6 time mixing (``"rwkv"``, ``models/rwkv.py``)
+and feed a dense SwiGLU, an MoE FFN (``models/moe.py``) or RWKV-6 channel
+mixing (``"rwkv_cm"``); jamba's pattern block is one attention and seven
+Mamba layers with an MoE FFN on every second.  ``first_dense`` leading
+layers (deepseek-v2's dense layer 0, with its own ``first_dense_d_ff``)
+run before the blocks, as ``params["first"]`` and ``cache["first"]``,
+lists of layer dicts as in the reference.  A layer's cache is ``{"mix":
+...}``, and an RWKV layer's ``{"mix": time mix, "ffn": channel mix}``: its
+cache spans both sublayers (token shifts and the wkv state), as the
+reference's ``_layer_cache`` splits it.
 
 Each MoE layer returns its load-balance loss as a tensor in the graph,
 and ``forward`` sums them (the router gets the aux gradient); a dense
@@ -22,9 +26,9 @@ layer's is 0.0.
 Train mode runs under autograd: attention goes through the flash
 backward (``attention._Flash``), each stacked leaf is split into its
 blocks once (``unbind``, whose backward is one ``stack``), and with
-``cfg.remat`` each block runs under ``torch.utils.checkpoint`` (non-
-reentrant, so the parameters it closes over get their gradients).  The
-reference's policies map so:
+``cfg.remat`` each block runs under ``torch.utils.checkpoint``
+(``nn.remat``: non-reentrant, so the parameters it closes over get their
+gradients).  The reference's policies map so:
 
 - ``remat_policy="nothing"`` (``nothing_saveable``): the whole block is
   checkpointed, and the backward recomputes it from its input;
@@ -36,7 +40,10 @@ reference's policies map so:
   reference's two named outputs keep, and the backward recomputes each
   sublayer alone.
 
-Remat changes no value, only what is kept for the backward.
+The recurrent mixers checkpoint each chunk of their scans too (the
+reference's ``jax.checkpoint`` on a chunk body), nested inside the
+block's or the sublayer's checkpoint.  Remat changes no value, only what
+is kept for the backward.
 """
 from __future__ import annotations
 
@@ -44,25 +51,29 @@ import math
 from typing import Any
 
 import torch
-import torch.utils.checkpoint
 
 from ..pytree import leaves, tree_map
 from . import attention as attn
 from . import moe as moe_mod
-from . import nn
+from . import nn, rwkv, ssm
 from .nn import dense_init, embed_init, rms_norm
 
-_NOT_PORTED = {
-    "mamba": "Mamba layers (models/ssm.py, ROADMAP §1 item 4)",
-    "rwkv": "RWKV time mixing (models/rwkv.py, ROADMAP §1 item 4)",
-    "rwkv_cm": "RWKV channel mixing (models/rwkv.py, ROADMAP §1 item 4)",
-}
+
+def _recurrent(fwd):
+    """A recurrent mixer's forward under the attention mixers' signature:
+    it reads no positions and no cache index."""
+    def mixer(p, cfg, x, *, positions, mode, cache=None, cache_index=None):
+        return fwd(p, cfg, x, mode=mode, cache=cache)
+
+    return mixer
 
 
 # (init, forward, cache shapes) of each mixer kind
 _MIXERS = {
     "attn": (attn.init_gqa, attn.gqa_forward, attn.gqa_cache_shape),
     "mla": (attn.init_mla, attn.mla_forward, attn.mla_cache_shape),
+    "mamba": (ssm.init_mamba, _recurrent(ssm.mamba_forward), ssm.mamba_cache_shape),
+    "rwkv": (rwkv.init_time_mix, _recurrent(rwkv.time_mix_forward), rwkv.rwkv_cache_shape),
 }
 
 
@@ -104,19 +115,6 @@ def num_blocks(cfg) -> int:
     return n
 
 
-def _require_ported(cfg, *kinds: str) -> None:
-    for kind in kinds:
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(f"{cfg.name}: not ported yet: {_NOT_PORTED[kind]}")
-
-
-def _check_ported(cfg) -> list[tuple[str, str]]:
-    """The layer pattern, or NotImplementedError for a kind not ported yet."""
-    pat = layer_pattern(cfg)
-    _require_ported(cfg, *(k for pair in pat for k in pair))
-    return pat
-
-
 def _first_mixer(cfg) -> str:
     """The mixer of the ``first_dense`` leading layers."""
     return "mla" if cfg.attn_impl == "mla" else "attn"
@@ -129,6 +127,8 @@ def _first_mixer(cfg) -> str:
 def _init_ffn(gen, cfg, kind: str, *, d_ff: int | None = None):
     if kind == "moe":
         return moe_mod.init_moe(gen, cfg)
+    if kind == "rwkv_cm":
+        return rwkv.init_channel_mix(gen, cfg)
     d = cfg.d_model
     ff = d_ff or cfg.d_ff
     ks = nn.split_keys(gen, 3)
@@ -141,7 +141,6 @@ def _init_ffn(gen, cfg, kind: str, *, d_ff: int | None = None):
 
 
 def init_layer(gen, cfg, mixer: str, ffn: str, *, d_ff: int | None = None):
-    _require_ported(cfg, mixer, ffn)
     k1, k2 = nn.split_keys(gen, 2)
     return {
         "norm1": torch.zeros((cfg.d_model,), dtype=cfg.pdtype),
@@ -157,16 +156,18 @@ def _mixer_sublayer(p, cfg, x, mixer: str, *, positions, mode, cache=None, cache
                             cache=cache.get("mix") if cache else None, cache_index=cache_index)
 
 
-def _ffn_sublayer(p, cfg, x, ffn: str):
-    """(out, aux): an MoE FFN's load-balance loss, a dense one's 0.0."""
+def _ffn_sublayer(p, cfg, x, ffn: str, mode="train", cache=None):
+    """(out, aux, cache): aux an MoE FFN's load-balance loss, 0.0 for the
+    others; cache the channel mix's (``cache`` its ``"ffn"`` entry), None
+    for the others."""
     h = rms_norm(x, p["norm2"])
     if ffn == "moe":
-        return moe_mod.moe_forward(p["ffn"], cfg, h)
-    return nn.swiglu(h, p["ffn"]["wi"], p["ffn"]["wg"], p["ffn"]["wo"]), 0.0
-
-
-def _checkpoint(fn, *args):
-    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return (*moe_mod.moe_forward(p["ffn"], cfg, h), None)
+    if ffn == "rwkv_cm":
+        out, nc = rwkv.channel_mix_forward(p["ffn"], cfg, h, mode=mode,
+                                           cache=cache.get("ffn") if cache else None)
+        return out, 0.0, nc
+    return nn.swiglu(h, p["ffn"]["wi"], p["ffn"]["wg"], p["ffn"]["wo"]), 0.0, None
 
 
 def apply_layer(p, cfg, x, mixer: str, ffn: str, *, positions, mode, cache=None, cache_index=None,
@@ -177,18 +178,19 @@ def apply_layer(p, cfg, x, mixer: str, ffn: str, *, positions, mode, cache=None,
     ``remat_sublayers`` (train mode) recomputes each sublayer, norm and
     mixer, norm and FFN, in the backward from its input.
     """
-    _require_ported(cfg, mixer, ffn)
     if remat_sublayers:
-        x = x + _checkpoint(lambda y: _mixer_sublayer(p, cfg, y, mixer, positions=positions,
-                                                      mode=mode)[0], x)
-        out, aux = _checkpoint(lambda y: _ffn_sublayer(p, cfg, y, ffn), x)
+        x = x + nn.remat(lambda y: _mixer_sublayer(p, cfg, y, mixer, positions=positions,
+                                                   mode=mode)[0], x)
+        out, aux, _ = nn.remat(lambda y: _ffn_sublayer(p, cfg, y, ffn, mode), x)
         return x + out, None, aux
     out, nc = _mixer_sublayer(p, cfg, x, mixer, positions=positions, mode=mode, cache=cache,
                               cache_index=cache_index)
     x = x + out
-    out, aux = _ffn_sublayer(p, cfg, x, ffn)
+    out, aux, fc = _ffn_sublayer(p, cfg, x, ffn, mode, cache)
     x = x + out
-    new_cache = {"mix": nc} if mode in ("prefill", "decode") else None
+    new_cache = None
+    if mode in ("prefill", "decode"):
+        new_cache = {"mix": nc} if fc is None else {"mix": nc, "ffn": fc}
     return x, new_cache, aux
 
 
@@ -205,7 +207,7 @@ def _stack(trees: list) -> Any:
 def init_params(gen: torch.Generator, cfg, *, device="cpu") -> nn.Params:
     """Random parameters from a CPU generator, drawn on the CPU and moved to
     ``device`` one block at a time."""
-    pat = _check_ported(cfg)
+    pat = layer_pattern(cfg)
     nb = num_blocks(cfg)
     keys = nn.split_keys(gen, 4)
     params: dict[str, Any] = {
@@ -247,7 +249,7 @@ def forward(params, cfg, *, tokens=None, embeds=None, mode="train", cache=None, 
     returned; prefill returns a new one of the prompt's length.  aux_loss:
     the sum of the MoE layers' load-balance losses, a 0-d f32 tensor.
     """
-    pat = _check_ported(cfg)
+    pat = layer_pattern(cfg)
     x = embed_tokens(params, cfg, tokens) if embeds is None else embeds.to(cfg.adtype)
     B, S = x.shape[0], x.shape[1]
     if positions is None:
@@ -289,7 +291,7 @@ def forward(params, cfg, *, tokens=None, embeds=None, mode="train", cache=None, 
     per_block = []
     for i in range(num_blocks(cfg)):
         if remat and not per_sublayer:  # "nothing": the whole block recomputed
-            x, a, new_cache = _checkpoint(lambda y, i=i: block(i, y, None), x)
+            x, a, new_cache = nn.remat(lambda y, i=i: block(i, y, None), x)
         else:
             caches = None
             if cache is not None:
@@ -344,17 +346,26 @@ def train_loss(params, cfg, batch):
 # caches
 
 
+def _layer_cache(cfg, mixer: str, batch: int, max_len: int) -> dict:
+    """One layer's cache as meta tensors; an RWKV layer's spans the time mix
+    (``"mix"``) and the channel mix (``"ffn"``)."""
+    shp = _MIXERS[mixer][2](cfg, batch, max_len)
+    if mixer == "rwkv":
+        return {"mix": shp["tm"], "ffn": shp["cm"]}
+    return {"mix": shp}
+
+
 def cache_shapes(cfg, batch: int, max_len: int):
     """The stacked cache tree as meta tensors: shapes and dtypes, no memory."""
-    pat = _check_ported(cfg)
+    pat = layer_pattern(cfg)
     nb = num_blocks(cfg)
     out: dict[str, Any] = {"blocks": {
-        f"pos{pos}": {"mix": tree_map(lambda t: t.expand((nb,) + tuple(t.shape)),
-                                      _MIXERS[mixer][2](cfg, batch, max_len))}
+        f"pos{pos}": tree_map(lambda t: t.expand((nb,) + tuple(t.shape)),
+                              _layer_cache(cfg, mixer, batch, max_len))
         for pos, (mixer, _) in enumerate(pat)
     }}
     if cfg.first_dense:
-        out["first"] = [{"mix": _MIXERS[_first_mixer(cfg)][2](cfg, batch, max_len)}
+        out["first"] = [_layer_cache(cfg, _first_mixer(cfg), batch, max_len)
                         for _ in range(cfg.first_dense)]
     return out
 
@@ -372,8 +383,7 @@ def init_cache(cfg, batch: int, max_len: int, *, device=None):
 
 def count_params_analytic(cfg) -> tuple[int, int]:
     """(total_params, active_params): padded query heads (llava) are not
-    counted, and active subtracts the experts a token is not routed to.
-    Configs this port cannot build yet raise."""
+    counted, and active subtracts the experts a token is not routed to."""
     with torch.device("meta"):
         shapes = init_params(torch.Generator(), cfg, device="meta")
     total = sum(math.prod(x.shape) for x in leaves(shapes))

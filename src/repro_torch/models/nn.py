@@ -1,9 +1,10 @@
-"""Parameter initialisers and primitive layers of the dense decoder.
+"""Parameter initialisers and primitive layers of the decoders.
 
-Answers to ``repro/models/nn.py``, for the primitives the dense GQA path
-uses.  Parameters are plain nested dicts of tensors in the JAX layout
-(dense weights ``(in, out)``), so the JAX package's parameters carry over
-through ``convert.params_from_numpy``.
+Answers to ``repro/models/nn.py``, for the primitives the decoders use:
+``rms_norm``, ``swiglu`` and RoPE, and ``layer_norm`` and ``group_norm``
+(RWKV's per-head output norm).  Parameters are plain nested dicts of
+tensors in the JAX layout (dense weights ``(in, out)``), so the JAX
+package's parameters carry over through ``convert.params_from_numpy``.
 
 Where the reference takes a PRNG key, the port takes a CPU
 ``torch.Generator``; ``split_keys`` derives child generators from one, so
@@ -15,8 +16,7 @@ The reference's sharding helpers (``resolve_specs``, ``shardings_for``,
 ``constrain``, ``set_activation_axes`` and the ``FSDP``/``TP``/``DP``
 placeholders) belong with ``launch/specs.py``, which is not ported yet;
 ``constrain`` is a no-op on one device, so the dense forward leaves its
-calls out.  ``layer_norm`` and ``group_norm`` come with the enc-dec and
-RWKV models.
+calls out.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..pytree import leaves, tree_map
 
@@ -79,6 +80,57 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """f32 layer norm over the last dim (biased variance), cast back."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
+               eps: float = 1e-5) -> torch.Tensor:
+    """f32 group norm over the last dim cut into ``groups`` equal parts
+    (biased variance per group), then a per-channel scale and bias."""
+    dt = x.dtype
+    *lead, d = x.shape
+    xg = x.float().reshape(*lead, groups, d // groups)
+    mu = torch.mean(xg, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xg - mu), dim=-1, keepdim=True)
+    y = ((xg - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)``: it misses ``jax.nn.silu``'s bits on under 1 % of
+    f32 values, ``F.silu`` on far more."""
+    return x * torch.sigmoid(x)
+
+
+def chunk_len(cfg, S: int) -> int:
+    """A recurrent layer's scan chunk: ``ssm_chunk``, or its gcd with S when
+    it does not divide S (as the reference's)."""
+    chunk = min(cfg.ssm_chunk, S)
+    return math.gcd(S, chunk) if S % chunk else chunk
+
+
+def remat(fn, *args):
+    """``fn(*args)``, through ``torch.utils.checkpoint`` (non-reentrant) when
+    grad mode is on: the backward recomputes ``fn`` from its inputs instead
+    of keeping its intermediates, as the reference's
+    ``jax.checkpoint(nothing_saveable)`` does for a scan's chunk body.  The
+    arguments need not require grad (data embeddings do not): the
+    parameters ``fn`` closes over get their gradients all the same.  Under
+    ``no_grad`` ``fn`` runs plainly.  Inside a block that ``lm``
+    checkpoints too, the two nest."""
+    if torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def swiglu(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:

@@ -173,3 +173,30 @@ def test_f32_and_bf16_leaves_restore_bit_for_bit(tmp_path):
     _same(restored, st)
     back = params_to_numpy(restored)
     assert back["h"].dtype == ml_dtypes.bfloat16
+
+
+def test_rwkv_bf16_train_state_same_files_as_the_reference(tmp_path):
+    """A bf16 rwkv6-7b train state (reduced), whose f32 ``decay_0`` and
+    ``bonus_u`` sit among bf16 leaves, with AdamW's f32 master and moments:
+    the port writes the reference's files byte for byte and restores every
+    leaf in its own dtype, bit for bit."""
+    from repro import configs as jconfigs
+    from repro.fl import steps as jsteps
+    from repro.models import lm as jlm
+
+    jcfg = jconfigs.get_reduced("rwkv6-7b").replace(dtype="bfloat16", param_dtype="bfloat16")
+    jstate = jsteps.init_train_state(jcfg, jlm.init_params(jax.random.key(0), jcfg))
+    tstate = params_from_numpy(jax.tree.map(np.asarray, jstate), "cpu")
+    mixer = tstate["params"]["blocks"]["pos0"]["mixer"]
+    assert mixer["decay_0"].dtype == mixer["bonus_u"].dtype == torch.float32
+    assert mixer["w_r"].dtype == torch.bfloat16
+    jd, td = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jckpt.save(jstate, jd, step=3, replicas=1)
+    tckpt.save(tstate, td, step=3, replicas=1)
+    assert _manifest(td, 3) == _manifest(jd, 3)
+    name = os.path.join("replica_0", "step_00000003", "arrays.npz")
+    with open(os.path.join(jd, name), "rb") as a, open(os.path.join(td, name), "rb") as b:
+        assert a.read() == b.read()
+    restored, _ = tckpt.restore(tstate, td, device="cpu")
+    assert [t.dtype for t in leaves(restored)] == [t.dtype for t in leaves(tstate)]
+    _same(restored, tstate)

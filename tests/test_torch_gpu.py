@@ -790,6 +790,69 @@ def test_reduced_train_step_on_card_matches_cpu(cuda):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b"])
+def test_reduced_recurrent_lm_on_card_matches_cpu(cuda, arch):
+    """RWKV-6 and jamba's Mamba + attention + MoE hybrid, reduced, f32 with
+    TF32 off: train-forward logits within 1e-5 of the CPU run's (S = 80:
+    5 wkv / scan chunks of 16), prefill logits and every cache leaf (wkv
+    state, token shifts, conv history, SSM state, k and v) within 1e-5,
+    and greedy serve tokens identical."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.pytree import leaves, tree_map
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = configs.get_reduced(arch)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    on = tree_map(lambda t: t.to(cuda), params)
+    batch = serve.make_batch(cfg, 4, 80 if arch.startswith("rwkv") else 64,
+                             torch.Generator().manual_seed(1), "cpu")
+    on_batch = {k: v.to(cuda) for k, v in batch.items()}
+    torch.testing.assert_close(lm.forward(on, cfg, mode="train", **on_batch)[0].cpu(),
+                               lm.forward(params, cfg, mode="train", **batch)[0],
+                               rtol=1e-5, atol=1e-5)
+    (lc, cc, _), (lg, cg, _) = (lm.forward(p, cfg, mode="prefill", **b)
+                                for p, b in ((params, batch), (on, on_batch)))
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=1e-5)
+    for a, b in zip(leaves(cg), leaves(cc)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+    res_cpu = serve.generate(params, cfg, batch, 8)
+    res_card = serve.generate(on, cfg, on_batch, 8)
+    assert torch.equal(res_card["tokens"].cpu(), res_cpu["tokens"])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b"])
+def test_reduced_recurrent_train_step_on_card_matches_cpu(cuda, arch):
+    """One step of each config's own optimizer (rwkv6-7b: AdamW; jamba:
+    adafactor), reduced, f32 with TF32 off, S = 64, remat on (the chunk
+    loops' checkpoints nested in the blocks'): loss and aux within rtol
+    1e-6, every gradient within 1e-5 of its leaf's largest magnitude."""
+    from repro_torch import configs
+    from repro_torch.config import RunPlan
+    from repro_torch.fl import steps
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.pytree import leaves, tree_map
+
+    cfg = configs.get_reduced(arch).replace(remat=True)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, 64, 4), 0, None, "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        g, m = steps.grads_and_metrics(cfg, RunPlan(), p, b)
+        new, m1 = steps.build_train_step(cfg, RunPlan())(steps.init_train_state(cfg, p), b)
+        out[str(dev)] = (float(m["loss"]), float(m["aux"]), [t.cpu() for t in leaves(g)],
+                         float(m1["loss"]))
+    (lc, ac, gc, sc), (lg, ag, gg, sg) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= 1e-6 * abs(lc) and abs(sg - sc) <= 1e-6 * abs(sc)
+    assert abs(ag - ac) <= 1e-6 * max(abs(ac), 1e-30)
+    for a, b in zip(gg, gc):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
 def test_q8_hop_lattice_on_card_bit_equal_to_cpu(cuda):
     """The podded step's hop on the card: one quantize and one dequantize
     launch per leaf; the lattice, the scales and the pod mean bit-equal to

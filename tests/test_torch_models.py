@@ -1,5 +1,5 @@
-"""The port's decoder (dense GQA; MLA and MoE) against ``repro.models`` on
-the CPU.
+"""The port's decoder (dense GQA; MLA and MoE; RWKV-6 and the Mamba hybrid)
+against ``repro.models`` on the CPU.
 
 Parameters come from the JAX package's seeded init and cross over with
 ``repro_torch.convert`` (bfloat16 leaves bit for bit); inputs are numpy
@@ -11,8 +11,9 @@ from a seed.  Tolerances, f32 unless said:
 - attention (``chunked_attention``, ``decode_attention``, ``gqa_forward``):
   rtol = atol = 1e-5, the JAX package's own kernel tolerance;
 - ``lm.forward`` logits on the reduced configs (2 layers, d 128; the MoE
-  ones 3, a leading dense layer and two MoE blocks): rtol = atol = 1e-5
-  (measured max |d| 3e-6 at logits up to 4.3); the MoE aux loss rtol 1e-5;
+  ones 3, a leading dense layer and two MoE blocks; jamba 16, two pattern
+  blocks of 8): rtol = atol = 1e-5 (measured max |d| 3e-6 at logits up to
+  4.3); the MoE aux loss rtol 1e-5;
 - decode against the port's own train forward: < 5e-4, the bound of
   ``tests/test_models_smoke.py``;
 - bfloat16: 2^-4 of the largest logit magnitude, for the port against JAX
@@ -50,7 +51,7 @@ BF16_REL = 2.0**-4
 
 DENSE = ["tinyllama-1.1b", "qwen3-8b", "mistral-large-123b", "deepseek-67b", "llava-next-34b"]
 MOE = ["deepseek-v2-lite-16b", "moonshot-v1-16b-a3b"]  # MLA + MoE + a dense layer 0; GQA + MoE
-NOT_PORTED = ["rwkv6-7b", "jamba-1.5-large-398b"]
+RECURRENT = ["rwkv6-7b", "jamba-1.5-large-398b"]  # RWKV-6; Mamba + attention + MoE
 
 
 def _cfgs(arch, **kw):
@@ -271,7 +272,7 @@ def test_llava_padded_heads_exact_math():
 # the decoder
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_init_params_layout_matches_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     jp = jlm.init_params(jax.random.key(0), jcfg)
@@ -292,14 +293,10 @@ def test_init_params_layout_matches_jax(arch):
 @pytest.mark.parametrize("arch", list(jconfigs.ARCH_IDS))
 def test_count_params_analytic_matches_jax(arch):
     tcfg = tconfigs.get_config(arch)
-    if arch in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.count_params_analytic(tcfg)
-        return
     assert tlm.count_params_analytic(tcfg) == jlm.count_params_analytic(jconfigs.get_config(arch))
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_cache_shapes_match_jax(arch):
     jcfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
     jshp, _ = jlm.cache_shapes(jcfg, 4, 4096)
@@ -311,7 +308,7 @@ def test_cache_shapes_match_jax(arch):
     assert all(not t.any() for t in leaves(small))
 
 
-@pytest.mark.parametrize("arch", DENSE + ["seamless-m4t-medium"] + MOE)
+@pytest.mark.parametrize("arch", DENSE + ["seamless-m4t-medium"] + MOE + RECURRENT)
 def test_forward_train_logits_match_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     jp, tp = _params(jcfg)
@@ -319,7 +316,7 @@ def test_forward_train_logits_match_jax(arch):
     jl, _, jaux = jlm.forward(jp, jcfg, mode="train", **batch)
     tl, tcache, taux = tlm.forward(tp, tcfg, mode="train", **_t(batch))
     assert tcache is None and taux.dtype == torch.float32 and taux.shape == ()
-    if arch in MOE:  # the two MoE blocks' load-balance losses
+    if tcfg.moe_num_experts:  # the MoE layers' load-balance losses
         assert float(jaux) > 0
         np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
     else:
@@ -339,7 +336,7 @@ def test_forward_masks_padded_vocab_like_jax():
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-8b"] + MOE)
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-8b"] + MOE + RECURRENT)
 def test_lm_loss_and_train_loss_match_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     jp, tp = _params(jcfg)
@@ -386,7 +383,31 @@ def test_moe_prefill_cache_matches_jax(arch):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **ATTN)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch,B,S", [("rwkv6-7b", 2, 40), ("jamba-1.5-large-398b", 8, 40)])
+def test_recurrent_prefill_cache_matches_jax(arch, B, S):
+    """A prefill of 40 tokens (40 % ssm_chunk 16 != 0: chunks of 8): logits,
+    and a cache whose leaves follow JAX's in order, shape, dtype and value:
+    RWKV's spans the time mix ("mix") and the channel mix ("ffn"); jamba's
+    holds the attention layer's k and v beside the Mamba layers' conv and
+    h.  (jamba: B 8, for the MoE's groups of 64 tokens.)"""
+    jcfg, tcfg = _cfgs(arch)
+    jp, tp = _params(jcfg)
+    batch = _inputs(jcfg, B, S, seed=12)
+    jl, jc, jaux = jlm.forward(jp, jcfg, mode="prefill", **batch)
+    tl, tc, taux = tlm.forward(tp, tcfg, mode="prefill", **_t(batch))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+    jflat = jax.tree_util.tree_flatten_with_path(jc)[0]
+    assert [("/".join(str(getattr(k, "key", k)) for k in kp)) for kp, _ in jflat] == key_paths(tc)
+    for a, (_, b) in zip(leaves(tc), jflat):
+        assert tuple(a.shape) == b.shape and str(a.dtype)[6:] == b.dtype.name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **ATTN)
+    want = {"rwkv6-7b": {"ffn/shift", "mix/shift", "mix/state"},
+            "jamba-1.5-large-398b": {"mix/k", "mix/v", "mix/conv", "mix/h"}}[arch]
+    assert {p.split("/", 2)[2] for p in key_paths(tc)} == want
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_decode_matches_train_forward(arch):
     """``tests/test_models_smoke.py``'s decode check, in the port (MoE made
     dropless, as there: capacity factor 64)."""
@@ -444,23 +465,6 @@ def test_bf16_params_round_trip_bit_for_bit():
         np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_non_dense_archs_raise(arch):
-    jcfg, tcfg = _cfgs(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.init_params(torch.Generator().manual_seed(0), tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.init_cache(tcfg, 2, 8)
-    jp = jax.tree.map(np.asarray, jlm.init_params(jax.random.key(0), jcfg))
-    tp = params_from_numpy(jp, "cpu")
-    batch = _inputs(jcfg, 2, 16, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.forward(tp, tcfg, mode="train", **_t(batch))
-    # the serving steps build (the config is decoder-only) and raise when run
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.build_prefill_step(tcfg)(tp, _t(batch))
-
-
 def test_encdec_serving_raises():
     cfg = tconfigs.get_reduced("seamless-m4t-medium")
     for build in (tsteps.build_prefill_step, tsteps.build_decode_step):
@@ -487,7 +491,7 @@ def _jax_serve(jcfg, jp, batch, G):
     return np.asarray(jnp.stack(out, axis=1))
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-8b", "llava-next-34b"] + MOE)
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-8b", "llava-next-34b"] + MOE + RECURRENT)
 def test_reduced_serve_greedy_tokens_match_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     jp, tp = _params(jcfg)
@@ -501,8 +505,9 @@ def test_reduced_serve_greedy_tokens_match_jax(arch):
     assert len(res["decode_ms"]) == G - 1 and res["prefill_ms"] > 0
 
 
-def test_serve_main_on_cpu(capsys):
-    serve.main(["--arch", "tinyllama-1.1b", "--reduced", "--batch", "2", "--prompt-len", "16",
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b"] + RECURRENT)
+def test_serve_main_on_cpu(capsys, arch):
+    serve.main(["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "16",
                 "--gen", "4", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "prefill 16 tokens x2" in out and "ms/token" in out and "generated token ids" in out
