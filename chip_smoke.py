@@ -230,6 +230,38 @@ the CPU):
       e. jamba's Mamba sublayer at full width in its own dtypes, B 4, S
          1024: forward plus backward ms, the share of the chunk loop
          (``ssm.selective_scan``), peak memory; a lead, not a gate;
+   h. the encoder-decoder family: seamless-m4t-medium (12 encoder and 12
+      decoder layers, d 1024, 16 heads of 64, d_ff 4096, vocab 256,206
+      padded to 256,256), with bf16 GEMMs accumulating in f32; every gate
+      is also run under faults planted at run time, each of which must fail
+      it:
+      a. f32, TF32 off, card against the CPU at 2 + 2 layers, B 2, 128
+         source frames and 64 target tokens, every norm leaf redrawn from a
+         seed on both sides: ``encdec.forward``'s logits (the padded columns,
+         -1e9, included) within LM_F32_REL of the largest, the loss within
+         TRAIN_LOSS_RTOL, every gradient leaf within TRAIN_GRAD_REL; planted
+         (card side): each of ENCDEC_F32_FAULTS;
+      b. full width and depth through ``launch/serve``'s functions (batch
+         4, 32 source frames, prompt 32, 16 generated): decode against the
+         train forward in f32 within SEAMLESS_F32_DECODE_REL, then in bf16
+         within LM_BF16_REL, each of ENCDEC_DECODE_FAULTS above the bound in
+         both dtypes; prefill ms, decode ms/token beside the bound of the
+         bytes a decode step reads (the decoder, the head, the self and
+         cross caches), a decode step's idle share and device ops;
+      c. bf16 training at full width and depth, AdamW, remat, B 4 (cut from
+         8 by the card's memory), S_src = S_tgt = 1024, 6 steps through
+         ``launch/train.train`` (ms/step, target tokens/s, MFU on
+         ``model_flops``' enc-dec count, peak memory, one step's idle share
+         and top ops); remat on against off at 2 + 2 layers
+         (``remat_agreement``);
+      d. the podded ``totoro_tree_q8`` step at full depth, B 4, 2 pods, 3
+         steps: one quantize and one dequantize launch per leaf a step (27
+         + 27), both hop kernels bit-equal to ``ref`` on every leaf's rows,
+         the gate failing on each of HOP_FAULTS, timed on the largest
+         leaf's (``embed``: 2,050,048 of 256 for two pods); the hop's kernel
+         time a step beside its bound;
+      e. the checkpoint at 2 + 2 layers, B 4, as phase 4e e
+         (``checkpoint_resume``);
 5. times: each kernel's device time (a CUDA graph of calls between CUDA
    events) beside its bound, its plain version and one PyTorch call
    computing the same function where there is one (timed in turns, a b b
@@ -414,6 +446,45 @@ RWKV_TRAIN_LAYERS, RWKV_REMAT_LAYERS = 7, 2
 RWKV_POD_LAYERS = 2
 # e: jamba's Mamba sublayer at full width, bf16 activations, f32 weights
 MAMBA_BATCH = 4
+# The encoder-decoder family (phase 4h): seamless-m4t-medium (12 encoder and
+# 12 decoder layers of d 1024, 16 heads of 64 with 16 kv heads, d_ff 4096,
+# vocab 256,206 padded to 256,256; 977,860,608 parameters, 1.96 GB in
+# bf16).  a: f32 (TF32 off) card against the CPU at 2 + 2 layers, B =
+# TRAIN_F32_BATCH, SEAMLESS_SRC source frames and SEAMLESS_TGT target tokens
+# (different lengths, so that a swap shows), every norm leaf (zeros at
+# init, which would hide a swapped norm) redrawn from SEAMLESS_NORM_SEED on
+# both sides, under phase 4e a's bounds (the logits, the padded columns
+# included, within LM_F32_REL of the largest); each of ENCDEC_F32_FAULTS,
+# planted on the card's side, must fail that gate
+SEAMLESS_ARCH = "seamless-m4t-medium"
+SEAMLESS_F32_LAYERS, SEAMLESS_SRC, SEAMLESS_TGT = 2, 128, 64
+SEAMLESS_NORM_SEED = 41
+ENCDEC_NORMS = ("norm1", "norm2", "norm_x", "enc_norm", "final_norm")
+ENCDEC_F32_FAULTS = ("cross keys from the decoder's states", "causal encoder",
+                     "norm_x and norm2 swapped", "pad mask skipped")
+# b: serving at full width and depth through launch/serve's functions (B =
+# LM_BATCH, LM_PROMPT source frames and prompt tokens, LM_GEN generated):
+# decode against the train forward in f32 (TF32 off) within
+# SEAMLESS_F32_DECODE_REL of the largest logit, set before the first card
+# run to LM_F32_REL, then in bf16 within LM_BF16_REL (phase 4d's bound);
+# each of ENCDEC_DECODE_FAULTS must read above the bound in both dtypes.
+# The first card run read the sound f32 run 1.59e-6 and bf16 2^-6.6, the
+# faults in bf16 0.88, 1.09 and, the self-cache index, 0.037: 1.18x over
+# LM_BF16_REL (the same bits in every run), so the faults are gated in f32
+# too, where the margin is wide
+SEAMLESS_F32_DECODE_REL = LM_F32_REL
+ENCDEC_DECODE_FAULTS = ("cross cache left zero after prefill",
+                        "cross cache read from the wrong layer", "self-cache index off by one")
+# c: bf16 training at full width and depth, AdamW, remat, B =
+# SEAMLESS_BATCH, S_src = S_tgt = TRAIN_SEQ; remat on against off at 2 + 2
+# layers.  B is cut from TRAIN_BATCH's 8 to 4: at 8 the first step ran out
+# of the card's memory in the backward of the 256,256-column loss (31 GB
+# allocated, 32.6 GB reserved but free, 15.6 GiB more asked for), whose f32
+# copies of the (8, 1024, 256,256) logits are 8.4 GB each.  d: the podded
+# q8 step at full depth and the same B (2 pods of weights and AdamW state,
+# 27.4 GB, the pods' f32 gradients 7.8 GB, one pod's B 2 activations), 27 +
+# 27 hop launches a step.  e: the checkpoint at 2 + 2 layers, same B
+SEAMLESS_BATCH, SEAMLESS_REMAT_LAYERS, SEAMLESS_POD_LAYERS = 4, 2, 12
 
 KERNELS = [
     {
@@ -1644,24 +1715,37 @@ def drive_fl_modules(torch, ops, system, app) -> dict:
 
 class LogitsRecorder:
     """Keeps the last position's logits of every prefill and decode forward
-    that the serving steps make (``lm.forward`` wrapped for one run)."""
+    that the serving steps make (``lm.forward``, ``encdec.prefill`` and
+    ``encdec.decode_step`` wrapped for one run)."""
 
     def __enter__(self):
-        from repro_torch.models import lm
+        from repro_torch.models import encdec, lm
 
-        self._lm, self._orig, self.logits = lm, lm.forward, []
+        self.logits = []
+        self._saved = [(lm, "forward", lm.forward), (encdec, "prefill", encdec.prefill),
+                       (encdec, "decode_step", encdec.decode_step)]
 
-        def recorded(*args, **kw):
-            out = self._orig(*args, **kw)
+        def lm_recorded(*args, **kw):
+            out = self._saved[0][2](*args, **kw)
             if kw.get("mode") in ("prefill", "decode"):
                 self.logits.append(out[0][:, -1].float())
             return out
 
-        lm.forward = recorded
+        def encdec_recorded(fn):
+            def recorded(*args, **kw):
+                out = fn(*args, **kw)  # (cache, logits)
+                self.logits.append(out[1][:, -1].float())
+                return out
+            return recorded
+
+        lm.forward = lm_recorded
+        encdec.prefill = encdec_recorded(encdec.prefill)
+        encdec.decode_step = encdec_recorded(encdec.decode_step)
         return self
 
     def __exit__(self, *exc):
-        self._lm.forward = self._orig
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
 
 
 def serve_on_card(torch, cfg, *, seed: int = 0) -> dict:
@@ -1697,14 +1781,18 @@ def decode_vs_forward(torch, params, cfg, batch) -> tuple:
     the LM_PROMPT + LM_GEN - 1 positions its steps read: the run, the
     largest difference between each step's logits and the forward's for
     each row and step (B, LM_GEN) on the host (step 0: the prefill's last
-    position), and the forward's largest logit magnitude."""
+    position) over the real vocabulary, and the forward's largest logit
+    magnitude there; the serving logits' padded columns must read -1e9."""
     from repro_torch.launch import serve
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
 
     with LogitsRecorder() as rec, torch.no_grad():
         res = serve.generate(params, cfg, batch, LM_GEN)
         seq = torch.cat([batch["tokens"], res["tokens"][:, :-1]], dim=1)
-        full = lm.forward(params, cfg, tokens=seq, mode="train")[0].float()
+        if cfg.is_encoder_decoder:  # the same source frames, the target grown
+            full = encdec.forward(params, cfg, {"embeds": batch["embeds"], "tokens": seq}).float()
+        else:
+            full = lm.forward(params, cfg, tokens=seq, mode="train")[0].float()
     torch.cuda.synchronize()
     steps = torch.stack(rec.logits, dim=1)  # (B, LM_GEN, V): prefill's last, then each decode
     want = full[:, LM_PROMPT - 1:]
@@ -1713,6 +1801,10 @@ def decode_vs_forward(torch, params, cfg, batch) -> tuple:
                          f"of the forward's shape {tuple(want.shape)}")
     if not torch.equal(res["tokens"], steps.argmax(-1).to(torch.int32)):
         raise SystemExit(f"{cfg.name}: the greedy tokens are not their logits' argmax")
+    V = cfg.vocab_size  # padded columns: -1e9 here, rounded to bf16 in a bf16 forward
+    if not bool((steps[..., V:] == -1e9).all()):
+        raise SystemExit(f"{cfg.name}: the serving logits' padded vocabulary columns are not -1e9")
+    steps, want = steps[..., :V], want[..., :V]
     return res, (steps - want).abs().amax(-1).cpu(), float(want.abs().max())
 
 
@@ -1786,10 +1878,9 @@ def profile_decode(torch, cfg, params, batch, n: int = 8) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve
-    from repro_torch.models import lm
 
-    B, P = batch["tokens"].shape
-    cache, tok = serve.start(params, cfg, batch, lm.init_cache(cfg, B, P + n + 1, device="cuda"))
+    P = batch["tokens"].shape[1]
+    cache, tok = serve.start(params, cfg, batch, serve.full_cache(cfg, batch, n + 1))
     cache, toks, _ = serve.decode(params, cfg, cache, tok, P, 1)  # warm-up step
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1809,18 +1900,26 @@ def profile_decode(torch, cfg, params, batch, n: int = 8) -> dict:
 def serve_times(cfg, run: dict, smi: str) -> dict:
     """Prefill ms, decode ms/token (mean of decodes 2..), and the decode
     step's bound: the bytes it must read (every weight but the embedding
-    table, of which it gathers B rows, plus the cache: GQA's k and v, MLA's
-    latent and rope key, ``lm.cache_shapes``) over HBM's rate."""
-    from repro_torch.models import lm
+    table, of which it gathers B rows, and an encoder-decoder's encoder,
+    plus the cache: GQA's k and v, MLA's latent and rope key,
+    ``lm.cache_shapes``; the self and cross k and v of
+    ``encdec.cache_shapes``) over HBM's rate."""
+    from repro_torch.models import encdec, lm
     from repro_torch.pytree import leaves
 
     timed = run["timed"]
     dec = timed["decode_ms"]
     p = run["params"]
-    emb = p["embed"].numel() * p["embed"].element_size()
-    cache_bytes = sum(t.numel() * t.element_size() for t in leaves(
-        lm.cache_shapes(cfg, LM_BATCH, LM_PROMPT + LM_GEN)))
-    read = run["weight_bytes"] - emb + LM_BATCH * cfg.d_model * p["embed"].element_size() + cache_bytes
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in leaves(tree))
+    unread = nbytes(p["embed"])
+    if cfg.is_encoder_decoder:
+        unread += nbytes(p["enc"]) + nbytes(p["enc_norm"])
+        cache = encdec.cache_shapes(cfg, LM_BATCH, LM_PROMPT + LM_GEN, LM_PROMPT)
+    else:
+        cache = lm.cache_shapes(cfg, LM_BATCH, LM_PROMPT + LM_GEN)
+    cache_bytes = nbytes(cache)
+    read = (run["weight_bytes"] - unread + LM_BATCH * cfg.d_model * p["embed"].element_size()
+            + cache_bytes)
     return {
         "arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype, "batch": LM_BATCH,
         "prompt": LM_PROMPT, "generated": LM_GEN, "prefill_ms": timed["prefill_ms"],
@@ -1980,6 +2079,12 @@ def _gate(out: dict, bounds: dict) -> bool:
     return all(out[k] <= b for k, b in bounds.items())
 
 
+def cut_depth(cfg, layers: int):
+    """``cfg`` at ``layers`` layers; an encoder-decoder's encoder too."""
+    return cfg.replace(num_layers=layers,
+                       **({"enc_layers": layers} if cfg.is_encoder_decoder else {}))
+
+
 def lm_f32_card_vs_cpu(torch, arch: str, layers: int, seed: int, fault: str | None = None) -> dict:
     """a (phases 4e, 4f, 4g): ``arch`` at full width and ``layers`` layers
     in f32 (remat on, TF32 off), B = TRAIN_F32_BATCH, S = TRAIN_F32_SEQ, the
@@ -2063,9 +2168,11 @@ def lm_f32_card_vs_cpu(torch, arch: str, layers: int, seed: int, fault: str | No
     return out
 
 
-def remat_agreement(torch, arch: str, layers: int, seed: int) -> dict:
-    """c (phases 4f, 4g): ``arch`` at full width, ``layers`` layers, bf16,
-    B = TRAIN_BATCH, S = TRAIN_SEQ, on the card: the gradients with remat
+def remat_agreement(torch, arch: str, layers: int, seed: int,
+                    global_batch: int = TRAIN_BATCH) -> dict:
+    """c (phases 4f, 4g, 4h): ``arch`` at full width, ``layers`` layers
+    (an encoder-decoder's encoder too), bf16,
+    B = ``global_batch``, S = TRAIN_SEQ, on the card: the gradients with remat
     ("nothing": the block recomputed in the backward, its routing and its
     chunk checkpoints with it) and without; the recompute's top-k indices
     equal the forward's, the loss and aux equal, every leaf bit-equal but
@@ -2076,12 +2183,13 @@ def remat_agreement(torch, arch: str, layers: int, seed: int) -> dict:
     from repro_torch.config import RunPlan
     from repro_torch.fl import steps
     from repro_torch.launch import train
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
     from repro_torch.pytree import leaves
 
-    cfg = configs.get_config(arch).replace(num_layers=layers)
-    params = lm.init_params(torch.Generator().manual_seed(seed), cfg, device="cuda")
-    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), 0,
+    cfg = cut_depth(configs.get_config(arch), layers)
+    model = encdec if cfg.is_encoder_decoder else lm
+    params = model.init_params(torch.Generator().manual_seed(seed), cfg, device="cuda")
+    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, global_batch), 0,
                              None, "cuda")
     with RoutingRecorder() as rec:
         on, m_on = steps.grads_and_metrics(cfg, RunPlan(), params, batch)
@@ -2091,7 +2199,7 @@ def remat_agreement(torch, arch: str, layers: int, seed: int) -> dict:
     recompute_same = len(rec.idx) == 2 * n and all(
         torch.equal(rec.idx[i], rec.idx[n + i]) for i in range(n))
     unequal = [p for p, a, b in zip(key_paths(on), leaves(on), leaves(off)) if not torch.equal(a, b)]
-    out = {"arch": arch, "layers": layers, "remat_policy": cfg.remat_policy,
+    out = {"arch": arch, "layers": layers, "batch": global_batch, "remat_policy": cfg.remat_policy,
            "recompute_routes_the_same": recompute_same,
            "loss_equal": bool(torch.equal(m_on["loss"], m_off["loss"])),
            "aux_equal": bool(torch.equal(torch.as_tensor(m_on["aux"]),
@@ -2249,9 +2357,23 @@ def model_flops(cfg, tokens: int, seq: int) -> float:
     without the embedding table; L the attention layers, causal, with q/k
     head dim Dk and v head dim Dv (head_dim both for GQA; MLA's Dk adds
     qk_rope_dim).  The recurrent mixers' cores are left out: RWKV's chunked
-    wkv products and Mamba's scan count only through their weights in N."""
-    from repro_torch.models import lm
+    wkv products and Mamba's scan count only through their weights in N.
 
+    An encoder-decoder config (``launch/train``'s batches: source frames
+    and target tokens of ``seq`` each, T tokens of each a step): N is the
+    encoder, the decoder and the head (``encdec.count_params_analytic``
+    without ``embed``), and the attention term counts three groups, the
+    encoder's bidirectional self-attention (twice the causal count), the
+    decoder's causal self-attention, and its cross-attention over the
+    source (bidirectional, twice):
+
+        6 N T + 3 H (Dk + Dv) S T (2 L_enc + L_dec + 2 L_dec)."""
+    from repro_torch.models import encdec, lm
+
+    if cfg.is_encoder_decoder:
+        n = encdec.count_params_analytic(cfg)[0] - cfg.padded_vocab * cfg.d_model
+        layers = 2 * cfg.enc_layers + 3 * cfg.num_layers
+        return 6.0 * n * tokens + 3.0 * layers * cfg.num_heads * 2 * cfg.head_dim * seq * tokens
     n = lm.count_params_analytic(cfg)[1] - cfg.padded_vocab * cfg.d_model
     dk = cfg.head_dim + (cfg.qk_rope_dim if cfg.attn_impl == "mla" else 0)
     n_attn = (sum(m in ("attn", "mla") for m, _ in lm.layer_pattern(cfg)) * lm.num_blocks(cfg)
@@ -2259,25 +2381,26 @@ def model_flops(cfg, tokens: int, seq: int) -> float:
     return 6.0 * n * tokens + 3.0 * n_attn * cfg.num_heads * (dk + cfg.head_dim) * seq * tokens
 
 
-def train_lm(torch, smi: str, cfg) -> dict:
+def train_lm(torch, smi: str, cfg, global_batch: int = TRAIN_BATCH) -> dict:
     """c (4e: tinyllama-1.1b at full width and depth; 4f: deepseek-v2-lite
     at full width, MOE_TRAIN_LAYERS layers; 4g: rwkv6-7b at full width,
-    RWKV_TRAIN_LAYERS layers), bf16, AdamW, remat on, through
+    RWKV_TRAIN_LAYERS layers; 4h: seamless-m4t-medium at full width and
+    depth, B SEAMLESS_BATCH), bf16, AdamW, remat on, through
     ``launch/train.train`` (its garbage collections timed, ``gc_during``):
-    TRAIN_STEPS steps of B = TRAIN_BATCH, S = TRAIN_SEQ, losses finite and
+    TRAIN_STEPS steps of B = ``global_batch``, S = TRAIN_SEQ, losses finite and
     falling (an MoE model's aux losses finite and positive); then one more
     step under torch.profiler."""
     from repro_torch.config import RunPlan
     from repro_torch.fl import steps
     from repro_torch.launch import train
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     set_counts(dict.fromkeys(COUNTED, 0))
     t0 = time.perf_counter()
     run, collected = gc_during(lambda: train.train(
-        cfg, RunPlan(), steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        cfg, RunPlan(), steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, global_batch=global_batch,
         device="cuda", log=lambda *a: None))
     wall = time.perf_counter() - t0
     got = counts()
@@ -2289,18 +2412,19 @@ def train_lm(torch, smi: str, cfg) -> dict:
     if got != dict.fromkeys(COUNTED, 0):
         raise SystemExit(f"{cfg.name} training: launches {got}, expected none")
     steady = float(np.mean(run["step_ms"][1:]))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = global_batch * TRAIN_SEQ
     flops = model_flops(cfg, tokens, TRAIN_SEQ)
     out = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype, "remat": cfg.remat,
-           "remat_policy": cfg.remat_policy, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "remat_policy": cfg.remat_policy, "batch": global_batch, "seq": TRAIN_SEQ,
            "lr": cfg.learning_rate, "losses": losses, "auxes": auxes,
-           "params_total_active": list(lm.count_params_analytic(cfg)),
+           "params_total_active": list((encdec if cfg.is_encoder_decoder else lm)
+                                       .count_params_analytic(cfg)),
            "step_ms": run["step_ms"], "ms_per_step": steady, "tokens_per_s": tokens / steady * 1e3,
            "model_flops_per_step": flops, "mfu": flops / (steady * 1e-3) / BF16_FLOPS,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": got,
            "wall_s": wall, "gc_in_train": collected, "card": smi}
     step = steps.build_train_step(cfg, RunPlan())
-    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH),
+    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, global_batch),
                              TRAIN_STEPS, None, "cuda")
     state = run.pop("state")
     out["profile"] = _profile_step(torch, lambda: step(state, batch))
@@ -2366,8 +2490,8 @@ def planted_hop_fault(kind: str, ops):
     raise ValueError(kind)
 
 
-def train_podded(torch, qz, ops, ref, cfg, timed: str) -> dict:
-    """d: the podded ``totoro_tree_q8`` step, PODS pods, B = TRAIN_BATCH
+def train_podded(torch, qz, ops, ref, cfg, timed: str, global_batch: int = TRAIN_BATCH) -> dict:
+    """d: the podded ``totoro_tree_q8`` step, PODS pods, B = ``global_batch``
     and S = TRAIN_SEQ (pod p takes rows p B / PODS ..), POD_STEPS steps
     through ``launch/train.train``: one quantize and one dequantize launch
     per leaf a step; then, on the next batch's gradients
@@ -2388,7 +2512,7 @@ def train_podded(torch, qz, ops, ref, cfg, timed: str) -> dict:
     set_counts(dict.fromkeys(COUNTED, 0))
     t0 = time.perf_counter()
     run, collected = gc_during(lambda: train.train(
-        cfg, plan, steps=POD_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, device="cuda",
+        cfg, plan, steps=POD_STEPS, seq_len=TRAIN_SEQ, global_batch=global_batch, device="cuda",
         num_pods=PODS, log=lambda *a: None))
     wall = time.perf_counter() - t0
     got = counts()
@@ -2400,7 +2524,7 @@ def train_podded(torch, qz, ops, ref, cfg, timed: str) -> dict:
         raise SystemExit(f"podded training: launches {got} (expected {want}) or losses "
                          f"{run['losses']} not finite")
     peak = torch.cuda.max_memory_allocated() / 1e9
-    sc = train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    sc = train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, global_batch)
     batch = train.make_batch(cfg, sc, POD_STEPS, None, "cuda")
     with uncounted():
         grads_pod, _, _ = steps.pod_grads(cfg, plan, state["params"], batch, PODS)
@@ -2451,7 +2575,8 @@ def train_podded(torch, qz, ops, ref, cfg, timed: str) -> dict:
     # itself does not need (f32 in, int8 and scales out; back again)
     hop_bytes_own = {"qsgd_quantize": 5 * elems + 4 * n_rows, "qsgd_dequantize": 5 * elems + 4 * n_rows}
     return {
-        "pods": PODS, "steps": POD_STEPS, "losses": run["losses"], "step_ms": run["step_ms"],
+        "pods": PODS, "batch": global_batch, "steps": POD_STEPS, "losses": run["losses"],
+        "step_ms": run["step_ms"],
         "ms_per_step": float(np.mean(run["step_ms"][1:])), "peak_mem_gb": peak, "wall_s": wall,
         "gc_in_train": collected, "launches": got, "leaves": n_leaves, "agg_vs_mean_in_q_steps": worst,
         "hop_leaves_bit_equal": sum(bit_equal.values()), "hop_rows_per_step": n_rows,
@@ -2464,8 +2589,8 @@ def train_podded(torch, qz, ops, ref, cfg, timed: str) -> dict:
     }
 
 
-def checkpoint_resume(torch) -> dict:
-    """e: tinyllama-1.1b at full width, CKPT_LAYERS layers, bf16: CKPT_STEPS
+def checkpoint_resume(torch, cfg, global_batch: int = TRAIN_BATCH) -> dict:
+    """e (4e: tinyllama-1.1b; 4h: seamless-m4t-medium): ``cfg``, bf16: CKPT_STEPS
     steps, ``ckpt.save`` of CKPT_REPLICAS replicas into a temporary
     directory (removed at the end), replica 0 truncated, ``ckpt.restore``
     onto the card: every leaf bit-equal to the saved state, and the next
@@ -2473,15 +2598,14 @@ def checkpoint_resume(torch) -> dict:
     import shutil
     import tempfile
 
-    from repro_torch import ckpt, configs
+    from repro_torch import ckpt
     from repro_torch.config import RunPlan
     from repro_torch.fl import steps
     from repro_torch.launch import train
     from repro_torch.pytree import leaves
 
-    cfg = configs.get_config("tinyllama-1.1b").replace(num_layers=CKPT_LAYERS)
     run = train.train(cfg, RunPlan(), steps=CKPT_STEPS, seq_len=TRAIN_SEQ,
-                      global_batch=TRAIN_BATCH, device="cuda", log=lambda *a: None)
+                      global_batch=global_batch, device="cuda", log=lambda *a: None)
     state = run["state"]
     d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
@@ -2503,13 +2627,14 @@ def checkpoint_resume(torch) -> dict:
                         b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
         for a, b in zip(leaves(restored), leaves(state)))
     step = steps.build_train_step(cfg, RunPlan())
-    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH),
+    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, global_batch),
                              CKPT_STEPS, None, "cuda")
     _, m_cont = step(state, batch)
     del state
     _, m_rest = step(restored, batch)
     cont, rest = float(m_cont["loss"]), float(m_rest["loss"])
-    out = {"layers": CKPT_LAYERS, "replicas": CKPT_REPLICAS, "bytes_per_replica": nbytes,
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "replicas": CKPT_REPLICAS,
+           "bytes_per_replica": nbytes,
            "save_s": save_s, "restore_s": restore_s, "restored_bit_equal": same,
            "next_loss_uninterrupted": cont, "next_loss_restored": rest,
            "next_loss_bit_equal": bool(torch.equal(m_cont["loss"], m_rest["loss"])),
@@ -2534,7 +2659,7 @@ def drive_training(torch, smi: str, qz, ops, ref) -> dict:
         out["c_tinyllama"] = train_lm(torch, smi, tiny)
         out["d_podded_q8"] = train_podded(torch, qz, ops, ref, tiny, "largest")
         with uncounted():
-            out["e_checkpoint"] = checkpoint_resume(torch)
+            out["e_checkpoint"] = checkpoint_resume(torch, cut_depth(tiny, CKPT_LAYERS))
         torch.cuda.empty_cache()
         return out
     finally:
@@ -3164,6 +3289,291 @@ def drive_recurrent(torch, smi: str, qz, ops, ref) -> dict:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = bf16_rr
 
 
+# ---------------------------------------------------------------------------
+# phase 4h: the encoder-decoder family (seamless-m4t-medium)
+
+
+def redrawn_norms(torch, params, seed: int) -> None:
+    """Every norm leaf of an encoder-decoder's ``params`` (ENCDEC_NORMS,
+    zeros at init) redrawn in place as 0.3 N(0, 1) from ``seed``."""
+    from repro_torch.pytree import key_paths, leaves
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for path, t in zip(key_paths(params), leaves(params)):
+            if path.rsplit("/", 1)[-1] in ENCDEC_NORMS:
+                t.copy_(0.3 * torch.randn(t.shape, generator=gen))
+
+
+def encdec_fault(kind: str):
+    """One of ENCDEC_F32_FAULTS or ENCDEC_DECODE_FAULTS planted in the port
+    at run time, as a ``planted`` context."""
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, encdec
+
+    if kind == "cross keys from the decoder's states":
+        def make(fwd):
+            def cross(p, cfg, x, *, enc_kv=None, enc_out=None):
+                return fwd(p, cfg, x, enc_kv=enc_kv, enc_out=None if enc_out is None else x)
+            return cross
+        return planted(attention, "cross_attn_forward", make)
+    if kind == "causal encoder":  # the decoder's self-attention is causal already
+        return planted(attention, "gqa_forward",
+                       lambda fwd: lambda *a, **kw: fwd(*a, **{**kw, "causal": True}))
+    if kind == "norm_x and norm2 swapped":
+        return planted(encdec, "_dec_layer", lambda layer: lambda lp, *a, **kw: layer(
+            {**lp, "norm_x": lp["norm2"], "norm2": lp["norm_x"]}, *a, **kw))
+    if kind == "pad mask skipped":
+        return planted(encdec, "_mask_pad_vocab", lambda mask: lambda cfg, logits: logits)
+    if kind == "cross cache left zero after prefill":
+        def zeroed(start):
+            def after_prefill(*a):
+                cache, tok = start(*a)
+                for t in cache["cross"].values():
+                    t.zero_()
+                return cache, tok
+            return after_prefill
+        return planted(serve, "start", zeroed)
+    if kind not in ENCDEC_DECODE_FAULTS:
+        raise ValueError(kind)
+
+    def faulty(stack):
+        def decode_stack(params, cfg, tgt, *, mode, cache=None, cache_index=None, **kw):
+            if mode != "decode":
+                return stack(params, cfg, tgt, mode=mode, cache=cache, cache_index=cache_index,
+                             **kw)
+            if kind == "self-cache index off by one":
+                return stack(params, cfg, tgt, mode=mode, cache=cache,
+                             cache_index=int(cache_index) - 1, **kw)
+            wrong = {"self": cache["self"],  # layer i reads layer i - 1's cross k and v
+                     "cross": {k: t.roll(1, 0) for k, t in cache["cross"].items()}}
+            x, _ = stack(params, cfg, tgt, mode=mode, cache=wrong, cache_index=cache_index, **kw)
+            return x, cache
+        return decode_stack
+    return planted(encdec, "decode_stack", faulty)
+
+
+def encdec_f32_card_vs_cpu(torch) -> dict:
+    """a: SEAMLESS_ARCH at full width and SEAMLESS_F32_LAYERS encoder and
+    decoder layers in f32 (remat on, TF32 off), norms redrawn, the same
+    weights and batch on the card and on the CPU: ``encdec.forward``'s
+    logits (the padded columns, -1e9, included) within LM_F32_REL of the
+    largest over the real vocabulary, the loss within TRAIN_LOSS_RTOL, every gradient leaf
+    (``grads_and_metrics``) within TRAIN_GRAD_REL of its largest; then the
+    card again under each of ENCDEC_F32_FAULTS, each of which must fail."""
+    from repro_torch import configs
+    from repro_torch.config import RunPlan
+    from repro_torch.fl import steps
+    from repro_torch.models import encdec
+    from repro_torch.pytree import tree_map
+
+    cfg = cut_depth(configs.get_config(SEAMLESS_ARCH), SEAMLESS_F32_LAYERS).replace(
+        dtype="float32", param_dtype="float32")
+    params = encdec.init_params(torch.Generator().manual_seed(40), cfg)
+    redrawn_norms(torch, params, SEAMLESS_NORM_SEED)
+    gen, B = torch.Generator().manual_seed(42), TRAIN_F32_BATCH
+    batch = {"embeds": torch.randn((B, SEAMLESS_SRC, cfg.d_model), generator=gen) * 0.3,
+             "tokens": torch.randint(0, cfg.vocab_size, (B, SEAMLESS_TGT), generator=gen,
+                                     dtype=torch.int32),
+             "labels": torch.randint(0, cfg.vocab_size, (B, SEAMLESS_TGT), generator=gen,
+                                     dtype=torch.int32)}
+
+    def run(dev, fault=None):
+        p = tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with encdec_fault(fault) if fault else nullcontext():
+            with torch.no_grad():
+                logits = encdec.forward(p, cfg, b)
+            g, m = steps.grads_and_metrics(cfg, RunPlan(), p, b)
+        out = {"logits": logits.cpu(), "loss": float(m["loss"]),
+               "grads": tree_map(lambda t: t.cpu(), g)}
+        del p, g, logits
+        torch.cuda.empty_cache()
+        return out
+
+    cpu = run("cpu")
+
+    scale = float(cpu["logits"][..., :cfg.vocab_size].abs().max())  # the padded columns read -1e9
+
+    def read(r):
+        grads = _leaf_rels(torch, r["grads"], cpu["grads"])
+        return {"logits_rel": float((r["logits"] - cpu["logits"]).abs().max()) / scale,
+                "loss_rel": abs(r["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+                "grad_rel_max": max(grads.values()), "grad_rel": grads}
+
+    bounds = {"logits_rel": LM_F32_REL, "loss_rel": TRAIN_LOSS_RTOL, "grad_rel_max": TRAIN_GRAD_REL}
+    card = run("cuda")
+    out = dict(read(card), arch=SEAMLESS_ARCH, layers=cfg.num_layers, enc_layers=cfg.enc_layers,
+               src=SEAMLESS_SRC, tgt=SEAMLESS_TGT, loss_cpu=cpu["loss"], loss_card=card["loss"],
+               pad_columns_masked=bool((card["logits"][..., cfg.vocab_size:] == -1e9).all()),
+               planted_faults={})
+    del card
+    for kind in ENCDEC_F32_FAULTS:
+        bad = read(run("cuda", kind))
+        out["planted_faults"][kind] = {k: bad[k] for k in bounds}
+    passed = _gate(out, bounds) and out["pad_columns_masked"]
+    caught = [k for k, r in out["planted_faults"].items() if not _gate(r, bounds)]
+    if not passed or len(caught) != len(ENCDEC_F32_FAULTS):
+        raise SystemExit(f"{SEAMLESS_ARCH} f32 card vs CPU: the gate fails, or passes a planted "
+                         f"fault: {out}")
+    return out
+
+
+def serve_encdec(torch, smi: str) -> dict:
+    """b: SEAMLESS_ARCH at full width and depth through ``launch/serve``'s
+    functions, weights from one seeded ``encdec.init_params`` (its init time
+    recorded), LM_BATCH rows of LM_PROMPT source frames and prompt tokens.
+    Decode against the train forward (``decode_vs_forward``, as a share of
+    the largest logit) in f32 (TF32 off) within SEAMLESS_F32_DECODE_REL,
+    then on the same weights in bf16 within LM_BF16_REL, each of
+    ENCDEC_DECODE_FAULTS above the bound in both dtypes; prefill ms, decode ms/token beside the
+    weight-read bound, a decode step's idle share and device ops."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec
+    from repro_torch.pytree import leaves, tree_map
+
+    cfg = configs.get_config(SEAMLESS_ARCH)
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    params = encdec.init_params(torch.Generator().manual_seed(43), cfg32, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = serve.make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator().manual_seed(44), "cuda")
+    def readings(cfg, bound):
+        res, d, scale = decode_vs_forward(torch, params, cfg, batch)
+        out = {"rel": float(d.max()) / scale, "bound": bound, "max_abs_logit": scale,
+               "rel_per_step": [round(float(v) / scale, 7) for v in d.amax(0)],
+               "tokens_row0": res["tokens"][0].tolist(), "faults": {}}
+        for kind in ENCDEC_DECODE_FAULTS:
+            with encdec_fault(kind):
+                _, fd, fs = decode_vs_forward(torch, params, cfg, batch)
+            out["faults"][kind] = float(fd.max()) / fs
+        return out
+
+    f32 = readings(cfg32, SEAMLESS_F32_DECODE_REL)
+    params = tree_map(lambda t: t.to(cfg.pdtype), params)
+    torch.cuda.empty_cache()
+    bf16 = readings(cfg, LM_BF16_REL)
+    first = serve.generate(params, cfg, batch, LM_GEN)
+    timed = serve.generate(params, cfg, batch, LM_GEN)  # warm: the times reported
+    run = {"params": params, "timed": timed, "first_run": first, "init_s": init_s,
+           "weight_bytes": sum(t.numel() * t.element_size() for t in leaves(params))}
+    out = serve_times(cfg, run, smi)
+    out.update(enc_layers=cfg.enc_layers, decode_vs_forward_f32=f32, decode_vs_forward_bf16=bf16,
+               params_total=encdec.count_params_analytic(cfg)[0])
+    with uncounted():
+        out["decode_profile"] = profile_decode(torch, cfg, params, batch)
+    if not all(r["rel"] <= r["bound"] and all(f > r["bound"] for f in r["faults"].values())
+               for r in (f32, bf16)):
+        raise SystemExit(f"{SEAMLESS_ARCH}: decode against the train forward fails its bounds, or "
+                         f"LM_BF16_REL passes a planted fault: f32 {json.dumps(f32)}, bf16 "
+                         f"{json.dumps(bf16)}")
+    return out
+
+
+def drive_encdec(torch, smi: str, qz, ops, ref) -> dict:
+    """Phase 4h, with bf16 GEMMs accumulating in f32 (restored after); a to
+    e of the module docstring, every launch counter set to 0 just before
+    each and read just after."""
+    from repro_torch import configs
+
+    bf16_rr = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        out = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+        set_counts(dict.fromkeys(COUNTED, 0))
+        out["a_f32"] = encdec_f32_card_vs_cpu(torch)
+        out["a_launches"] = counts()
+        torch.cuda.empty_cache()
+        set_counts(dict.fromkeys(COUNTED, 0))
+        torch.cuda.reset_peak_memory_stats()
+        out["b_serve"] = serve_encdec(torch, smi)
+        out["b_launches"] = counts()
+        out["b_serve"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        cfg = configs.get_config(SEAMLESS_ARCH)
+        out["c_train"] = train_lm(torch, smi, cfg, SEAMLESS_BATCH)
+        torch.cuda.empty_cache()
+        with uncounted():
+            out["c_remat"] = remat_agreement(torch, SEAMLESS_ARCH, SEAMLESS_REMAT_LAYERS, 45,
+                                             SEAMLESS_BATCH)
+        torch.cuda.empty_cache()
+        out["d_podded_q8"] = train_podded(torch, qz, ops, ref, cut_depth(cfg, SEAMLESS_POD_LAYERS),
+                                          "largest", SEAMLESS_BATCH)
+        torch.cuda.empty_cache()
+        with uncounted():
+            out["e_checkpoint"] = checkpoint_resume(torch, cut_depth(cfg, CKPT_LAYERS),
+                                                    SEAMLESS_BATCH)
+        torch.cuda.empty_cache()
+        for tag in ("a_launches", "b_launches"):
+            if out[tag] != dict.fromkeys(COUNTED, 0):
+                raise SystemExit(f"encdec {tag[0]}: launches {out[tag]}, expected none")
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = bf16_rr
+
+
+def log_encdec(enc: dict, smi: str) -> None:
+    """Phase 4h's lines."""
+    a = enc["a_f32"]
+    log(f"[4h encdec a] {SEAMLESS_ARCH} full width, {a['enc_layers']} + {a['layers']} layers, f32, "
+        f"B={TRAIN_F32_BATCH} S_src={a['src']} S_tgt={a['tgt']}, remat on, TF32 {enc['allow_tf32']}: "
+        f"logits within {a['logits_rel']:.3g} of the largest (bound {LM_F32_REL}; padded columns "
+        f"-1e9: {a['pad_columns_masked']}); loss card {a['loss_card']:.7f} CPU {a['loss_cpu']:.7f}, "
+        f"rel {a['loss_rel']:.3g} (rtol {TRAIN_LOSS_RTOL}); gradients within "
+        f"{a['grad_rel_max']:.3g} of each leaf's largest (bound {TRAIN_GRAD_REL}); planted faults "
+        f"{json.dumps(a['planted_faults'])}; card: {smi}")
+    log(f"[4h encdec a] {json.dumps(a)}")
+    b = enc["b_serve"]
+    log(f"[4h encdec b] {SEAMLESS_ARCH} {b['enc_layers']} + {b['layers']} layers {b['dtype']} "
+        f"({b['params_total']:,} parameters, {b['weight_bytes'] / 1e9:.3f} GB) B={LM_BATCH} "
+        f"source {LM_PROMPT} frames, prompt {LM_PROMPT} + {LM_GEN} generated: prefill "
+        f"{b['prefill_ms']:.3f} ms (first call {b['first_run_prefill_ms']:.3f}), decode "
+        f"{b['decode_ms_per_token']:.3f} ms/token (mean of decodes 2-{LM_GEN - 1}, host clock "
+        f"after synchronize); bound {b['bound_ms_decode_step']:.4f} ms for the "
+        f"{b['decode_read_bytes'] / 1e9:.3f} GB a decode step reads (the decoder, the head, the "
+        f"self and cross caches) at {HBM_BYTES_PER_S / 1e12} TB/s; decode vs train forward, f32 "
+        f"{json.dumps(b['decode_vs_forward_f32'])}, bf16 {json.dumps(b['decode_vs_forward_bf16'])}; "
+        f"idle {b['decode_profile']['device_idle_share']:.3f}, "
+        f"{b['decode_profile']['device_ops_per_step']:.0f} device ops a step; peak "
+        f"{b['peak_mem_gb']:.2f} GB; init {b['init_s']:.1f} s; card: {smi}")
+    log(f"[4h encdec b] {json.dumps({k: v for k, v in b.items() if k != 'card'})}")
+    c = enc["c_train"]
+    log(f"[4h encdec c] {SEAMLESS_ARCH} {c['layers']} + {c['layers']} layers {c['dtype']} AdamW lr "
+        f"{c['lr']} remat {c['remat']}, B={c['batch']} S_src=S_tgt={c['seq']}: losses "
+        f"{[round(x, 4) for x in c['losses']]}; {c['ms_per_step']:.1f} ms/step (steps 2-"
+        f"{TRAIN_STEPS}), {c['tokens_per_s']:.0f} target tokens/s, MFU {c['mfu']:.4f} "
+        f"({c['model_flops_per_step']:.4g} model FLOPs a step over {BF16_FLOPS / 1e12:.0f} TFLOP/s "
+        f"bf16); peak memory {c['peak_mem_gb']:.2f} GB; idle "
+        f"{c['profile']['device_idle_share']:.3f}; card: {smi}")
+    log(f"[4h encdec c] one step under torch.profiler: {json.dumps(c['profile'])}")
+    log(f"[4h encdec c] {json.dumps({k: v for k, v in c.items() if k not in ('profile', 'card')})}")
+    log(f"[4h encdec c] remat on vs off, {SEAMLESS_REMAT_LAYERS} + {SEAMLESS_REMAT_LAYERS} layers: "
+        f"{json.dumps(enc['c_remat'])}")
+    d = enc["d_podded_q8"]
+    log(f"[4h encdec d] podded totoro_tree_q8, {SEAMLESS_ARCH} {d['layers']} + {d['layers']} "
+        f"layers, B={d['batch']}, {d['pods']} pods, {d['steps']} steps: losses "
+        f"{[round(x, 4) for x in d['losses']]}; {d['ms_per_step']:.1f} ms/step (steps 2-"
+        f"{d['steps']}); launches {json.dumps(d['launches'])} ({d['leaves']} leaves a step); "
+        f"aggregate within {d['agg_vs_mean_in_q_steps']:.4f} quantization steps of the pod mean; "
+        f"kernels bit-equal to ref.quantize_ref / dequantize_ref on {d['hop_leaves_bit_equal']} of "
+        f"{d['leaves']} leaves ({d['hop_rows_per_step']:,} rows), the gate failing on each planted "
+        f"fault ({d['hop_fault_leaf']}: {json.dumps(d['hop_faults_caught'])}); "
+        f"hop kernels {json.dumps(d['hop_kernels_ms'])} ms a step against a byte bound of "
+        f"{d['hop_bound_ms']:.3f} ms ({d['hop_bound_ms_no_uniforms']:.3f} without the uniforms); "
+        f"peak memory {d['peak_mem_gb']:.2f} GB; card: {smi}")
+    log(f"[4h encdec d] {json.dumps({k: v for k, v in d.items() if k != 'profile'})}")
+    log(f"[4h encdec d] one step under torch.profiler: {json.dumps(d['profile'])}")
+    e = enc["e_checkpoint"]
+    log(f"[4h encdec e] checkpoint at step {CKPT_STEPS}, {e['layers']} + {e['layers']} layers "
+        f"bf16: {e['bytes_per_replica'] / 1e9:.3f} GB a replica, save {e['save_s']:.2f} s "
+        f"({e['replicas']} replicas), restore after replica 0 was truncated {e['restore_s']:.2f} s; "
+        f"restored bit-equal: {e['restored_bit_equal']}; next loss {e['next_loss_restored']!r} "
+        f"restored vs {e['next_loss_uninterrupted']!r} uninterrupted (bit-equal: "
+        f"{e['next_loss_bit_equal']})")
+
+
 def main() -> int:
     import torch
 
@@ -3634,6 +4044,11 @@ def main() -> int:
     log(f"[4g recurrent e] {JAMBA_ARCH} Mamba sublayer at full width, fwd + bwd (eager, CUDA "
         f"events): {json.dumps(rec['e_mamba'])}; card: {smi}")
 
+    # -- 4h. the encoder-decoder family: seamless-m4t-medium ------------------------
+    with frozen_heap():
+        enc = drive_encdec(torch, smi, qz, ops, ref)
+    log_encdec(enc, smi)
+
     # -- 5. times -------------------------------------------------------------
     f32_levels = sorted({sh[:3] for sh in path_shapes if sh[3] == f32})  # sync, async, placement
     rows = [time_tree_aggregate(torch, ta, ref, g, c, l, f32) for g, c, l in f32_levels]
@@ -3719,8 +4134,9 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             larger={R: {k: comp_rows[R][name][k] for k in brief} for R in (4096, 65536)},
         )
-    hops = {"4e d": tr["d_podded_q8"], "4f d": moe["d_podded_q8"], "4g d": rec["d_podded_q8"]}
-    for entry in KERNELS[2:4]:  # phases 4e d, 4f d and 4g d: the podded steps' cross-pod hop
+    hops = {"4e d": tr["d_podded_q8"], "4f d": moe["d_podded_q8"], "4g d": rec["d_podded_q8"],
+            "4h d": enc["d_podded_q8"]}
+    for entry in KERNELS[2:4]:  # phases 4e d to 4h d: the podded steps' cross-pod hop
         name = entry["name"]
         entry["launches_from"] = {"4b compressed async runs": entry["launches"],
                                   **{f"{tag} podded q8 train steps ({h['arch']}, {h['layers']} "

@@ -18,6 +18,6 @@ CONFIG = ModelConfig(
     embed_inputs=True,
     # 256206 % 16 != 0: pad the embedding/head to 256256 so the vocab dim
     # shards (otherwise a replicated 67 GB logits+one-hot chain appears);
-    # padded logit columns are masked to -inf
+    # padded logit columns are masked to -1e9
     vocab_pad_multiple=256,
 )

@@ -29,10 +29,11 @@ eager division.  The reference passes no uniforms, so its rounding
 uniforms are a constant 0.5: the podded step fills one buffer of 0.5s,
 sized to its largest leaf, once, and passes row prefixes of it.
 
+The loss and the serving steps take ``models/encdec.py`` for an
+encoder-decoder config and ``models/lm.py`` otherwise, as the reference's.
 The serving steps (``build_prefill_step``, ``build_decode_step``) return
 the next greedy token per row, ``argmax`` of the last position's logits
-(the first index on ties) as int32.  Encoder-decoder configs raise until
-``models/encdec.py`` is ported.
+(the first index on ties) as int32.
 """
 from __future__ import annotations
 
@@ -41,17 +42,16 @@ import torch.nn.functional as F
 
 from .. import optim as optim_mod
 from ..kernels import ops
-from ..models import lm
+from ..models import encdec, lm
 from ..pytree import leaves, tree_map, unflatten_like
 
 ROW = 256  # values per quantized row: one f32 scale each
 
 
-def _decoder_only(cfg) -> None:
+def _loss(cfg, params, batch):
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder configs need models/encdec.py (ROADMAP §1 item 4)"
-        )
+        return encdec.forward_train(params, cfg, batch)
+    return lm.train_loss(params, cfg, batch)
 
 
 # ---------------------------------------------------------------------------
@@ -71,11 +71,11 @@ def _split_microbatches(batch: dict, accum: int) -> list[dict]:
 
 
 def _value_and_grad(cfg, params, batch):
-    """(cross-entropy, aux, gradients of ``train_loss``'s total in the
-    parameters' dtypes); the inputs are left as they were."""
-    _decoder_only(cfg)
+    """(cross-entropy, aux, gradients of the loss's total in the
+    parameters' dtypes: ``lm.train_loss``'s, or ``encdec.forward_train``'s);
+    the inputs are left as they were."""
     ps = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    total, (ce, aux) = lm.train_loss(ps, cfg, batch)
+    total, (ce, aux) = _loss(cfg, ps, batch)
     g = torch.autograd.grad(total, leaves(ps), allow_unused=True, materialize_grads=True)
     return ce.detach(), aux.detach(), unflatten_like(params, list(g))
 
@@ -176,7 +176,6 @@ def build_train_step(cfg, plan, *, num_pods: int = 1):
     returns that state (the reference's launcher donates the state to the
     step to the same end): two copies of a podded state need not fit.
     """
-    _decoder_only(cfg)
     opt = optim_mod.make_optimizer(cfg)
     podded = plan.aggregation == "totoro_tree_q8" and num_pods > 1
 
@@ -226,10 +225,11 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 
 
 def build_prefill_step(cfg):
-    _decoder_only(cfg)
-
     @torch.no_grad()
     def prefill_step(params, batch):
+        if cfg.is_encoder_decoder:
+            cache, logits = encdec.prefill(params, cfg, batch)
+            return cache, _greedy(logits)
         logits, cache, _ = lm.forward(
             params, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"), mode="prefill",
         )
@@ -240,13 +240,14 @@ def build_prefill_step(cfg):
 
 def build_decode_step(cfg):
     """The step writes the token's key and value into ``cache`` in place."""
-    _decoder_only(cfg)
-
     @torch.no_grad()
     def decode_step(params, cache, token, cache_index):
-        logits, new_cache, _ = lm.forward(
-            params, cfg, tokens=token, mode="decode", cache=cache, cache_index=cache_index,
-        )
+        if cfg.is_encoder_decoder:
+            new_cache, logits = encdec.decode_step(params, cfg, cache, token, cache_index)
+        else:
+            logits, new_cache, _ = lm.forward(
+                params, cfg, tokens=token, mode="decode", cache=cache, cache_index=cache_index,
+            )
         return new_cache, _greedy(logits)
 
     return decode_step

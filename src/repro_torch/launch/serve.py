@@ -7,10 +7,13 @@ when asked for):
   python -m repro_torch.launch.serve --arch tinyllama-1.1b --reduced \
       --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
-Parameters come from ``lm.init_params`` with a seeded CPU generator (seed
-0) and the prompt from another (seed 1).  The prefill's cache, of the
-prompt's length, is written into a zeroed cache of ``prompt + gen``
-positions, which each decode step then fills in place.  Times are taken
+Parameters come from ``lm.init_params`` (``encdec.init_params`` for an
+encoder-decoder config) with a seeded CPU generator (seed 0) and the prompt
+from another (seed 1); an encoder-decoder prompt is source frame
+embeddings and target tokens of the prompt's length.  The prefill's cache,
+of the prompt's length, is written into a zeroed cache of ``prompt + gen``
+positions (and, enc-dec, the source's cross keys and values), which each
+decode step then fills in place.  Times are taken
 on the host clock after ``torch.cuda.synchronize()``.
 """
 from __future__ import annotations
@@ -23,17 +26,38 @@ import torch
 from ..configs import get_config, get_reduced
 from ..fl import steps as steps_mod
 from ..fl.rounds import resolve_device
-from ..models import lm
-from ..pytree import leaves, tree_map
+from ..models import encdec, lm
+from ..pytree import tree_map
 
 
 def make_batch(cfg, batch: int, prompt_len: int, gen: torch.Generator, device) -> dict:
-    """Random prompt tokens, or prompt embeddings for an embeds-input config."""
+    """Random prompt tokens, or prompt embeddings for an embeds-input config;
+    both for an encoder-decoder config (source frames, target tokens)."""
+    out = {}
     if cfg.embed_inputs:
         e = torch.randn((batch, prompt_len, cfg.d_model), generator=gen) * 0.3
-        return {"embeds": e.to(device)}
-    t = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, dtype=torch.int32)
-    return {"tokens": t.to(device)}
+        out["embeds"] = e.to(device)
+    if cfg.is_encoder_decoder or not cfg.embed_inputs:
+        t = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
+                          dtype=torch.int32)
+        out["tokens"] = t.to(device)
+    return out
+
+
+def _prompt(batch: dict) -> torch.Tensor:
+    """The input whose (B, P) the decoder's prompt has: the tokens, if any."""
+    return batch["tokens"] if "tokens" in batch else batch["embeds"]
+
+
+def full_cache(cfg, batch: dict, gen_len: int):
+    """A zeroed cache for ``batch``'s prompt and ``gen_len`` more positions:
+    ``lm.init_cache``, or ``encdec.init_cache`` with the source's length."""
+    first = _prompt(batch)
+    B, P = first.shape[:2]
+    if cfg.is_encoder_decoder:
+        return encdec.init_cache(cfg, B, P + gen_len, batch["embeds"].shape[1],
+                                 device=first.device)
+    return lm.init_cache(cfg, B, P + gen_len, device=first.device)
 
 
 def merge_cache(full, pre):
@@ -55,7 +79,7 @@ def _sync(device: torch.device) -> None:
 
 def start(params, cfg, batch: dict, full):
     """The prompt's prefill, its cache written into ``full`` (a zeroed cache
-    of ``lm.init_cache``).  Returns the cache and the first greedy token."""
+    of ``full_cache``).  Returns the cache and the first greedy token."""
     pcache, tok = steps_mod.build_prefill_step(cfg)(params, batch)
     return merge_cache(full, pcache), tok
 
@@ -81,9 +105,9 @@ def generate(params, cfg, batch: dict, gen_len: int) -> dict:
     Returns the tokens (B, gen_len) int32, the prefill time and each
     decode step's time (ms, host clock after a synchronize).
     """
-    first = leaves(batch)[0]
-    device, (B, P) = first.device, tuple(first.shape[:2])
-    full = lm.init_cache(cfg, B, P + gen_len, device=device)
+    full = full_cache(cfg, batch, gen_len)
+    prompt = _prompt(batch)
+    device, P = prompt.device, prompt.shape[1]
     _sync(device)
     t0 = time.perf_counter()
     cache, tok = start(params, cfg, batch, full)
@@ -106,7 +130,8 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    params = lm.init_params(torch.Generator().manual_seed(0), cfg, device=device)
+    model = encdec if cfg.is_encoder_decoder else lm
+    params = model.init_params(torch.Generator().manual_seed(0), cfg, device=device)
     batch = make_batch(cfg, args.batch, args.prompt_len, torch.Generator().manual_seed(1), device)
     res = generate(params, cfg, batch, args.gen)
     steady = res["decode_ms"][1:] or res["decode_ms"]

@@ -14,8 +14,11 @@ client (batch row) with probability ``--straggler-rate`` by masking its
 labels, so dropped examples weigh nothing in the loss.
 
 ``train`` is the loop, for callers other than the command line:
-parameters from ``lm.init_params`` with a seeded CPU generator (seed 0),
-batches from ``data.learnable_lm_batch`` (shard 0, one per step), the
+parameters from ``lm.init_params`` (``encdec.init_params`` for an
+encoder-decoder config) with a seeded CPU generator (seed 0), batches from
+``data.learnable_lm_batch`` (shard 0, one per step; an embeds-input config
+takes ``data.embeds_batch`` frames in place of the tokens, and an
+encoder-decoder config both: source frames, target tokens), the
 straggler draws from ``numpy.random.default_rng(0)``, as the reference's
 loop.  It also takes a ``RunPlan`` and ``num_pods``, so the podded
 ``totoro_tree_q8`` step runs through it too (the reference's command line
@@ -36,13 +39,14 @@ from ..configs import get_config, get_reduced
 from ..data import StreamConfig, embeds_batch, learnable_lm_batch
 from ..fl import steps as steps_mod
 from ..fl.rounds import resolve_device
-from ..models import lm
+from ..models import encdec, lm
 
 
 def make_config(arch: str, *, reduced: bool = False, width: int = 0, layers: int = 0,
                 lr: float | None = None):
     """The reference's config overrides: ``--width`` sets d_model with
-    ``num_heads = max(4, width // 32)`` heads of 32; ``--layers`` the depth."""
+    ``num_heads = max(4, width // 32)`` heads of 32; ``--layers`` the depth
+    (an encoder-decoder config's decoder depth)."""
     cfg = get_reduced(arch) if reduced else get_config(arch)
     if width:
         cfg = cfg.replace(d_model=width, num_heads=max(4, width // 32), head_dim=32)
@@ -59,8 +63,10 @@ def make_batch(cfg, sc: StreamConfig, step: int, drop: np.ndarray | None, device
     batch = learnable_lm_batch(sc, shard=0, step=step)
     if drop is not None:
         batch["labels"] = np.where(drop[:, None], -1, batch["labels"])
-    if cfg.embed_inputs:
+    if cfg.embed_inputs or cfg.is_encoder_decoder:
         b = {"embeds": embeds_batch(sc, cfg.d_model, 0, step), "labels": batch["labels"]}
+        if cfg.is_encoder_decoder:
+            b["tokens"] = batch["tokens"]
     else:
         b = batch
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in b.items()}
@@ -81,7 +87,8 @@ def train(cfg, plan: RunPlan, *, steps: int, seq_len: int = 128, global_batch: i
     loss; 0 for a dense model) and each step's time (ms, host clock after
     a synchronize)."""
     device = resolve_device(device)
-    params = lm.init_params(torch.Generator().manual_seed(0), cfg, device=device)
+    model = encdec if cfg.is_encoder_decoder else lm
+    params = model.init_params(torch.Generator().manual_seed(0), cfg, device=device)
     podded = plan.aggregation == "totoro_tree_q8" and num_pods > 1
     state = steps_mod.init_train_state(cfg, params, num_pods=num_pods, podded=podded)
     del params

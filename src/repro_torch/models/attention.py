@@ -20,6 +20,13 @@ Answers to the GQA and MLA parts of ``repro/models/attention.py``:
   absorbed form over a cache of the latent (B, S, kv_lora_rank) and the
   shared rope key (B, S, qk_rope_dim), its score and value products
   accumulating in f32 where the reference asks for an f32 result.
+- ``cross_attn_forward`` (the enc-dec decoder's cross-attention) takes
+  no rope and no window: queries from the decoder's states, keys and
+  values from the encoder's output (or, in decode, from the cache of
+  them), non-causal through ``chunked_attention`` with the kv heads
+  handed in as they are (G = H / KV inside the core), and a one-token
+  target through ``decode_attention`` under an all-ones source mask, in
+  every mode, as the reference's.
 
 Numerics kept from the reference: scores and the PV product take bf16 (or
 f32) inputs and accumulate in f32 (XLA's ``preferred_element_type``), so
@@ -36,11 +43,11 @@ writes the cache in place and returns it (the reference's server donates
 its cache buffer to the same end).
 
 The backward, as the reference's, keeps the probabilities in f32 (the
-forward rounds them to the value dtype before its PV product), and in
-train mode sees k and v already repeated to H heads (G = 1 inside the
-core), so ``repeat_interleave``'s backward sums the G copies of dk and dv.
-
-Cross-attention is still to port (ROADMAP §1 item 4).
+forward rounds them to the value dtype before its PV product).  From
+``gqa_forward`` it sees k and v already repeated to H heads (G = 1 inside
+the core), so ``repeat_interleave``'s backward sums the G copies of dk
+and dv; from ``cross_attn_forward`` it sees the KV heads themselves, and
+its own einsums sum the G query heads of each kv head into dk and dv.
 """
 from __future__ import annotations
 
@@ -432,3 +439,41 @@ def mla_cache_shape(cfg, batch: int, max_len: int) -> dict:
 def mla_init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     return {k: torch.zeros(t.shape, dtype=t.dtype, device=device)
             for k, t in mla_cache_shape(cfg, batch, max_len).items()}
+
+
+# ---------------------------------------------------------------------------
+# cross attention (enc-dec)
+
+
+def init_cross_attn(gen: torch.Generator, cfg) -> nn.Params:
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ks = nn.split_keys(gen, 4)
+    dt = cfg.pdtype
+    return {
+        "wq": dense_init(ks[0], d, (H * hd,), dt).reshape(d, H, hd),
+        "wk": dense_init(ks[1], d, (KV * hd,), dt).reshape(d, KV, hd),
+        "wv": dense_init(ks[2], d, (KV * hd,), dt).reshape(d, KV, hd),
+        "wo": dense_init(ks[3], H * hd, (d,), dt).reshape(H, hd, d),
+    }
+
+
+def cross_attn_forward(p, cfg, x, *, enc_kv=None, enc_out=None):
+    """x: (B, S_tgt, d) decoder states; ``enc_kv``: the cached {"k", "v"}
+    (B, S_src, KV, hd), else both projected from ``enc_out`` (B, S_src, d).
+
+    Returns (out, {"k", "v"}) in every mode.
+    """
+    q = _project(x, p["wq"])
+    if enc_kv is None:
+        k = _project(enc_out, p["wk"])
+        v = _project(enc_out, p["wv"])
+    else:
+        k, v = enc_kv["k"], enc_kv["v"]
+    if x.shape[1] == 1:
+        mask = torch.ones((x.shape[0], k.shape[1]), dtype=torch.bool, device=x.device)
+        out = decode_attention(q, k, v, mask)
+    else:
+        out = chunked_attention(q, k, v, causal=False, chunk_q=cfg.attn_chunk,
+                                chunk_kv=cfg.attn_chunk)
+    out = out.flatten(-2) @ p["wo"].to(x.dtype).flatten(0, 1)
+    return out, {"k": k, "v": v}

@@ -853,6 +853,64 @@ def test_reduced_recurrent_train_step_on_card_matches_cpu(cuda, arch):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
+def test_reduced_encdec_on_card_matches_cpu(cuda):
+    """seamless-m4t-medium reduced (2 + 2 layers, G = 2 in the
+    cross-attention's core), f32 with TF32 off, 128 source frames and 64
+    target tokens: train-forward logits within 1e-5 of the CPU run's, the
+    prefill's logits and every cache leaf (self and cross k and v) within
+    1e-5, and greedy serve tokens identical."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec
+    from repro_torch.pytree import leaves, tree_map
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = configs.get_reduced("seamless-m4t-medium")
+    params = encdec.init_params(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"embeds": torch.randn((4, 128, cfg.d_model), generator=gen) * 0.3,
+             "tokens": torch.randint(0, cfg.vocab_size, (4, 64), generator=gen, dtype=torch.int32)}
+    on = tree_map(lambda t: t.to(cuda), params)
+    on_batch = {k: v.to(cuda) for k, v in batch.items()}
+    torch.testing.assert_close(encdec.forward(on, cfg, on_batch).cpu(),
+                               encdec.forward(params, cfg, batch), rtol=1e-5, atol=1e-5)
+    (cc, lc), (cg, lg) = (encdec.prefill(p, cfg, b) for p, b in ((params, batch), (on, on_batch)))
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=1e-5)
+    for a, b in zip(leaves(cg), leaves(cc)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+    res_cpu = serve.generate(params, cfg, batch, 8)
+    res_card = serve.generate(on, cfg, on_batch, 8)
+    assert torch.equal(res_card["tokens"].cpu(), res_cpu["tokens"])
+
+
+def test_reduced_encdec_train_step_on_card_matches_cpu(cuda):
+    """One AdamW step of the reduced seamless-m4t-medium (f32, TF32 off,
+    S_src = S_tgt = 64, remat on: every encoder and decoder layer
+    recomputed): loss within rtol 1e-6, every gradient within 1e-5 of its
+    leaf's largest magnitude, the step's loss within rtol 1e-6."""
+    from repro_torch import configs
+    from repro_torch.config import RunPlan
+    from repro_torch.fl import steps
+    from repro_torch.launch import train
+    from repro_torch.models import encdec
+    from repro_torch.pytree import leaves, tree_map
+
+    cfg = configs.get_reduced("seamless-m4t-medium").replace(remat=True)
+    params = encdec.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, 64, 4), 0, None, "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        g, m = steps.grads_and_metrics(cfg, RunPlan(), p, b)
+        _, m1 = steps.build_train_step(cfg, RunPlan())(steps.init_train_state(cfg, p), b)
+        out[str(dev)] = (float(m["loss"]), [t.cpu() for t in leaves(g)], float(m1["loss"]))
+    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= 1e-6 * abs(lc) and abs(sg - sc) <= 1e-6 * abs(sc)
+    for a, b in zip(gg, gc):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
 def test_q8_hop_lattice_on_card_bit_equal_to_cpu(cuda):
     """The podded step's hop on the card: one quantize and one dequantize
     launch per leaf; the lattice, the scales and the pod mean bit-equal to

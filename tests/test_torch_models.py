@@ -34,6 +34,7 @@ from repro.fl import steps as jsteps
 from repro.models import attention as ja
 from repro.models import lm as jlm
 from repro.models import nn as jnn
+from torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import configs as tconfigs
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.fl import steps as tsteps
@@ -463,13 +464,6 @@ def test_bf16_params_round_trip_bit_for_bit():
         assert t.dtype == torch.bfloat16 and b.dtype == a.dtype
         np.testing.assert_array_equal(a.view(np.uint16), b.view(np.uint16))
         np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
-
-
-def test_encdec_serving_raises():
-    cfg = tconfigs.get_reduced("seamless-m4t-medium")
-    for build in (tsteps.build_prefill_step, tsteps.build_decode_step):
-        with pytest.raises(NotImplementedError, match="encdec"):
-            build(cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from repro.fl import steps as jsteps
 from repro.models import attention as ja
 from repro.models import lm as jlm
 from repro.models import moe as jmoe
+from torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import ckpt as tckpt
 from repro_torch import configs as tconfigs
 from repro_torch.convert import params_from_numpy

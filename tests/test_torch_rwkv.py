@@ -27,6 +27,7 @@ import torch
 from repro import configs as jconfigs
 from repro.models import nn as jnn
 from repro.models import rwkv as jr
+from torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import configs as tconfigs
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import nn as tnn

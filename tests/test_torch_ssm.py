@@ -22,6 +22,7 @@ import torch
 
 from repro import configs as jconfigs
 from repro.models import ssm as js
+from torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import configs as tconfigs
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import nn as tnn

@@ -40,6 +40,7 @@ from repro.fl import steps as jsteps
 from repro.kernels import ref as jref
 from repro.models import attention as ja
 from repro.models import lm as jlm
+from torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import ckpt as tckpt
 from repro_torch import configs as tconfigs
 from repro_torch.config import RunPlan
@@ -54,12 +55,7 @@ from repro_torch.pytree import leaves, tree_map
 ATTN = dict(rtol=1e-5, atol=1e-5)
 GRAD_REL = 1e-5
 TRAJ_RTOL = 1e-5
-STEP_RTOL = 1e-5
-STEP_REL = 1e-4
-STEP_OFF_SHARE = 1e-4
-FREE_RTOL = 1e-3
 MOE = ["deepseek-v2-lite-16b", "moonshot-v1-16b-a3b"]
-RECURRENT = ["rwkv6-7b", "jamba-1.5-large-398b"]  # RWKV-6; Mamba + attention + MoE
 
 
 def _cfgs(arch, **kw):
@@ -151,7 +147,7 @@ def test_flash_backward_bf16_keeps_dtypes_and_tracks_f32():
 # gradients
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-8b"] + MOE + RECURRENT)
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen3-8b"] + MOE)
 def test_train_loss_gradients_match_jax(arch):
     """S = 128 at the reduced attn_chunk 64: two query and two key chunks."""
     jcfg, tcfg = _cfgs(arch)
@@ -217,28 +213,6 @@ def test_remat_changes_no_gradient(policy):
     on_cfg = tcfg.replace(remat=True, remat_policy=policy)
     on, m_on = tsteps.grads_and_metrics(on_cfg, RunPlan(), tp, batch)
     assert torch.equal(m_on["loss"], m_off["loss"])
-    for name in on:
-        if name == "embed":  # the CPU's embedding backward adds repeated rows in any order
-            torch.testing.assert_close(on[name], off[name], rtol=0, atol=1e-6 * float(
-                off[name].abs().max()))
-            continue
-        for a, b in zip(leaves(on[name]), leaves(off[name])):
-            assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("policy", ["nothing", "save_mixer_ffn"])
-@pytest.mark.parametrize("arch", RECURRENT)
-def test_remat_changes_no_recurrent_gradient(arch, policy):
-    """The chunk loops' own remat (each chunk body checkpointed) nested in
-    the block's or the sublayers' checkpoint: every gradient bit-equal to
-    the run without the outer remat (the chunk remat runs in both)."""
-    jcfg, tcfg = _cfgs(arch)
-    _, tp = _params(jcfg)
-    batch = _t(_batch(jcfg, 2, 64, seed=3))
-    off, m_off = tsteps.grads_and_metrics(tcfg, RunPlan(), tp, batch)
-    on, m_on = tsteps.grads_and_metrics(tcfg.replace(remat=True, remat_policy=policy), RunPlan(),
-                                        tp, batch)
-    assert torch.equal(m_on["loss"], m_off["loss"]) and torch.equal(m_on["aux"], m_off["aux"])
     for name in on:
         if name == "embed":  # the CPU's embedding backward adds repeated rows in any order
             torch.testing.assert_close(on[name], off[name], rtol=0, atol=1e-6 * float(
@@ -482,74 +456,6 @@ def test_moe_five_step_loss_trajectory_matches_jax(aggregation, num_pods):
     np.testing.assert_allclose(got, want, rtol=TRAJ_RTOL)
     assert got[-1][0] < got[0][0] - 0.5 and all(a > 0 for _, a in got)
     assert isinstance(state["params"]["first"], list)
-    for a, b in zip(leaves(state), jax.tree.leaves(jstate)):
-        assert tuple(a.shape) == b.shape and str(a.dtype)[6:] == str(b.dtype)
-
-
-@pytest.mark.parametrize("aggregation,num_pods", [("totoro_tree", 1), ("totoro_tree_q8", 2)])
-@pytest.mark.parametrize("arch", RECURRENT)
-def test_recurrent_five_step_loss_trajectory_matches_jax(arch, aggregation, num_pods):
-    """rwkv6-7b (AdamW) and jamba (its own adafactor, the MoE aux loss)
-    through the plain and the podded step against JAX's
-    ``build_train_step``; the podded hop takes every leaf, the f32 decay
-    and bonus leaves and the Mamba state matrices included.
-
-    - Each step from JAX's own state before it (the whole train state
-      carried over by ``convert``): loss and aux within STEP_RTOL.
-    - The first step's new state against JAX's: every element within
-      STEP_REL of its leaf's largest magnitude but at most STEP_OFF_SHARE
-      of them.  Those few are sign-like updates: a first update of a leaf
-      that adafactor or AdamW does not factor is about ``lr * sign(g)``,
-      so where a gradient element is ~0 (|g| 2e-11 .. 5e-7 where measured;
-      jamba: 2 of 1.3e6 elements) a 1e-10 difference moves the weight by
-      2 lr.  Later states are not held so: once training has moved the
-      RWKV bonus off its zero init, a head's wkv output at the first tokens
-      is nearly constant, the group norm divides it by about sqrt(eps),
-      and an input difference of 3e-6 leaves a layer at 1e-4 (both sides
-      agree with themselves across chunk sizes to 1e-6).
-    - The port's own 5 steps, which carry those moves along: losses and
-      aux losses within FREE_RTOL (measured: 1.4e-5 for rwkv6-7b; 1.2e-4
-      plain and 4.8e-4 podded for jamba, the fifth step's loss)."""
-    jcfg, tcfg = _cfgs(arch, learning_rate=2e-3)
-    assert tcfg.optimizer == ("adafactor" if arch.startswith("jamba") else "adamw")
-    jp, tp = _params(jcfg)
-    plan_j, plan_t = JRunPlan(aggregation=aggregation), RunPlan(aggregation=aggregation)
-    sc = jdata.StreamConfig(jcfg.vocab_size, 64, 8)
-    podded = num_pods > 1
-    want, jstates = [], []
-    with jax.set_mesh(_mesh()):
-        jstate = jsteps.init_train_state(jcfg, jax.tree.map(jnp.asarray, jp), num_pods=num_pods,
-                                         podded=podded)
-        fn = jax.jit(jsteps.build_train_step(jcfg, plan_j, num_pods=num_pods))
-        for s in range(5):
-            jstates.append(jax.tree.map(np.asarray, jstate))
-            jstate, m = fn(jstate, {k: jnp.asarray(v) for k, v in
-                                    jdata.learnable_lm_batch(sc, 0, s).items()})
-            want.append((float(m["loss"]), float(m["aux"])))
-    jstates.append(jax.tree.map(np.asarray, jstate))
-    step = tsteps.build_train_step(tcfg, plan_t, num_pods=num_pods)
-    tsc = ttrain.StreamConfig(tcfg.vocab_size, 64, 8)
-    forced = []
-    for s in range(5):
-        new, m = step(params_from_numpy(jstates[s], "cpu"), ttrain.make_batch(tcfg, tsc, s, None,
-                                                                              "cpu"))
-        forced.append((float(m["loss"]), float(m["aux"])))
-        if s == 0:
-            off = total = 0
-            for a, b in zip(leaves(new), jax.tree.leaves(jstates[1])):
-                a, b = a.float().numpy(), np.asarray(b, np.float32)
-                off += int((np.abs(a - b) > STEP_REL * np.abs(b).max()).sum())
-                total += b.size
-            assert off <= STEP_OFF_SHARE * total, (off, total)
-    np.testing.assert_allclose(forced, want, rtol=STEP_RTOL)
-    state = tsteps.init_train_state(tcfg, tp, num_pods=num_pods, podded=podded)
-    got = []
-    for s in range(5):
-        state, m = step(state, ttrain.make_batch(tcfg, tsc, s, None, "cpu"))
-        got.append((float(m["loss"]), float(m["aux"])))
-    np.testing.assert_allclose(got, want, rtol=FREE_RTOL)
-    assert got[-1][0] < got[0][0] - 0.5
-    assert all(a > 0 for _, a in got) == bool(tcfg.moe_num_experts)
     for a, b in zip(leaves(state), jax.tree.leaves(jstate)):
         assert tuple(a.shape) == b.shape and str(a.dtype)[6:] == str(b.dtype)
 
