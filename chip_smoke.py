@@ -260,8 +260,25 @@ the CPU):
          the gate failing on each of HOP_FAULTS, timed on the largest
          leaf's (``embed``: 2,050,048 of 256 for two pods); the hop's kernel
          time a step beside its bound;
-      e. the checkpoint at 2 + 2 layers, B 4, as phase 4e e
-         (``checkpoint_resume``);
+   i. the podded ``totoro_tree_q8`` step with one pod per rank: RANK_PODS
+      ranks spawned by ``torch.multiprocessing`` (a ``file://`` store in a
+      temporary directory), a gloo ``pod`` process group, both ranks on the
+      one card; tinyllama-1.1b at full width and RANK_LAYERS layers through
+      ``launch/train.train(mesh=...)``, each rank with its pod's unpodded
+      state and its half of phase 4e d's batches, POD_STEPS steps: one
+      quantize and one dequantize launch per leaf a step on each rank (12 +
+      12); gate 1, after every leaf's hop, the gathered lattice and scales
+      and the hop's output bit-equal to ``steps.q8_mean_over_pods`` of the
+      ranks' gradients stacked, every leaf by digest and the largest leaf
+      whole (``PodRankGates``); gate 2, after every step,
+      the ranks' states equal (every leaf's digest, the largest leaf
+      whole); gate 3, each rank's losses 4e d's (bit-equal if the card's
+      gradients are deterministic, which the phase measures, else within
+      TRAIN_LOSS_RTOL); each of RANK_FAULTS, planted in the hop's
+      all_gather, and RANK_KERNEL_FAULT, planted in the quantize kernel's
+      output, must fail gate 1 where the sound run passes; ms a step a
+      rank and the hop split into quantize, all_gather and
+      dequantize-and-mean, labelled as two ranks sharing one card;
 5. times: each kernel's device time (a CUDA graph of calls between CUDA
    events) beside its bound, its plain version and one PyTorch call
    computing the same function where there is one (timed in turns, a b b
@@ -483,8 +500,24 @@ ENCDEC_DECODE_FAULTS = ("cross cache left zero after prefill",
 # copies of the (8, 1024, 256,256) logits are 8.4 GB each.  d: the podded
 # q8 step at full depth and the same B (2 pods of weights and AdamW state,
 # 27.4 GB, the pods' f32 gradients 7.8 GB, one pod's B 2 activations), 27 +
-# 27 hop launches a step.  e: the checkpoint at 2 + 2 layers, same B
+# 27 hop launches a step.  The checkpoint at 2 + 2 layers (8.4 GB a
+# replica, most of it the 256,256-row embedding and head with their AdamW
+# state; about 90 s of the phase) is left out: with it the whole script
+# took 941.4 s on an H100 80GB HBM3 at 700 W, past the 900 s at which a
+# phase is cut, and 4e e runs the same ckpt.py path on the card
 SEAMLESS_BATCH, SEAMLESS_REMAT_LAYERS, SEAMLESS_POD_LAYERS = 4, 2, 12
+# The podded step with one pod per rank (phase 4i): tinyllama-1.1b at full
+# width, RANK_LAYERS layers, RANK_PODS ranks of a gloo ``pod`` group (the
+# one card holds both: NCCL takes one rank a device), each with its pod's
+# unpodded state and its share of phase 4e d's batches (B TRAIN_BATCH / 2,
+# S TRAIN_SEQ), POD_STEPS steps.  Each of RANK_FAULTS, planted in the hop's
+# all_gather, and RANK_KERNEL_FAULT, planted in the quantize kernel's output
+# (one of HOP_FAULTS), must fail gate 1; the ranks are killed after
+# RANK_TIMEOUT_S
+RANK_ARCH, RANK_PODS, RANK_LAYERS = "tinyllama-1.1b", 2, 22
+RANK_FAULTS = ("the gathered pods swapped", "each rank's own scales for both pods")
+RANK_KERNEL_FAULT = HOP_FAULTS[0]
+RANK_TIMEOUT_S = 600
 
 KERNELS = [
     {
@@ -1419,7 +1452,8 @@ def _bits_equal(torch, a, b) -> bool:
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
     if a.is_floating_point():
-        a, b = a.view(torch.int32), b.view(torch.int32)
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(view), b.contiguous().view(view)
     return bool(torch.equal(a, b))
 
 
@@ -2589,8 +2623,8 @@ def train_podded(torch, qz, ops, ref, cfg, timed: str, global_batch: int = TRAIN
     }
 
 
-def checkpoint_resume(torch, cfg, global_batch: int = TRAIN_BATCH) -> dict:
-    """e (4e: tinyllama-1.1b; 4h: seamless-m4t-medium): ``cfg``, bf16: CKPT_STEPS
+def checkpoint_resume(torch, cfg) -> dict:
+    """4e e (tinyllama-1.1b at CKPT_LAYERS layers): ``cfg``, bf16: CKPT_STEPS
     steps, ``ckpt.save`` of CKPT_REPLICAS replicas into a temporary
     directory (removed at the end), replica 0 truncated, ``ckpt.restore``
     onto the card: every leaf bit-equal to the saved state, and the next
@@ -2605,7 +2639,7 @@ def checkpoint_resume(torch, cfg, global_batch: int = TRAIN_BATCH) -> dict:
     from repro_torch.pytree import leaves
 
     run = train.train(cfg, RunPlan(), steps=CKPT_STEPS, seq_len=TRAIN_SEQ,
-                      global_batch=global_batch, device="cuda", log=lambda *a: None)
+                      global_batch=TRAIN_BATCH, device="cuda", log=lambda *a: None)
     state = run["state"]
     d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
@@ -2627,7 +2661,7 @@ def checkpoint_resume(torch, cfg, global_batch: int = TRAIN_BATCH) -> dict:
                         b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
         for a, b in zip(leaves(restored), leaves(state)))
     step = steps.build_train_step(cfg, RunPlan())
-    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, global_batch),
+    batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH),
                              CKPT_STEPS, None, "cuda")
     _, m_cont = step(state, batch)
     del state
@@ -3474,7 +3508,7 @@ def serve_encdec(torch, smi: str) -> dict:
 
 def drive_encdec(torch, smi: str, qz, ops, ref) -> dict:
     """Phase 4h, with bf16 GEMMs accumulating in f32 (restored after); a to
-    e of the module docstring, every launch counter set to 0 just before
+    d of the module docstring, every launch counter set to 0 just before
     each and read just after."""
     from repro_torch import configs
 
@@ -3501,10 +3535,6 @@ def drive_encdec(torch, smi: str, qz, ops, ref) -> dict:
         torch.cuda.empty_cache()
         out["d_podded_q8"] = train_podded(torch, qz, ops, ref, cut_depth(cfg, SEAMLESS_POD_LAYERS),
                                           "largest", SEAMLESS_BATCH)
-        torch.cuda.empty_cache()
-        with uncounted():
-            out["e_checkpoint"] = checkpoint_resume(torch, cut_depth(cfg, CKPT_LAYERS),
-                                                    SEAMLESS_BATCH)
         torch.cuda.empty_cache()
         for tag in ("a_launches", "b_launches"):
             if out[tag] != dict.fromkeys(COUNTED, 0):
@@ -3565,13 +3595,434 @@ def log_encdec(enc: dict, smi: str) -> None:
         f"peak memory {d['peak_mem_gb']:.2f} GB; card: {smi}")
     log(f"[4h encdec d] {json.dumps({k: v for k, v in d.items() if k != 'profile'})}")
     log(f"[4h encdec d] one step under torch.profiler: {json.dumps(d['profile'])}")
-    e = enc["e_checkpoint"]
-    log(f"[4h encdec e] checkpoint at step {CKPT_STEPS}, {e['layers']} + {e['layers']} layers "
-        f"bf16: {e['bytes_per_replica'] / 1e9:.3f} GB a replica, save {e['save_s']:.2f} s "
-        f"({e['replicas']} replicas), restore after replica 0 was truncated {e['restore_s']:.2f} s; "
-        f"restored bit-equal: {e['restored_bit_equal']}; next loss {e['next_loss_restored']!r} "
-        f"restored vs {e['next_loss_uninterrupted']!r} uninterrupted (bit-equal: "
-        f"{e['next_loss_bit_equal']})")
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: the podded step with one pod per rank (tinyllama-1.1b)
+
+
+def bit_digest(torch, t, chunk: int = 1 << 24) -> list:
+    """A position-weighted digest of ``t``'s bits, on its device: the sum of
+    its elements' bit patterns and the sum of each times its index plus
+    one, both wrapping in int64 (a changed element or two swapped ones
+    change it)."""
+    flat = t.detach().reshape(-1)
+    if flat.is_floating_point():
+        flat = flat.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[flat.element_size()])
+    s0 = torch.zeros((), dtype=torch.int64, device=flat.device)
+    s1 = torch.zeros((), dtype=torch.int64, device=flat.device)
+    for lo in range(0, flat.numel(), chunk):
+        b = flat[lo:lo + chunk].long()
+        s0 += b.sum()
+        s1 += (b * torch.arange(lo + 1, lo + 1 + b.numel(), device=b.device)).sum()
+    return [int(s0), int(s1)]
+
+
+class PodRankGates:
+    """Inside one rank of phase 4i, as ``planted`` wrappers on the port.
+
+    Gate 1, after every leaf's hop (``hierarchy.dequantize_mean``), that
+    the hop equals ``steps.q8_mean_over_pods`` of the ranks' gradients
+    stacked: every leaf by digest, and the largest leaf whole.  By digest:
+    this rank's rows quantized by the plain version (``ref.quantize_ref``,
+    at the reference's rounding of 0.5) equal its part of the gathered
+    lattice and scales bit for bit, so the quantize kernel is held against
+    it at the shapes this path gives it; every other part has the
+    ``bit_digest`` its own rank computed so (gathered through the unplanted
+    ``all_gather_pods``), and the hop's output equals the plain
+    dequantize (``ref.dequantize_ref``) and pod mean of the gathered rows.
+    Whole: the largest leaf's gradients (``largest``: its index in leaf
+    order, the first of the largest) of every rank gathered, stacked
+    in rank order, the lattice and scales bit-equal to ``ops.
+    qsgd_quantize`` of ``steps.pod_rows`` of the stack, and the output to
+    ``steps.q8_mean_over_pods`` of it.
+    Gate 2, after every step (the step ``steps.build_train_step`` builds):
+    every state leaf's ``bit_digest`` equal on all ranks, and the largest
+    leaf (in bytes) gathered and compared whole.
+
+    The time both take, on the host clock between synchronizes, is kept
+    per step so that the step times can leave it out; their launches are
+    not counted (``uncounted``), and the memory they take is kept out of
+    ``path_peak`` (the path's own peak: the allocator's peak read before
+    each check and reset after it) but in ``peak``."""
+
+    def __init__(self, torch, group, largest: int):
+        from repro_torch.fl import hierarchy
+
+        self.torch, self.group, self.largest = torch, group, largest
+        self.gather = hierarchy.all_gather_pods  # unplanted, for the references
+        self.leaf = None
+        self.hop: list = []  # the current hop's per-leaf records
+        self.steps: list = []  # per step: {"gate1": [...], "gate2": {...}, "check_ms": ...}
+        self.check_s = 0.0
+        self.path_peak = self.peak = 0
+
+    @contextmanager
+    def installed(self):
+        from repro_torch.fl import hierarchy, steps
+
+        with planted(hierarchy, "quantize_leaf", self._seen), \
+                planted(hierarchy, "dequantize_mean", self._checked), \
+                planted(steps, "build_train_step", self._stepped):
+            yield self
+
+    def _timed(self, fn):
+        torch = self.torch
+        torch.cuda.synchronize()
+        self.path_peak = max(self.path_peak, torch.cuda.max_memory_allocated())
+        t0 = time.perf_counter()
+        with uncounted():
+            out = fn()
+        torch.cuda.synchronize()
+        self.check_s += time.perf_counter() - t0
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    def peaks_gb(self) -> dict:
+        """The path's peak and the peak with the checks, in GB, so far."""
+        now = self.torch.cuda.max_memory_allocated()
+        return {"path": max(self.path_peak, now) / 1e9, "with_checks": max(self.peak, now) / 1e9}
+
+    def _seen(self, quantize_leaf):
+        def f(g, halves):
+            self.leaf = g
+            return quantize_leaf(g, halves)
+        return f
+
+    def _checked(self, dequantize_mean):
+        def f(qs, ss, shape):
+            out = dequantize_mean(qs, ss, shape)
+            self.hop.append(self._timed(lambda: self._gate1(self.leaf, qs, ss, out)))
+            self.leaf = None
+            return out
+        return f
+
+    def _gate1(self, g, qs, ss, out) -> dict:
+        import torch.distributed as dist
+
+        from repro_torch.fl import steps
+        from repro_torch.kernels import ops, ref
+
+        torch = self.torch
+        P, me = qs.shape[0], dist.get_rank(self.group)
+        rows = steps.pod_rows(g.float()[None])
+        q, s = ref.quantize_ref(rows, steps.rounding_halves({"g": g[None]}))
+        del rows
+        theirs = self.gather(torch.tensor(bit_digest(torch, q) + bit_digest(torch, s),
+                                          device=q.device), self.group).tolist()
+        gathered = [bit_digest(torch, qs[r]) + bit_digest(torch, ss[r]) for r in range(P)]
+        lattice = (bool(torch.equal(qs[me], q.view(qs[me].shape)))
+                   and _bits_equal(torch, ss[me], s.view(ss[me].shape)) and theirs == gathered)
+        del q, s
+        want = torch.mean(ref.dequantize_ref(qs.reshape(-1, steps.ROW), ss.reshape(-1, 1))
+                          .view(P, -1), dim=0)[: out.numel()].view(out.shape)
+        rec = {"numel": g.numel(), "lattice": lattice, "mean": _bits_equal(torch, out, want),
+               "digest": bit_digest(torch, out)}
+        del want
+        if len(self.hop) == self.largest:  # the hop maps the leaves in leaf order
+            stack = self.gather(g.float(), self.group)  # (P, ...): every rank's leaf, rank order
+            rows = steps.pod_rows(stack)
+            halves = steps.rounding_halves({"g": stack})
+            q, s = ops.qsgd_quantize(rows, halves)
+            whole = bool(torch.equal(q, qs.reshape(q.shape))) and _bits_equal(
+                torch, s, ss.reshape(s.shape))
+            del q, s, rows
+            want = steps.q8_mean_over_pods({"g": stack}, halves)["g"]
+            rec["whole"] = whole and _bits_equal(torch, out, want)
+        return rec
+
+    def _stepped(self, build_train_step):
+        def build(*a, **kw):
+            step = build_train_step(*a, **kw)
+
+            def train_step(state, batch):
+                self.hop, self.check_s = [], 0.0
+                new_state, metrics = step(state, batch)
+                gate2 = self._timed(lambda: self._gate2(new_state))
+                self.steps.append({"gate1": self.hop, "gate2": gate2,
+                                   "check_ms": self.check_s * 1e3})
+                return new_state, metrics
+            return train_step
+        return build
+
+    def _gate2(self, state) -> dict:
+        from repro_torch.pytree import key_paths, leaves
+
+        torch = self.torch
+        paths, xs = key_paths(state), leaves(state)
+        mine = torch.tensor([bit_digest(torch, x) for x in xs], dtype=torch.int64, device="cuda")
+        every = self.gather(mine, self.group)  # (P, leaves, 2)
+        differ = [p for i, p in enumerate(paths) if not all(
+            torch.equal(every[0, i], every[r, i]) for r in range(1, every.shape[0]))]
+        big = max(range(len(xs)), key=lambda i: xs[i].numel() * xs[i].element_size())
+        whole = self.gather(xs[big], self.group)
+        same = all(_bits_equal(torch, whole[0], whole[r]) for r in range(1, whole.shape[0]))
+        return {"leaves": len(xs), "digests_differ": differ, "largest": paths[big],
+                "largest_bytes": xs[big].numel() * xs[big].element_size(),
+                "largest_equal": same}
+
+
+def gate1_failed(records) -> list:
+    """The indices of ``PodRankGates``' gate-1 records that failed."""
+    return [i for i, r in enumerate(records)
+            if not (r["lattice"] and r["mean"] and r.get("whole", True))]
+
+
+def planted_rank_fault(kind: str):
+    """One of RANK_FAULTS in the hop's all_gather, as a ``planted`` context
+    on ``hierarchy``: the gathered pods in reverse rank order, or the
+    scales' gather replaced by this rank's own scales for every pod."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.fl import hierarchy
+
+    def swapped(gather):
+        return lambda t, group: gather(t, group).flip(0)
+
+    def own_scales(gather):
+        def f(t, group):
+            if t.dtype == torch.float32 and t.shape[-1] == 1:  # the (R, 1) scales
+                return t[None].expand(dist.get_world_size(group), *t.shape).contiguous()
+            return gather(t, group)
+        return f
+
+    if kind == "the gathered pods swapped":
+        return planted(hierarchy, "all_gather_pods", swapped)
+    if kind == "each rank's own scales for both pods":
+        return planted(hierarchy, "all_gather_pods", own_scales)
+    raise ValueError(kind)
+
+
+def hop_split_ms(torch, hierarchy, grads, group, halves) -> dict:
+    """The hop over ``grads``' leaves in three parts, each between
+    synchronizes on the host clock: the quantize launches, the two
+    all_gathers (rows and scales, staged through pinned host buffers), the
+    dequantize launches and the means."""
+    out = {"quantize": 0.0, "all_gather": 0.0, "dequantize_mean": 0.0}
+    for g in grads:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q, s = hierarchy.quantize_leaf(g, halves)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        qs, ss = hierarchy.all_gather_pods(q, group), hierarchy.all_gather_pods(s, group)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        hierarchy.dequantize_mean(qs, ss, g.shape)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        out["quantize"] += (t1 - t0) * 1e3
+        out["all_gather"] += (t2 - t1) * 1e3
+        out["dequantize_mean"] += (t3 - t2) * 1e3
+    return out
+
+
+def pod_rank(rank: int, tmp: str, layers: int, flags: dict) -> None:
+    """One rank of phase 4i (spawned): pod ``rank`` of RANK_PODS on the
+    card, through ``launch/train.train`` with a (RANK_PODS, 1, 1) mesh over
+    a gloo group, the gates of ``PodRankGates`` installed; then the
+    card's determinism, the planted faults and the hop's split on the next
+    batch's gradients.  Writes ``tmp/rank{rank}.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    t_start = time.perf_counter()
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # both ranks on this host
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = flags["allow_tf32"]
+    torch.backends.cudnn.allow_tf32 = flags["cudnn_allow_tf32"]
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=RANK_PODS, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        from repro_torch import configs
+        from repro_torch.config import RunPlan
+        from repro_torch.fl import hierarchy, steps
+        from repro_torch.kernels import ops
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.launch import train
+        from repro_torch.models import lm
+        from repro_torch.pytree import key_paths, leaves
+
+        mesh = mesh_mod._mk((RANK_PODS, 1, 1), ("pod", "data", "model"), "cuda")
+        group = mesh.get_group("pod")
+        cfg = cut_depth(configs.get_config(RANK_ARCH), layers)
+        plan = RunPlan(aggregation="totoro_tree_q8")
+        setup_s = time.perf_counter() - t_start
+        with torch.device("meta"):
+            sizes = [t.numel() for t in leaves(lm.init_params(torch.Generator(), cfg, device="meta"))]
+        gates = PodRankGates(torch, group, sizes.index(max(sizes)))
+        torch.cuda.reset_peak_memory_stats()
+        with gates.installed():
+            set_counts(dict.fromkeys(COUNTED, 0))
+            t0 = time.perf_counter()
+            run = train.train(cfg, plan, steps=POD_STEPS, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, device="cuda", mesh=mesh,
+                              log=lambda *a: None)
+            wall = time.perf_counter() - t0
+            got = counts()
+        peak = gates.peaks_gb()
+        state = run.pop("state")
+        pod = mesh.get_local_rank("pod")
+        batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH),
+                                 POD_STEPS, None, "cuda")
+        share = {k: v.reshape(RANK_PODS, -1, *v.shape[1:])[pod] for k, v in batch.items()}
+        with uncounted():
+            g1, m1 = steps.grads_and_metrics(cfg, plan, state["params"], share)
+            g2, m2 = steps.grads_and_metrics(cfg, plan, state["params"], share)
+            deterministic = all(_bits_equal(torch, a, b) for a, b in zip(leaves(g1), leaves(g2))) \
+                and _bits_equal(torch, m1["loss"], m2["loss"])
+            del g2
+            named = dict(zip(key_paths(g1), leaves(g1)))
+            small = min(named, key=lambda p: named[p].numel())
+            planted_runs = {}
+            with gates.installed():
+                for kind in ("sound", RANK_KERNEL_FAULT) + RANK_FAULTS:
+                    gates.hop = []
+                    fault = (nullcontext() if kind == "sound" else planted_hop_fault(kind, ops)
+                             if kind == RANK_KERNEL_FAULT else planted_rank_fault(kind))
+                    with fault:
+                        hierarchy.cross_pod_q8({small: named[small]}, RANK_PODS, group=group)
+                    planted_runs[kind] = not gate1_failed(gates.hop)
+            halves = steps.rounding_halves({p: g[None] for p, g in named.items()})
+            split = [hop_split_ms(torch, hierarchy, list(named.values()), group, halves)
+                     for _ in range(2)]
+        n_leaves = len(named)
+        out = {
+            "rank": rank, "pod": pod, "layers": cfg.num_layers, "leaves": n_leaves,
+            "launches": got, "losses": run["losses"], "auxes": run["auxes"],
+            "step_ms": run["step_ms"], "check_ms": [s["check_ms"] for s in gates.steps],
+            "gate1": [{"leaves": len(s["gate1"]), "failed": gate1_failed(s["gate1"]),
+                       "whole": [r["numel"] for r in s["gate1"] if "whole" in r],
+                       "digests": [r["digest"] for r in s["gate1"]]} for s in gates.steps],
+            "gate2": [s["gate2"] for s in gates.steps],
+            "deterministic_grads": deterministic, "planted": planted_runs, "fault_leaf": small,
+            "hop_split_ms": split, "peak_mem_gb": peak["path"],
+            "peak_mem_gb_with_checks": peak["with_checks"], "setup_s": setup_s,
+            "train_wall_s": wall, "init_s": wall - sum(run["step_ms"]) / 1e3,
+        }
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier(group)
+    finally:
+        dist.destroy_process_group()
+
+
+def drive_pod_ranks(torch, smi: str, podded: dict) -> dict:
+    """Phase 4i: RANK_PODS ranks spawned (``torch.multiprocessing``, a
+    ``file://`` store in a temporary directory, removed after), each
+    ``pod_rank``; every rank's launches, gates 1 and 2, its losses against
+    phase 4e d's single-process podded run (``podded``: bit-equal when the
+    card's gradients are deterministic, else within TRAIN_LOSS_RTOL), and
+    the planted faults, each of which must fail gate 1 where the sound run
+    passes.  The ranks are killed if they outlast RANK_TIMEOUT_S."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    held = {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+            "card_free_gb": free / 1e9, "card_total_gb": total / 1e9}
+    flags = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pods_")
+    try:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(pod_rank, args=(tmp, RANK_LAYERS, flags), nprocs=RANK_PODS,
+                                 start_method="spawn", join=False)
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > RANK_TIMEOUT_S:
+                    raise SystemExit(f"phase 4i: the ranks outlasted {RANK_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(RANK_PODS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    n = ranks[0]["leaves"]
+    want = {**dict.fromkeys(COUNTED, 0), "qsgd_quantize": POD_STEPS * n,
+            "qsgd_dequantize": POD_STEPS * n}
+    deterministic = all(r["deterministic_grads"] for r in ranks)
+    if deterministic:
+        same_losses = all(r["losses"] == podded["losses"] for r in ranks)
+    else:
+        same_losses = all(abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)
+                          for r in ranks for a, b in zip(r["losses"], podded["losses"]))
+    out = {
+        "arch": RANK_ARCH, "layers": ranks[0]["layers"], "ranks": RANK_PODS, "leaves": n,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": POD_STEPS, "wall_s": wall,
+        "parent_held": held, "launches_per_rank": [r["launches"] for r in ranks],
+        "launches_expected_per_rank": want,
+        "gate1_every_leaf_every_step": all(
+            not s["failed"] and s["leaves"] == n and len(s["whole"]) == 1
+            for r in ranks for s in r["gate1"]),
+        "hop_digests_equal_across_ranks": all(
+            [s["digests"] for s in r["gate1"]] == [s["digests"] for s in ranks[0]["gate1"]]
+            for r in ranks),
+        "gate2_states_equal_every_step": all(
+            not g["digests_differ"] and g["largest_equal"] for r in ranks for g in r["gate2"]),
+        "deterministic_grads": deterministic,
+        "gate3_bound": "bit-equal" if deterministic else f"rtol {TRAIN_LOSS_RTOL}",
+        "gate3_losses_equal_4e_d": same_losses, "losses_4e_d": podded["losses"],
+        "faults_caught": {k: all(not r["planted"][k] for r in ranks)
+                          for k in (RANK_KERNEL_FAULT,) + RANK_FAULTS},
+        "sound_run_passes": all(r["planted"]["sound"] for r in ranks),
+        "ms_per_step_per_rank": [
+            float(np.mean([a - c for a, c in zip(r["step_ms"][1:], r["check_ms"][1:])]))
+            for r in ranks],
+        "hop_split_ms_per_rank": [r["hop_split_ms"][-1] for r in ranks],
+        "card": smi, "per_rank": ranks,
+    }
+    ok = (all(r["launches"] == want for r in ranks) and out["gate1_every_leaf_every_step"]
+          and out["hop_digests_equal_across_ranks"] and out["gate2_states_equal_every_step"]
+          and same_losses and all(out["faults_caught"].values()) and out["sound_run_passes"])
+    if not ok:
+        raise SystemExit(f"phase 4i: {json.dumps({k: v for k, v in out.items() if k != 'per_rank'})}")
+    return out
+
+
+def log_pod_ranks(pods: dict, smi: str) -> None:
+    """Phase 4i's lines."""
+    log(f"[4i pod ranks] podded totoro_tree_q8, {pods['arch']} {pods['layers']} layers, "
+        f"{pods['ranks']} ranks (one pod each, a gloo pod group, both on the one card), global "
+        f"B={pods['batch']} S={pods['seq']}, {pods['steps']} steps: losses "
+        f"{[r['losses'] for r in pods['per_rank']]} against 4e d's {pods['losses_4e_d']} "
+        f"({pods['gate3_bound']}: the card's gradients deterministic: "
+        f"{pods['deterministic_grads']}; equal: {pods['gate3_losses_equal_4e_d']}); launches a rank "
+        f"{json.dumps(pods['launches_per_rank'][0])} ({pods['leaves']} leaves a step); gate 1 (hop "
+        f"= q8_mean_over_pods of the stacked gradients, lattice and scales too; every leaf by "
+        f"digest, the largest whole): "
+        f"{pods['gate1_every_leaf_every_step']}; gate 2 (states equal after every step): "
+        f"{pods['gate2_states_equal_every_step']}; planted faults caught "
+        f"{json.dumps(pods['faults_caught'])}, the sound run passing: {pods['sound_run_passes']}")
+    log(f"[4i pod ranks] two ranks sharing one card, not a multi-card number: ms a step a rank "
+        f"(steps 2-{pods['steps']}, the gates' time left out) "
+        f"{[round(x, 1) for x in pods['ms_per_step_per_rank']]}; the hop a step a rank, host clock "
+        f"between synchronizes {json.dumps(pods['hop_split_ms_per_rank'])}; peak memory a rank "
+        f"{[round(r['peak_mem_gb'], 2) for r in pods['per_rank']]} GB, with the gates' checks "
+        f"{[round(r['peak_mem_gb_with_checks'], 2) for r in pods['per_rank']]} GB (the parent holding "
+        f"{json.dumps(pods['parent_held'])}); set-up {[round(r['setup_s'], 1) for r in pods['per_rank']]} s, "
+        f"init {[round(r['init_s'], 1) for r in pods['per_rank']]} s, phase wall {pods['wall_s']:.1f} s; "
+        f"card: {smi}")
+    log(f"[4i pod ranks] {json.dumps({k: v for k, v in pods.items() if k != 'per_rank'})}")
+    for r in pods["per_rank"]:
+        log(f"[4i pod ranks] rank {r['rank']}: {json.dumps(r)}")
 
 
 def main() -> int:
@@ -3580,6 +4031,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
+    marks = []  # (phase, host clock at its start): each phase's wall, logged at the end
 
     from repro_torch.core import pathplan
     from repro_torch.kernels import _build, ops, ref
@@ -3589,12 +4041,14 @@ def main() -> int:
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import tree_aggregate as ta
 
+    marks.append(("1", time.perf_counter()))
     # -- 1. device ------------------------------------------------------------
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = nvidia_smi_line()
     log(f"[1 device] {kind} x{count}; torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"[1 device] nvidia-smi: {smi}")
 
+    marks.append(("2", time.perf_counter()))
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
     _build.build_all()  # one nvcc per source, all started together
@@ -3606,6 +4060,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    marks.append(("3", time.perf_counter()))
     # -- 3. kernels against their plain versions -----------------------------
     f32, bf16 = torch.float32, torch.bfloat16
     shapes = [
@@ -3631,6 +4086,7 @@ def main() -> int:
     log(f"[3 kernels] slice-C kernels max_abs_err fused_update={fused_err:.3e} "
         f"policy_update={policy_err:.3e}")
 
+    marks.append(("4a", time.perf_counter()))
     # -- 4a. slice A: the synchronous round at full width ----------------------
     # The CPU comparison below runs in full f32; cuDNN's convolutions would
     # otherwise run the CNN in TF32 (about 3 decimal digits), and matmuls
@@ -3679,6 +4135,7 @@ def main() -> int:
         raise SystemExit("control plane differs between the card and CPU runs")
     log(f"[4 main path] card vs CPU max abs diff {json.dumps(errs)} ({PATH_TOL})")
 
+    marks.append(("4b", time.perf_counter()))
     # -- 4b. slice B: the async buffered round, compressed and not ------------
     async_counts = {}
     runs = {}
@@ -3762,6 +4219,7 @@ def main() -> int:
         (f"path-{i}-{dt}", lengths, [d], ()) for i, lengths in enumerate(path_tables)
         for dt, d in (("f32", f32), ("bf16", bf16))]))
 
+    marks.append(("4c", time.perf_counter()))
     # -- 4c. slice C: the planners, then live placement -------------------------
     set_counts(dict.fromkeys(COUNTED, 0))
     t0 = time.perf_counter()
@@ -3817,6 +4275,7 @@ def main() -> int:
         f"over the async and placement runs' {len(later)} other (G, C, L, dtype): "
         f"{[(*sh[:3], str(sh[3])[6:]) for sh in later]}")
 
+    marks.append(("4d", time.perf_counter()))
     # -- 4d. FedAvg / DP on the card, then the LM serving path ------------------
     fl_mod = drive_fl_modules(torch, ops, *gpu["live"])
     fl_want = {**dict.fromkeys(COUNTED, 0), "tree_aggregate_groups": 1}
@@ -3856,6 +4315,7 @@ def main() -> int:
     if lm_run["launches"] != dict.fromkeys(COUNTED, 0):
         raise SystemExit(f"serving path: launches {lm_run['launches']}, expected none")
 
+    marks.append(("4e", time.perf_counter()))
     # -- 4e. the LM training path -----------------------------------------------
     with frozen_heap():  # 4e, 4f and 4g each with the heap of phases 1-4d frozen
         tr = drive_training(torch, smi, qz, ops, ref)
@@ -3906,6 +4366,7 @@ def main() -> int:
         f"restored vs {e['next_loss_uninterrupted']!r} uninterrupted (bit-equal: "
         f"{e['next_loss_bit_equal']})")
 
+    marks.append(("4f", time.perf_counter()))
     # -- 4f. the MoE family: deepseek-v2-lite-16b ---------------------------------
     with frozen_heap():
         moe = drive_moe(torch, smi, qz, ops, ref)
@@ -3977,6 +4438,7 @@ def main() -> int:
     log(f"[4f moe d] {json.dumps({k: v for k, v in d.items() if k != 'profile'})}")
     log(f"[4f moe d] one step under torch.profiler: {json.dumps(d['profile'])}")
 
+    marks.append(("4g", time.perf_counter()))
     # -- 4g. the recurrent families: rwkv6-7b, jamba's Mamba layer ------------------
     with frozen_heap():
         rec = drive_recurrent(torch, smi, qz, ops, ref)
@@ -4044,11 +4506,18 @@ def main() -> int:
     log(f"[4g recurrent e] {JAMBA_ARCH} Mamba sublayer at full width, fwd + bwd (eager, CUDA "
         f"events): {json.dumps(rec['e_mamba'])}; card: {smi}")
 
+    marks.append(("4h", time.perf_counter()))
     # -- 4h. the encoder-decoder family: seamless-m4t-medium ------------------------
     with frozen_heap():
         enc = drive_encdec(torch, smi, qz, ops, ref)
     log_encdec(enc, smi)
 
+    marks.append(("4i", time.perf_counter()))
+    # -- 4i. the podded step with one pod per rank: tinyllama-1.1b ----------------
+    pods = drive_pod_ranks(torch, smi, tr["d_podded_q8"])
+    log_pod_ranks(pods, smi)
+
+    marks.append(("5", time.perf_counter()))
     # -- 5. times -------------------------------------------------------------
     f32_levels = sorted({sh[:3] for sh in path_shapes if sh[3] == f32})  # sync, async, placement
     rows = [time_tree_aggregate(torch, ta, ref, g, c, l, f32) for g, c, l in f32_levels]
@@ -4150,6 +4619,17 @@ def main() -> int:
                 h["hop_bytes_per_step_no_uniforms"][name] / HBM_BYTES_PER_S * 1e3),
             timed_leaf=h["timed_leaf"], timed_rows={k: h["timed_rows"][name][k] for k in brief})
             for tag, h in hops.items()}
+    for entry in KERNELS[2:4]:  # phase 4i: the same hop over a process group, per rank
+        name = entry["name"]
+        per_rank = [r[name] for r in pods["launches_per_rank"]]
+        entry["launches_from"][f"4i per-rank podded q8 train steps ({pods['arch']}, "
+                               f"{pods['layers']} layers, {pods['ranks']} ranks on one card)"] = sum(per_rank)
+        entry["launches"] += sum(per_rank)
+        entry["q8_hop"]["4i"] = dict(
+            arch=pods["arch"], layers=pods["layers"], ranks=pods["ranks"],
+            launches_per_rank=per_rank, launches_per_rank_per_step=pods["leaves"],
+            hop_split_ms_per_step_per_rank=pods["hop_split_ms_per_rank"],
+            note="two ranks sharing one card, host clock between synchronizes")
     KERNELS[2]["residual_instance"] = dict(  # the EF commits' launches, counted in both
         launches=sum(async_counts[t]["qsgd_quantize_residual"]
                      for t in ("compressed", "compressed-qsgd-downlink")),
@@ -4174,6 +4654,9 @@ def main() -> int:
     idle = [e["name"] for e in KERNELS if not e["launches"]]
     if idle:
         raise SystemExit(f"kernels of the main paths launched no time there: {idle}")
+    marks.append(("end", time.perf_counter()))
+    log(f"[walls] s a phase: {json.dumps({a: round(tb - ta, 1) for (a, ta), (_, tb) in zip(marks, marks[1:])})}, "
+        f"{marks[-1][1] - marks[0][1]:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": KERNELS}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -15,10 +15,22 @@ microbatch gradient accumulation (the client's local pass), a cross-zone
   gradients to QSGD int8 and takes the mean of their dequantized values,
   which every pod then applies.
 
-The reference's ``nn.constrain`` and ``with_sharding_constraint`` calls
-are no-ops on one device and are left out; ``train_state_specs`` comes
-with ``launch/specs.py`` (ROADMAP §1 item 7), and so does the reference's
-``mesh`` argument.
+With a ``mesh`` (``launch/mesh.py``) whose ``pod`` axis has P > 1 ranks,
+``totoro_tree_q8`` runs as the reference's runs on a multi-pod mesh: one
+pod per rank.  Each rank holds one pod's unpodded state, its shard of the
+podded state under ``train_state_specs(podded=True)``, whose leading dim
+is ``P("pod", ...)``; the step takes the rank's contiguous share of the
+global batch (the reference's ``podify``), runs ``grads_and_metrics`` on
+it, aggregates through ``hierarchy.cross_pod_q8`` over the ``pod`` process
+group, applies ``opt.update`` (leaf by leaf, in place), and returns the
+pods' mean loss and aux.
+Given the same inputs each rank's state is ``state[p]`` of the
+single-process podded step bit for bit.  With P = 1, or another
+aggregation, a mesh gives the plain step.  A mesh whose ``data`` or
+``model`` axis is larger than 1 raises ``NotImplementedError``: a step
+sharded inside a pod is ROADMAP §1's "data / model axes" item, and the
+reference's ``nn.constrain`` / ``with_sharding_constraint`` calls are left
+out of the forward passes until then.
 
 ``q8_mean_over_pods`` runs through ``kernels.ops``' ``qsgd_quantize`` and
 ``qsgd_dequantize`` (the CUDA kernels on the card, their plain versions on
@@ -37,12 +49,15 @@ the next greedy token per row, ``argmax`` of the last position's logits
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from .. import optim as optim_mod
 from ..kernels import ops
 from ..models import encdec, lm
+from ..models.nn import P
 from ..pytree import leaves, tree_map, unflatten_like
 
 ROW = 256  # values per quantized row: one f32 scale each
@@ -145,6 +160,22 @@ def rounding_halves(grads_pod) -> torch.Tensor:
     return torch.full((rows, ROW), 0.5, dtype=torch.float32, device=leaves(grads_pod)[0].device)
 
 
+def quantize_pods(g: torch.Tensor, halves: torch.Tensor):
+    """(P, ...) -> one ``qsgd_quantize`` launch over its P * R f32 rows
+    (``pod_rows``) at the rounding ``halves`` gives: (int8 lattice
+    (P * R, 256), f32 scales (P * R, 1)), pod p's rows after pod p - 1's."""
+    x = pod_rows(g.float())
+    return ops.qsgd_quantize(x, halves[: x.shape[0]])
+
+
+def dequantize_mean(qs: torch.Tensor, ss: torch.Tensor, shape) -> torch.Tensor:
+    """qs (P, R, 256) int8 and ss (P, R, 1) f32, the pods' rows in pod
+    order: one ``qsgd_dequantize`` launch over all P * R rows, the mean
+    over the pods, cut to ``shape``."""
+    deq = ops.qsgd_dequantize(qs.reshape(-1, ROW), ss.reshape(-1, 1)).view(qs.shape[0], -1)
+    return torch.mean(deq, dim=0)[: math.prod(shape)].view(shape)
+
+
 def q8_mean_over_pods(grads_pod, halves: torch.Tensor | None = None):
     """Cross-zone compressed aggregation.
 
@@ -152,31 +183,47 @@ def q8_mean_over_pods(grads_pod, halves: torch.Tensor | None = None):
     one ``qsgd_quantize`` launch (int8 per 256-wide row, one f32 scale a
     row: the wire format) and one ``qsgd_dequantize`` launch; the mean of
     the P dequantized copies comes back in the leaf's shape without the
-    pod axis.  ``halves``: a buffer from ``rounding_halves`` with at least
-    the largest leaf's rows (made here when None).
+    pod axis (``quantize_pods``, ``dequantize_mean``: ``fl/hierarchy``'s
+    hop runs the same two).  ``halves``: a buffer from ``rounding_halves``
+    with at least the largest leaf's rows (made here when None).
     """
     if halves is None:
         halves = rounding_halves(grads_pod)
 
     def agg(g):
-        x = pod_rows(g)
-        q, scale = ops.qsgd_quantize(x, halves[: x.shape[0]])
-        deq = ops.qsgd_dequantize(q, scale).view(g.shape[0], -1)
-        return torch.mean(deq, dim=0)[: g[0].numel()].view(g.shape[1:])
+        q, scale = quantize_pods(g, halves)
+        pods = g.shape[0]
+        return dequantize_mean(q.view(pods, -1, ROW), scale.view(pods, -1, 1), g.shape[1:])
 
     return tree_map(agg, grads_pod)
 
 
-def build_train_step(cfg, plan, *, num_pods: int = 1):
+def build_train_step(cfg, plan, *, mesh=None, num_pods: int = 1):
     """Returns train_step(state, batch) -> (state, metrics).
 
     The plain step returns a new state and leaves the old one as it was.
     The podded step (``totoro_tree_q8``, ``num_pods > 1``) writes each
-    pod's update into the state's own tensors, one pod at a time, and
-    returns that state (the reference's launcher donates the state to the
-    step to the same end): two copies of a podded state need not fit.
+    pod's update into the state's own tensors, one pod at a time and leaf
+    by leaf (``optim.update_in_place``), and returns that state (the
+    reference's launcher donates the state to the step to the same end):
+    the update needs one leaf's new values beside the state, not a second
+    copy of it.  With a ``mesh``, ``num_pods`` is its ``pod`` axis and the
+    podded step runs one pod per rank (module docstring), updating the
+    rank's state the same way.
     """
     opt = optim_mod.make_optimizer(cfg)
+    if mesh is not None:
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        inside = {a: n for a, n in sizes.items() if a != "pod" and n > 1}
+        if inside:
+            raise NotImplementedError(
+                f"a train step sharded over {inside}: ROADMAP §1, running a step over "
+                f"data / model axes larger than 1")
+        if num_pods not in (1, sizes.get("pod", 1)):
+            raise ValueError(f"num_pods {num_pods} on a mesh of {sizes}")
+        num_pods = sizes.get("pod", 1)
+        if plan.aggregation == "totoro_tree_q8" and num_pods > 1:
+            return _pod_per_rank_step(cfg, plan, opt, mesh, num_pods)
     podded = plan.aggregation == "totoro_tree_q8" and num_pods > 1
 
     if not podded:
@@ -198,11 +245,32 @@ def build_train_step(cfg, plan, *, num_pods: int = 1):
         del grads_pod
         for p in range(num_pods):
             mine = tree_map(lambda t: t[p], state)
-            new_params, new_opt = opt.update(agg, mine["opt"], mine["params"])
-            tree_map(lambda dst, src: dst.copy_(src), mine, {"params": new_params, "opt": new_opt})
-            del new_params, new_opt
+            optim_mod.update_in_place(opt, agg, mine["opt"], mine["params"])
         return state, {"loss": torch.mean(torch.stack(losses)),
                        "aux": torch.mean(torch.stack(auxes))}
+
+    return train_step
+
+
+def _pod_per_rank_step(cfg, plan, opt, mesh, P: int):
+    """The podded step with this rank as pod ``mesh.get_local_rank("pod")``
+    of the mesh's P (module docstring)."""
+    from . import hierarchy
+
+    group, pod = mesh.get_group("pod"), mesh.get_local_rank("pod")
+    halves = None  # the step function's one buffer of 0.5s, made at its first call
+
+    def train_step(state, batch):
+        nonlocal halves
+        share = {k: v.reshape(P, v.shape[0] // P, *v.shape[1:])[pod] for k, v in batch.items()}
+        grads, metrics = grads_and_metrics(cfg, plan, state["params"], share)
+        if halves is None:
+            halves = rounding_halves(tree_map(lambda g: g[None], grads))
+        agg = hierarchy.cross_pod_q8(grads, P, group=group, halves=halves)
+        del grads
+        optim_mod.update_in_place(opt, agg, state["opt"], state["params"])
+        return state, {k: torch.mean(hierarchy.all_gather_pods(v, group))
+                       for k, v in metrics.items()}
 
     return train_step
 
@@ -214,6 +282,16 @@ def init_train_state(cfg, params, *, num_pods: int = 1, podded: bool = False):
     if podded:
         state = tree_map(lambda x: torch.stack([x] * num_pods), state)
     return state
+
+
+def train_state_specs(cfg, pspecs, pshapes, *, podded: bool = False):
+    """The specs of ``init_train_state``'s tree from the parameters' specs
+    and shapes; podded: every leaf's with a leading ``"pod"``."""
+    opt = optim_mod.make_optimizer(cfg)
+    specs = {"params": pspecs, "opt": opt.state_specs(pspecs, pshapes)}
+    if podded:
+        specs = tree_map(lambda s: P("pod", *s), specs)
+    return specs
 
 
 # ---------------------------------------------------------------------------

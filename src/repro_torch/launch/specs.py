@@ -1,0 +1,176 @@
+"""Step inputs and their sharding for every (arch x shape x mesh) cell.
+
+Answers to ``repro/launch/specs.py``.  ``build_cell`` returns meta-tensor
+stand-ins for every input of a cell's step (``torch.device("meta")``: the
+shapes and dtypes, no memory and no draws, as ``jax.eval_shape``; a 398B
+config touches no host memory), the partition-spec trees (``models.nn.P``)
+resolved to the mesh's axes and fitted to the shapes, and the DTensor
+placements of each leaf (``nn.shardings_for``: ``nn.NamedSharding``s).  ``lower_cell`` and the
+dry-run tools built on it (``dryrun.py``, ``sweep.py``) are not ported
+yet (ROADMAP §1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from .. import configs
+from ..config import SHAPES, ModelConfig, RunPlan, ShapeSpec
+from ..fl import steps as steps_mod
+from ..models import encdec, lm, nn
+from ..models.nn import P
+from ..pytree import tree_map
+from . import mesh as mesh_mod
+
+
+def fit_spec(spec: P, shape: tuple[int, ...], sizes: dict[str, int]) -> P:
+    """Drop mesh axes from dims they don't divide (e.g. batch=1 decode)."""
+    out = []
+    for i, part in enumerate(spec):
+        if part is None:
+            out.append(None)
+            continue
+        axes = part if isinstance(part, tuple) else (part,)
+        total = 1
+        for a in axes:
+            total *= sizes.get(a, 1)
+        if i < len(shape) and shape[i] % total == 0:
+            out.append(part)
+        else:
+            out.append(None)
+    return P(*out)
+
+
+def fit_specs_tree(specs, shapes, sizes):
+    return tree_map(lambda s, x: fit_spec(s, tuple(x.shape), sizes), specs, shapes)
+
+
+class Cell(NamedTuple):
+    """Everything needed to run or lower one (arch x shape x mesh) cell."""
+
+    cfg: ModelConfig
+    shape: ShapeSpec
+    plan: RunPlan
+    step_fn: Any
+    args: tuple  # meta-tensor trees
+    in_shardings: tuple  # nn.NamedSharding trees
+    out_shardings: Any
+    donate_argnums: tuple
+
+
+def _sds(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _batch_specs(cfg: ModelConfig, spec: ShapeSpec, *, with_labels: bool) -> tuple[dict, dict]:
+    B, S = spec.global_batch, spec.seq_len
+    batch, bspecs = {}, {}
+    dp = nn.DP
+    if cfg.is_encoder_decoder:
+        batch["embeds"] = _sds((B, S, cfg.d_model), cfg.adtype)  # frontend stub
+        bspecs["embeds"] = P(dp, None, None)
+        batch["tokens"] = _sds((B, S), torch.int32)
+        bspecs["tokens"] = P(dp, None)
+    elif cfg.embed_inputs and spec.kind in ("train", "prefill"):
+        batch["embeds"] = _sds((B, S, cfg.d_model), cfg.adtype)  # patch embeds stub
+        bspecs["embeds"] = P(dp, None, None)
+    else:
+        batch["tokens"] = _sds((B, S), torch.int32)
+        bspecs["tokens"] = P(dp, None)
+    if with_labels:
+        batch["labels"] = _sds((B, S), torch.int32)
+        bspecs["labels"] = P(dp, None)
+    return batch, bspecs
+
+
+def resolve(tree, *, multi_pod: bool, pod_replicated: bool):
+    """Resolve logical placeholders; pod_replicated forces fsdp=('data',)."""
+    return nn.resolve_specs(tree, multi_pod=multi_pod and not pod_replicated)
+
+
+def build_cell(arch: str, shape_name: str, mesh, *, aggregation: str | None = None,
+               cfg_overrides: dict | None = None, grad_accum: int | None = None) -> Cell:
+    cfg = configs.get_config(arch)
+    if cfg_overrides:
+        cfg = cfg.replace(**cfg_overrides)
+    spec = SHAPES[shape_name]
+    plan = configs.get_plan(arch, shape_name)
+    if aggregation is not None:
+        plan = dataclasses.replace(plan, aggregation=aggregation)
+    if grad_accum is not None:
+        plan = dataclasses.replace(plan, grad_accum=grad_accum)
+    sizes = mesh_mod.mesh_axis_sizes(mesh)
+    multi_pod = "pod" in sizes
+    npods = sizes.get("pod", 1)
+    # Totoro tree mode: params replicated across pods (zone replicas)
+    pod_replicated = plan.aggregation.startswith("totoro_tree") and multi_pod and spec.kind == "train"
+
+    def rs(tree):
+        """Param/state resolution (pod-replicated in totoro_tree mode)."""
+        return resolve(tree, multi_pod=multi_pod, pod_replicated=pod_replicated)
+
+    def rs_batch(tree):
+        """Batch/cache resolution: always sharded across pods when present."""
+        return resolve(tree, multi_pod=multi_pod, pod_replicated=False)
+
+    def shardings(tree):
+        return nn.shardings_for(tree, mesh)
+
+    replicated = nn.named_sharding(mesh, P())
+
+    # activation sharding axes for ``nn.constrain``.  Batch dims are sharded
+    # over ('pod', 'data') even when params are pod-replicated (zones process
+    # disjoint clients); in the podded (q8) mode the pod dim is outside each
+    # pod's view, so 'data' only.
+    podded_mode = plan.aggregation == "totoro_tree_q8" and multi_pod and spec.kind == "train"
+    if multi_pod and not podded_mode:
+        nn.set_activation_axes(dp=("pod", "data"), tp="model", sp="model", sizes=sizes)
+    else:
+        nn.set_activation_axes(dp="data", tp="model", sp="model", sizes=sizes)
+
+    model = encdec if cfg.is_encoder_decoder else lm
+    with torch.device("meta"):
+        params_shapes = model.init_params(torch.Generator(), cfg, device="meta")
+    pspecs = fit_specs_tree(rs(model.param_specs(cfg)), params_shapes, sizes)
+
+    if spec.kind == "train":
+        podded = plan.aggregation == "totoro_tree_q8" and multi_pod
+        with torch.device("meta"):
+            state_shapes = steps_mod.init_train_state(cfg, params_shapes, num_pods=npods,
+                                                      podded=podded)
+        sspecs = steps_mod.train_state_specs(cfg, pspecs, params_shapes, podded=podded)
+        sspecs = fit_specs_tree(sspecs, state_shapes, sizes)
+        batch, bspecs = _batch_specs(cfg, spec, with_labels=True)
+        bspecs = fit_specs_tree(rs_batch(bspecs), batch, sizes)
+        step = steps_mod.build_train_step(cfg, plan, num_pods=npods)
+        in_sh = (shardings(sspecs), shardings(bspecs))
+        out_sh = (in_sh[0], replicated)
+        return Cell(cfg, spec, plan, step, (state_shapes, batch), in_sh, out_sh, (0,))
+
+    B, S = spec.global_batch, spec.seq_len
+    if cfg.is_encoder_decoder:
+        cache_shp, cache_specs = encdec.cache_shapes(cfg, B, S, S), encdec.cache_specs(cfg)
+    else:
+        cache_shp, cache_specs = lm.cache_shapes(cfg, B, S), lm.cache_specs(cfg)
+    cache_specs = fit_specs_tree(rs_batch(cache_specs), cache_shp, sizes)
+
+    if spec.kind == "prefill":
+        batch, bspecs = _batch_specs(cfg, spec, with_labels=False)
+        bspecs = fit_specs_tree(rs_batch(bspecs), batch, sizes)
+        step = steps_mod.build_prefill_step(cfg)
+        in_sh = (shardings(pspecs), shardings(bspecs))
+        out_sh = (shardings(cache_specs), replicated)
+        return Cell(cfg, spec, plan, step, (params_shapes, batch), in_sh, out_sh, ())
+
+    assert spec.kind == "decode"
+    token = _sds((B, 1), torch.int32)
+    dp_part = ("pod", "data") if multi_pod else ("data",)
+    tok_sh = nn.named_sharding(mesh, fit_spec(P(dp_part, None), token.shape, sizes))
+    idx = _sds((), torch.int32)
+    step = steps_mod.build_decode_step(cfg)
+    cache_sh = shardings(cache_specs)
+    in_sh = (shardings(pspecs), cache_sh, tok_sh, replicated)
+    out_sh = (cache_sh, nn.named_sharding(mesh, fit_spec(P(dp_part), (B,), sizes)))
+    return Cell(cfg, spec, plan, step, (params_shapes, cache_shp, token, idx), in_sh, out_sh, (1,))

@@ -22,8 +22,14 @@ encoder-decoder config both: source frames, target tokens), the
 straggler draws from ``numpy.random.default_rng(0)``, as the reference's
 loop.  It also takes a ``RunPlan`` and ``num_pods``, so the podded
 ``totoro_tree_q8`` step runs through it too (the reference's command line
-reaches only the plain step, and so does this one).  Step times are taken
-on the host clock after ``torch.cuda.synchronize()``.
+reaches only the plain step, and so does this one).  With ``mesh=`` (a
+``launch/mesh`` ``DeviceMesh`` whose ``pod`` axis spans the ranks) each
+rank runs the loop as one pod: every rank initialises the same parameters
+from seed 0 (pod-replicated, as the reference's ``totoro_tree`` mode),
+builds the same global batches, and the step (``build_train_step(...,
+mesh=mesh)``) takes the rank's share of each and aggregates over the
+``pod`` group.  Checkpoints with a mesh are not ported yet and raise.
+Step times are taken on the host clock after ``torch.cuda.synchronize()``.
 """
 from __future__ import annotations
 
@@ -80,16 +86,18 @@ def _sync(device: torch.device) -> None:
 def train(cfg, plan: RunPlan, *, steps: int, seq_len: int = 128, global_batch: int = 8,
           device="cuda", num_pods: int = 1, ckpt_dir: str | None = None, ckpt_every: int = 10,
           replicas: int = 2, resume: bool = False, straggler_rate: float = 0.0,
-          non_iid: float = 0.0, log_every: int = 5, log=print) -> dict:
+          non_iid: float = 0.0, log_every: int = 5, log=print, mesh=None) -> dict:
     """Steps ``start .. steps - 1`` of the training loop (``start`` is 0, or
     the resumed checkpoint's step).  Returns the final state, the start
     step, each step's loss and aux loss (the MoE layers' load-balance
     loss; 0 for a dense model) and each step's time (ms, host clock after
     a synchronize)."""
+    if mesh is not None and ckpt_dir:
+        raise NotImplementedError("checkpoints with a mesh: ROADMAP §1, checkpoints with a mesh")
     device = resolve_device(device)
     model = encdec if cfg.is_encoder_decoder else lm
     params = model.init_params(torch.Generator().manual_seed(0), cfg, device=device)
-    podded = plan.aggregation == "totoro_tree_q8" and num_pods > 1
+    podded = plan.aggregation == "totoro_tree_q8" and num_pods > 1 and mesh is None
     state = steps_mod.init_train_state(cfg, params, num_pods=num_pods, podded=podded)
     del params
     start = 0
@@ -97,7 +105,7 @@ def train(cfg, plan: RunPlan, *, steps: int, seq_len: int = 128, global_batch: i
         state, start = ckpt.restore(state, ckpt_dir, device=device)
         log(f"resumed from step {start}")
 
-    train_step = steps_mod.build_train_step(cfg, plan, num_pods=num_pods)
+    train_step = steps_mod.build_train_step(cfg, plan, mesh=mesh, num_pods=num_pods)
     sc = StreamConfig(vocab_size=cfg.vocab_size, seq_len=seq_len, batch_per_shard=global_batch,
                       non_iid_alpha=non_iid)
     rng = np.random.default_rng(0)

@@ -48,6 +48,11 @@ forward rounds them to the value dtype before its PV product).  From
 the core), so ``repeat_interleave``'s backward sums the G copies of dk
 and dv; from ``cross_attn_forward`` it sees the KV heads themselves, and
 its own einsums sum the G query heads of each kv head into dk and dv.
+
+Sharding specs (``nn``'s placeholders): ``gqa_specs``, ``mla_specs`` and
+``cross_attn_specs`` answer to the reference's; where the reference's
+``*_cache_shape`` returns (shapes, specs), the port's returns the shapes
+(meta tensors) and a sibling ``*_cache_specs(cfg)`` the specs.
 """
 from __future__ import annotations
 
@@ -56,7 +61,7 @@ import math
 import torch
 
 from . import nn
-from .nn import apply_rope, dense_init, rms_norm
+from .nn import DP, FSDP, TP, P, apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
 
@@ -271,6 +276,20 @@ def init_gqa(gen: torch.Generator, cfg) -> nn.Params:
     return p
 
 
+def gqa_specs(cfg) -> nn.Specs:
+    kv = TP if cfg.num_kv_heads % 8 == 0 else None
+    s = {
+        "wq": P(FSDP, TP, None),
+        "wk": P(FSDP, kv, None),
+        "wv": P(FSDP, kv, None),
+        "wo": P(TP, None, FSDP),
+    }
+    if cfg.qk_norm:
+        s["q_norm"] = P(None)
+        s["k_norm"] = P(None)
+    return s
+
+
 def _project(x, w):
     """'bsd,dhk->bshk' as one matmul over the flattened (h, k)."""
     d, h, k = w.shape
@@ -342,6 +361,13 @@ def gqa_cache_shape(cfg, batch: int, max_len: int) -> dict:
     return {"k": shp, "v": shp}
 
 
+def gqa_cache_specs(cfg) -> dict:
+    """``gqa_cache_shape``'s specs: sequence-sharded over ``model`` (context
+    parallel)."""
+    spec = P(DP, TP, None, None)
+    return {"k": spec, "v": spec}
+
+
 def gqa_init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.adtype, device=device),
@@ -366,6 +392,17 @@ def init_mla(gen: torch.Generator, cfg) -> nn.Params:
         "w_uk": dense_init(ks[2], lora, (H * nope_d,), dt).reshape(lora, H, nope_d),
         "w_uv": dense_init(ks[3], lora, (H * v_d,), dt).reshape(lora, H, v_d),
         "wo": dense_init(ks[4], H * v_d, (d,), dt).reshape(H, v_d, d),
+    }
+
+
+def mla_specs(cfg) -> nn.Specs:
+    return {
+        "wq": P(FSDP, TP, None),
+        "w_dkv": P(FSDP, None),
+        "kv_norm": P(None),
+        "w_uk": P(None, TP, None),
+        "w_uv": P(None, TP, None),
+        "wo": P(TP, None, FSDP),
     }
 
 
@@ -436,6 +473,10 @@ def mla_cache_shape(cfg, batch: int, max_len: int) -> dict:
     }
 
 
+def mla_cache_specs(cfg) -> dict:
+    return {"c_kv": P(DP, TP, None), "k_rope": P(DP, TP, None)}
+
+
 def mla_init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     return {k: torch.zeros(t.shape, dtype=t.dtype, device=device)
             for k, t in mla_cache_shape(cfg, batch, max_len).items()}
@@ -455,6 +496,9 @@ def init_cross_attn(gen: torch.Generator, cfg) -> nn.Params:
         "wv": dense_init(ks[2], d, (KV * hd,), dt).reshape(d, KV, hd),
         "wo": dense_init(ks[3], H * hd, (d,), dt).reshape(H, hd, d),
     }
+
+
+cross_attn_specs = gqa_specs  # same shapes and sharding (qk_norm absent)
 
 
 def cross_attn_forward(p, cfg, x, *, enc_kv=None, enc_out=None):

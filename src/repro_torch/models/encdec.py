@@ -25,8 +25,10 @@ With ``cfg.remat`` each encoder layer, and in train mode each decoder
 layer, runs under ``nn.remat`` (the reference's ``jax.checkpoint`` with
 ``nothing_saveable``); encoder layer 0 reads data embeddings, which need
 no gradient.  The padded vocabulary columns read -1e9 (``_mask_pad_vocab``,
-as the reference's).  ``param_specs`` belongs with ``launch/specs.py``,
-which is not ported yet.
+as the reference's).  ``param_specs`` is the sharding twin of
+``init_params``; ``cache_shapes`` returns the cache's shapes (meta
+tensors) and ``cache_specs(cfg)`` its specs, where the reference's
+``cache_shapes`` returns the pair.
 """
 from __future__ import annotations
 
@@ -37,9 +39,12 @@ import torch
 from ..pytree import leaves, tree_map
 from . import attention as attn
 from . import lm, nn
-from .nn import dense_init, embed_init, rms_norm
+from .nn import DP, FSDP, TP, P, dense_init, embed_init, rms_norm
 
 MASKED_LOGIT = -1e9
+
+
+_FFN_SPECS = {"wi": P(FSDP, TP), "wg": P(FSDP, TP), "wo": P(TP, FSDP)}
 
 
 def _init_enc_layer(gen, cfg):
@@ -80,6 +85,23 @@ def init_params(gen: torch.Generator, cfg, *, device="cpu") -> nn.Params:
         "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.pdtype, device=device),
         "enc": stacked(_init_enc_layer, k_enc, cfg.enc_layers),
         "dec": stacked(_init_dec_layer, k_dec, cfg.num_layers),
+    }
+
+
+def param_specs(cfg) -> nn.Specs:
+    gs = attn.gqa_specs(cfg)
+
+    def stack(tree):
+        return tree_map(lm.stack_spec, tree)
+
+    return {
+        "embed": P(TP, FSDP),
+        "head": P(FSDP, TP),
+        "enc_norm": P(None),
+        "final_norm": P(None),
+        "enc": stack({"norm1": P(None), "self": gs, "norm2": P(None), "ffn": _FFN_SPECS}),
+        "dec": stack({"norm1": P(None), "self": gs, "norm_x": P(None),
+                      "cross": attn.cross_attn_specs(cfg), "norm2": P(None), "ffn": _FFN_SPECS}),
     }
 
 
@@ -214,6 +236,12 @@ def cache_shapes(cfg, batch: int, self_len: int, src_len: int) -> dict:
         return {"k": t, "v": t}
 
     return {"self": kv(self_len), "cross": kv(src_len)}
+
+
+def cache_specs(cfg) -> dict:
+    """The specs of ``cache_shapes``' tree."""
+    kv = P(None, DP, TP, None, None)
+    return {"self": {"k": kv, "v": kv}, "cross": {"k": kv, "v": kv}}
 
 
 def init_cache(cfg, batch: int, self_len: int, src_len: int, *, device=None) -> dict:

@@ -19,6 +19,12 @@ lists of layer dicts as in the reference.  A layer's cache is ``{"mix":
 cache spans both sublayers (token shifts and the wkv state), as the
 reference's ``_layer_cache`` splits it.
 
+``param_specs`` (with ``layer_specs`` and ``_ffn_specs``) is the sharding
+twin of ``init_params``: the same tree of ``nn.P`` specs, each stacked
+leaf's with a leading None for the block axis.  ``cache_shapes`` returns
+the cache's shapes (meta tensors) and ``cache_specs(cfg)`` its specs,
+where the reference's ``cache_shapes`` returns the pair.
+
 Each MoE layer returns its load-balance loss as a tensor in the graph,
 and ``forward`` sums them (the router gets the aux gradient); a dense
 layer's is 0.0.
@@ -56,7 +62,7 @@ from ..pytree import leaves, tree_map
 from . import attention as attn
 from . import moe as moe_mod
 from . import nn, rwkv, ssm
-from .nn import dense_init, embed_init, rms_norm
+from .nn import FSDP, TP, P, dense_init, embed_init, rms_norm
 
 
 def _recurrent(fwd):
@@ -74,6 +80,14 @@ _MIXERS = {
     "mla": (attn.init_mla, attn.mla_forward, attn.mla_cache_shape),
     "mamba": (ssm.init_mamba, _recurrent(ssm.mamba_forward), ssm.mamba_cache_shape),
     "rwkv": (rwkv.init_time_mix, _recurrent(rwkv.time_mix_forward), rwkv.rwkv_cache_shape),
+}
+
+# (parameter specs, cache specs) of each mixer kind
+_MIXER_SPECS = {
+    "attn": (attn.gqa_specs, attn.gqa_cache_specs),
+    "mla": (attn.mla_specs, attn.mla_cache_specs),
+    "mamba": (ssm.mamba_specs, ssm.mamba_cache_specs),
+    "rwkv": (rwkv.time_mix_specs, rwkv.rwkv_cache_specs),
 }
 
 
@@ -140,6 +154,14 @@ def _init_ffn(gen, cfg, kind: str, *, d_ff: int | None = None):
     }
 
 
+def _ffn_specs(cfg, kind: str):
+    if kind == "moe":
+        return moe_mod.moe_specs(cfg)
+    if kind == "rwkv_cm":
+        return rwkv.channel_mix_specs(cfg)
+    return {"wi": P(FSDP, TP), "wg": P(FSDP, TP), "wo": P(TP, FSDP)}
+
+
 def init_layer(gen, cfg, mixer: str, ffn: str, *, d_ff: int | None = None):
     k1, k2 = nn.split_keys(gen, 2)
     return {
@@ -147,6 +169,15 @@ def init_layer(gen, cfg, mixer: str, ffn: str, *, d_ff: int | None = None):
         "mixer": _MIXERS[mixer][0](k1, cfg),
         "norm2": torch.zeros((cfg.d_model,), dtype=cfg.pdtype),
         "ffn": _init_ffn(k2, cfg, ffn, d_ff=d_ff),
+    }
+
+
+def layer_specs(cfg, mixer: str, ffn: str):
+    return {
+        "norm1": P(None),
+        "mixer": _MIXER_SPECS[mixer][0](cfg),
+        "norm2": P(None),
+        "ffn": _ffn_specs(cfg, ffn),
     }
 
 
@@ -230,6 +261,23 @@ def init_params(gen: torch.Generator, cfg, *, device="cpu") -> nn.Params:
     blocks = {f"pos{pos}": _stack(ls) for pos, ls in enumerate(layers)}
     params["blocks"] = blocks
     return params
+
+
+def stack_spec(s: P) -> P:
+    """A stacked leaf's spec: the block axis replicated."""
+    return P(None, *s)
+
+
+def param_specs(cfg) -> nn.Specs:
+    specs: dict[str, Any] = {"embed": P(TP, FSDP), "final_norm": P(None)}
+    if not cfg.tie_embeddings:
+        specs["head"] = P(FSDP, TP)
+    if cfg.first_dense:
+        specs["first"] = [layer_specs(cfg, _first_mixer(cfg), "dense")
+                          for _ in range(cfg.first_dense)]
+    specs["blocks"] = {f"pos{pos}": tree_map(stack_spec, layer_specs(cfg, mixer, ffn))
+                       for pos, (mixer, ffn) in enumerate(layer_pattern(cfg))}
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -367,6 +415,25 @@ def cache_shapes(cfg, batch: int, max_len: int):
     if cfg.first_dense:
         out["first"] = [_layer_cache(cfg, _first_mixer(cfg), batch, max_len)
                         for _ in range(cfg.first_dense)]
+    return out
+
+
+def _layer_cache_specs(cfg, mixer: str) -> dict:
+    spec = _MIXER_SPECS[mixer][1](cfg)
+    if mixer == "rwkv":
+        return {"mix": spec["tm"], "ffn": spec["cm"]}
+    return {"mix": spec}
+
+
+def cache_specs(cfg) -> dict:
+    """The specs of ``cache_shapes``' tree (the second half of the
+    reference's ``cache_shapes``)."""
+    out: dict[str, Any] = {"blocks": {
+        f"pos{pos}": tree_map(stack_spec, _layer_cache_specs(cfg, mixer))
+        for pos, (mixer, _) in enumerate(layer_pattern(cfg))
+    }}
+    if cfg.first_dense:
+        out["first"] = [_layer_cache_specs(cfg, _first_mixer(cfg)) for _ in range(cfg.first_dense)]
     return out
 
 

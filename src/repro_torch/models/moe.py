@@ -28,7 +28,9 @@ are dropped.  Nothing here adds with atomics (no ``index_add_`` or
 ``scatter_add_``): remat recomputes the routing in the backward and must
 route the same way.
 
-``moe_specs`` comes with ``launch/specs.py`` (ROADMAP §1 item 7).
+``moe_specs`` is the sharding twin of ``init_moe``: the expert stacks
+sharded over ``model`` by expert and over the FSDP axes by their input or
+output width, the router replicated.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from . import nn
-from .nn import dense_init
+from .nn import FSDP, TP, P, dense_init
 
 
 def init_moe(gen: torch.Generator, cfg) -> nn.Params:
@@ -60,6 +62,18 @@ def init_moe(gen: torch.Generator, cfg) -> nn.Params:
             "wo": dense_init(kk[2], sff, (d,), dt),
         }
     return p
+
+
+def moe_specs(cfg) -> nn.Specs:
+    s = {
+        "router": P(None, None),
+        "wi": P(TP, FSDP, None),
+        "wg": P(TP, FSDP, None),
+        "wo": P(TP, None, FSDP),
+    }
+    if cfg.moe_num_shared:
+        s["shared"] = {"wi": P(FSDP, TP), "wg": P(FSDP, TP), "wo": P(TP, FSDP)}
+    return s
 
 
 def _expert_init(gen: torch.Generator, E: int, din: int, dout: int, dt) -> torch.Tensor:

@@ -12,16 +12,27 @@ each submodule's draws depend only on its own generator, as each JAX key
 does.  The port's draws are its own: tests that compare with the JAX
 package pass the reference's parameters in.
 
-The reference's sharding helpers (``resolve_specs``, ``shardings_for``,
-``constrain``, ``set_activation_axes`` and the ``FSDP``/``TP``/``DP``
-placeholders) belong with ``launch/specs.py``, which is not ported yet;
-``constrain`` is a no-op on one device, so the dense forward leaves its
-calls out.
+The sharding half: every ``init_*`` function of the model modules has a
+``*_specs`` twin returning a tree of the same structure whose leaves are
+``P`` partition specs, written with the logical placeholders ``FSDP``,
+``TP`` and ``DP``; ``resolve_specs`` turns those into mesh axis names,
+and ``shardings_for`` into ``torch.distributed`` DTensor placements on a
+``DeviceMesh`` (``launch/mesh.py``).  ``P`` is a tuple, so a spec equals
+the reference's ``PartitionSpec`` read as a tuple (a one-axis tuple part
+is that axis, as JAX normalises it).  A tensor dim sharded over several
+mesh axes (``("pod", "data")``) is ``Shard(d)`` on each of them; DTensor
+splits in mesh-dim order, which is JAX's major-to-minor order only for a
+tuple in mesh order, so ``placements`` refuses any other.
+
+``constrain`` redistributes a DTensor and hands a plain tensor back
+unchanged (the reference's is a no-op without a mesh).  The forward
+passes do not call it yet: they run on one device or one pod per rank
+(ROADMAP §1, running a step over ``data`` / ``model`` axes).
 """
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +41,94 @@ import torch.utils.checkpoint
 from ..pytree import leaves, tree_map
 
 Params = Any  # nested dict of tensors
+Specs = Any  # same-structure tree of P
+
+# Logical axis names used inside spec trees; ``resolve_specs`` substitutes
+# the concrete mesh axis names.
+FSDP = "__fsdp__"
+TP = "__tp__"
+DP = "__dp__"
+
+
+class P(tuple):
+    """A partition spec: one part per tensor dim, each None (replicated), a
+    mesh axis name or a tuple of them (a one-name tuple is that name)."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, (
+            (p[0] if len(p) == 1 else (p or None)) if isinstance(p, tuple) else p
+            for p in parts))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def resolve_specs(tree: Specs, *, multi_pod: bool) -> Specs:
+    """Replace logical axis placeholders with concrete mesh axis names."""
+    fsdp = ("pod", "data") if multi_pod else ("data",)
+    dp = ("pod", "data") if multi_pod else ("data",)
+
+    def fix(spec):
+        out = []
+        for part in spec:
+            if part == FSDP:
+                out.append(fsdp)
+            elif part == DP:
+                out.append(dp)
+            elif part == TP:
+                out.append("model")
+            elif isinstance(part, tuple):
+                sub: list = []
+                for q in part:
+                    if q == FSDP:
+                        sub.extend(fsdp)
+                    elif q == TP:
+                        sub.append("model")
+                    else:
+                        sub.append(q)
+                out.append(tuple(sub))
+            else:
+                out.append(part)
+        return P(*out)
+
+    return tree_map(fix, tree)
+
+
+def placements(spec: P, mesh) -> tuple:
+    """The DTensor placements of ``spec`` on ``mesh``: per mesh dim,
+    ``Shard(d)`` for the tensor dim ``d`` its name shards, else
+    ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    out = [Replicate() for _ in names]
+    for d, part in enumerate(spec):
+        if part is None:
+            continue
+        axes = part if isinstance(part, tuple) else (part,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"{spec}: the axes {axes} of dim {d} are not in mesh order {names}")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+class NamedSharding(NamedTuple):
+    """A spec on a mesh with its DTensor placements (the reference's
+    ``jax.sharding.NamedSharding``); ``named_sharding`` makes one."""
+
+    mesh: Any
+    spec: P
+    placements: tuple
+
+
+def named_sharding(mesh, spec: P) -> NamedSharding:
+    return NamedSharding(mesh, spec, placements(spec, mesh))
+
+
+def shardings_for(tree_specs: Specs, mesh) -> Any:
+    return tree_map(lambda s: named_sharding(mesh, s), tree_specs)
 
 # the standard normal's CDF at -2 and 2, as 2 * Phi(x) - 1 = erf(x / sqrt 2)
 _ERF_LO, _ERF_HI = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
@@ -170,3 +269,51 @@ def count_params(params: Params) -> int:
 
 def cast_tree(params: Params, dtype) -> Params:
     return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, params)
+
+
+# ---------------------------------------------------------------------------
+# activation sharding hook: configured by the launcher (``launch/specs.py``);
+# without it, and on a plain tensor, ``constrain`` changes nothing.
+
+_ACT_AXES: dict[str, Any] = {"dp": None, "tp": None, "sp": None, "sizes": {}}
+
+
+def set_activation_axes(dp=None, tp=None, sp=None, sizes: dict | None = None) -> None:
+    """dp: batch axes; tp: tensor axis; sp: sequence-parallel axis (saved
+    residuals between blocks are sharded over it, Megatron-SP style)."""
+    _ACT_AXES["dp"] = dp
+    _ACT_AXES["tp"] = tp
+    _ACT_AXES["sp"] = sp
+    _ACT_AXES["sizes"] = sizes or {}
+
+
+def _axis_size(axis) -> int:
+    sizes = _ACT_AXES["sizes"]
+    if axis is None:
+        return 1
+    if isinstance(axis, tuple):
+        n = 1
+        for a in axis:
+            n *= sizes.get(a, 1)
+        return n
+    return sizes.get(axis, 1)
+
+
+def constrain(x: torch.Tensor, dims) -> torch.Tensor:
+    """dims: a tuple like ('dp', None, 'tp'), resolved through
+    ``set_activation_axes``.  Axes that do not evenly divide their dim are
+    dropped (batch-1 decode, a sequence shorter than the model axis).  A
+    DTensor is redistributed to the resulting placements on its own mesh;
+    a plain tensor comes back unchanged."""
+    from torch.distributed.tensor import DTensor
+
+    axes = []
+    for i, d in enumerate(dims):
+        a = _ACT_AXES.get(d) if isinstance(d, str) else None
+        if a is not None and _ACT_AXES["sizes"]:
+            if i >= x.ndim or x.shape[i] % _axis_size(a) != 0:
+                a = None
+        axes.append(a)
+    if all(a is None for a in axes) or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, placements(P(*axes), x.device_mesh))

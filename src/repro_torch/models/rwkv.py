@@ -22,8 +22,10 @@ decay is data dependent (Finch): ``w_t = exp(-exp(w0 + tanh(x W_a) W_b))``.
   cache (token shifts and state) in place and returns it, as the
   attention layers' decode does.
 
-``silu`` is ``x * sigmoid(x)`` (``nn.silu``).  The ``*_specs`` functions
-come with ``launch/specs.py`` (ROADMAP §1 item 7).
+``silu`` is ``x * sigmoid(x)`` (``nn.silu``).  ``time_mix_specs`` and
+``channel_mix_specs`` are the sharding twins of the two inits; the cache's
+specs come from ``rwkv_cache_specs(cfg)``, beside ``rwkv_cache_shape``
+(the reference's returns both).
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import torch
 
 from ..pytree import tree_map
 from . import nn
-from .nn import dense_init
+from .nn import DP, FSDP, TP, P, dense_init
 
 HEAD_DIM = 64
 DECAY_LORA = 64
@@ -63,6 +65,18 @@ def init_time_mix(gen: torch.Generator, cfg) -> nn.Params:
     return p
 
 
+def time_mix_specs(cfg) -> nn.Specs:
+    mat = P(FSDP, TP)
+    vec = P(None)
+    return {
+        "mix_r": vec, "mix_k": vec, "mix_v": vec, "mix_w": vec, "mix_g": vec,
+        "w_r": mat, "w_k": mat, "w_v": mat, "w_g": mat,
+        "w_o": P(TP, FSDP),
+        "decay_a": P(FSDP, None), "decay_b": P(None, TP),
+        "decay_0": vec, "bonus_u": vec, "ln_scale": vec, "ln_bias": vec,
+    }
+
+
 def init_channel_mix(gen: torch.Generator, cfg) -> nn.Params:
     d, dff = cfg.d_model, cfg.d_ff
     ks = nn.split_keys(gen, 3)
@@ -73,6 +87,13 @@ def init_channel_mix(gen: torch.Generator, cfg) -> nn.Params:
         "w_k": dense_init(ks[0], d, (dff,), dt),
         "w_v": dense_init(ks[1], dff, (d,), dt),
         "w_r": dense_init(ks[2], d, (d,), dt),
+    }
+
+
+def channel_mix_specs(cfg) -> nn.Specs:
+    return {
+        "mix_k": P(None), "mix_r": P(None),
+        "w_k": P(FSDP, TP), "w_v": P(TP, FSDP), "w_r": P(FSDP, TP),
     }
 
 
@@ -207,6 +228,13 @@ def rwkv_cache_shape(cfg, batch: int, max_len: int) -> dict:
     state = torch.empty((batch, num_heads(cfg), HEAD_DIM, HEAD_DIM), dtype=torch.float32,
                         device="meta")
     return {"tm": {"shift": shift, "state": state}, "cm": {"shift": shift}}
+
+
+def rwkv_cache_specs(cfg) -> dict:
+    return {
+        "tm": {"shift": P(DP, None), "state": P(DP, TP, None, None)},
+        "cm": {"shift": P(DP, None)},
+    }
 
 
 def rwkv_init_cache(cfg, batch: int, max_len: int, device=None) -> dict:

@@ -34,7 +34,9 @@ length; the port keeps the last ``d_conv - 1`` inputs of the zero-padded
 sequence, the history the causal conv itself saw.  From ``d_conv - 1``
 tokens on the two are the same slice.
 
-``mamba_specs`` comes with ``launch/specs.py`` (ROADMAP §1 item 7).
+``mamba_specs`` is the sharding twin of ``init_mamba`` (the inner width
+over ``model``); the cache's specs come from ``mamba_cache_specs(cfg)``,
+beside ``mamba_cache_shape`` (the reference's returns both).
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ import torch.nn.functional as F
 
 from ..pytree import tree_map
 from . import nn
-from .nn import dense_init
+from .nn import DP, FSDP, TP, P, dense_init
 
 
 def d_inner(cfg) -> int:
@@ -69,6 +71,20 @@ def init_mamba(gen: torch.Generator, cfg) -> nn.Params:
         "A_log": torch.log(A),
         "D": torch.ones((di,), dtype=torch.float32),
         "out_proj": dense_init(ks[4], di, (d,), dt),
+    }
+
+
+def mamba_specs(cfg) -> nn.Specs:
+    return {
+        "in_proj": P(FSDP, TP),
+        "conv_w": P(None, TP),
+        "conv_b": P(TP),
+        "x_proj": P(TP, None),
+        "dt_w": P(None, TP),
+        "dt_b": P(TP),
+        "A_log": P(TP, None),
+        "D": P(TP),
+        "out_proj": P(TP, FSDP),
     }
 
 
@@ -219,6 +235,10 @@ def mamba_cache_shape(cfg, batch: int, max_len: int) -> dict:
         "conv": torch.empty((batch, cfg.d_conv - 1, di), dtype=cfg.adtype, device="meta"),
         "h": torch.empty((batch, di, cfg.d_state), dtype=torch.float32, device="meta"),
     }
+
+
+def mamba_cache_specs(cfg) -> dict:
+    return {"conv": P(DP, None, TP), "h": P(DP, TP, None)}
 
 
 def mamba_init_cache(cfg, batch: int, max_len: int, device=None) -> dict:

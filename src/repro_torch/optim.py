@@ -18,8 +18,13 @@ or contract some of them (``b1 * m + (1 - b1) * g``) where eager
 PyTorch rounds each step, and the bias correction ``b1 ** step`` is an
 f32 ``pow`` whose last bit may differ between libms: the port agrees
 with the JAX package to rtol 1e-6 (``tests/test_torch_optim.py``), not
-bit for bit.  ``state_specs`` (the sharding specs of the state) comes
-with ``launch/specs.py`` (ROADMAP §1 item 7).
+bit for bit.  ``opt.state_specs(pspecs, pshapes)`` gives the state's
+sharding specs (``models.nn.P``) from the parameters' specs and shapes
+(anything with ``.shape``, meta tensors in ``launch/specs.py``): the
+moments take their parameter's spec, the step is replicated, and
+adafactor's factored ``vr`` / ``vc`` drop the factored axis.
+``update_in_place`` runs ``opt.update`` one leaf at a time into the
+state's own tensors (the update of ``fl/steps``' podded steps).
 """
 from __future__ import annotations
 
@@ -27,12 +32,14 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from .models.nn import P
 from .pytree import leaves, tree_map, unflatten_like
 
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], tuple[Any, Any]]
+    state_specs: Callable[[Any, Any], Any]
 
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
@@ -70,7 +77,13 @@ def sgd(lr: float, momentum: float = 0.0, weight_decay: float = 0.0) -> Optimize
         )
         return newp, {"step": step}
 
-    return Optimizer(init, update)
+    def state_specs(pspecs, pshapes):
+        st = {"step": P()}
+        if momentum:
+            st["mu"] = pspecs
+        return st
+
+    return Optimizer(init, update, state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +126,13 @@ def adamw(
             newst["master"] = new_master
         return newp, newst
 
-    return Optimizer(init, update)
+    def state_specs(pspecs, pshapes):
+        st = {"step": P(), "m": pspecs, "v": pspecs}
+        if keep_master:
+            st["master"] = pspecs
+        return st
+
+    return Optimizer(init, update, state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +205,21 @@ def adafactor(
         newv = unflatten_like(params, [o[1] for o in out])
         return newp, {"step": step, "v": newv}
 
-    return Optimizer(init, update)
+    def state_specs(pspecs, pshapes):
+        def per_param(spec, shp):
+            f = _factored_dims(tuple(shp.shape), min_dim_size_to_factor)
+            parts = list(spec) + [None] * (len(shp.shape) - len(spec))
+            if f is None:
+                return {"v": P(*parts)}
+            r, c = f
+            return {
+                "vr": P(*(x for i, x in enumerate(parts) if i != c)),
+                "vc": P(*(x for i, x in enumerate(parts) if i != r)),
+            }
+
+        return {"step": P(), "v": tree_map(per_param, pspecs, pshapes)}
+
+    return Optimizer(init, update, state_specs)
 
 
 def _per_leaf(tree, like) -> list:
@@ -194,6 +227,26 @@ def _per_leaf(tree, like) -> list:
     out = []
     tree_map(lambda _, sub: out.append(sub), like, tree)
     return out
+
+
+def update_in_place(opt: Optimizer, grads, state, params) -> None:
+    """``opt.update`` one parameter leaf at a time, each leaf's new values
+    copied into ``params``' and ``state``'s own tensors (``state["step"]``
+    too, at the end): the same arithmetic, since every optimizer here maps
+    leaf by leaf around one shared step count, while a second copy of the
+    whole state never exists, only one leaf's new values.  ``params`` and
+    ``state`` may be views into larger tensors (one pod's of a podded
+    state)."""
+    keys = [k for k in state if k != "step"]
+    per = {k: _per_leaf(state[k], params) for k in keys}
+    step = state["step"]
+    for i, (p, g) in enumerate(zip(leaves(params), leaves(grads))):
+        new_p, new_st = opt.update(g, {"step": state["step"], **{k: per[k][i] for k in keys}}, p)
+        p.copy_(new_p)
+        for k in keys:
+            tree_map(lambda dst, src: dst.copy_(src), per[k][i], new_st[k])
+        step = new_st["step"]
+    state["step"].copy_(step)
 
 
 def make_optimizer(cfg) -> Optimizer:

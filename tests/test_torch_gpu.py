@@ -935,3 +935,32 @@ def test_q8_hop_lattice_on_card_bit_equal_to_cpu(cuda):
         rq, rs = ops.qsgd_quantize(rows, half)
         assert torch.equal(q.cpu(), rq) and torch.equal(s.cpu(), rs)
         assert torch.equal(agg_card[k].cpu(), agg_cpu[k])
+
+
+def test_cross_pod_q8_on_card_through_a_gloo_group(cuda, tmp_path):
+    """``hierarchy.cross_pod_q8`` on CUDA tensors over a gloo ``pod`` group
+    of one rank: its rows and scales go through pinned host buffers; one
+    quantize and one dequantize launch a leaf; bit-equal to
+    ``q8_mean_over_pods`` of the one pod on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.fl import hierarchy, steps
+    from repro_torch.launch import mesh as mesh_mod
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_mod._mk((1, 1, 1), ("pod", "data", "model"), "cuda")
+        gen = torch.Generator().manual_seed(6)
+        g = {"a": torch.randn(22, 2048, generator=gen).to(cuda),
+             "b": torch.randn(300, generator=gen).to(cuda)}
+        before = dict(qz.launches)
+        got = hierarchy.cross_pod_q8(g, 1, mesh=mesh)
+        torch.cuda.synchronize()
+        assert qz.launches["qsgd_quantize"] == before["qsgd_quantize"] + 2
+        assert qz.launches["qsgd_dequantize"] == before["qsgd_dequantize"] + 2
+        want = steps.q8_mean_over_pods({k: v[None] for k, v in g.items()})
+        for k in g:
+            assert got[k].is_cuda and torch.equal(got[k], want[k])
+    finally:
+        dist.destroy_process_group()
