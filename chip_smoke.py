@@ -81,7 +81,8 @@ the CPU):
       prefill and LM_GEN - 1 greedy decodes at batch 4, prompt 32) on
       tinyllama-1.1b at full width and depth (22 layers, bf16) and on
       qwen3-8b at full width cut to 4 layers, weights from
-      ``lm.init_params`` with a seeded CPU generator: every decode's
+      ``lm.init_params`` with a seeded CPU generator, each truncated
+      normal drawn on the card (``drawn_on_card``): every decode's
       logits within LM_BF16_REL of the largest logit magnitude of the
       train-mode forward over the same positions, the tokens their argmax;
       then the same tinyllama run with each of DECODE_FAULTS planted in the
@@ -204,7 +205,8 @@ the CPU):
          only): each of RECURRENT_F32_FAULTS;
       b. rwkv6-7b at full width and depth (32 layers) through
          ``launch/serve``'s functions (batch 4, prompt 32, 16 generated),
-         the weights from one seeded init with every constant-at-init leaf
+         the weights from one seeded init (``drawn_on_card``) with every
+         constant-at-init leaf
          (mix_*, decay_0, bonus_u, ln_*) redrawn from RWKV_LEAF_SEED:
          decode against the train forward in f32 within
          RWKV_F32_DECODE_REL of the largest logit, each of
@@ -518,6 +520,35 @@ RANK_ARCH, RANK_PODS, RANK_LAYERS = "tinyllama-1.1b", 2, 22
 RANK_FAULTS = ("the gathered pods swapped", "each rank's own scales for both pods")
 RANK_KERNEL_FAULT = HOP_FAULTS[0]
 RANK_TIMEOUT_S = 600
+# The dense family's step sharded inside a pod (phase 4j): tinyllama-1.1b at
+# full width on SHARD_RANKS gloo ranks sharing the one card, a SHARD_MESH
+# ("data", "model") mesh, totoro_tree, the parameters and the batch DTensors
+# placed by launch/specs, every collective staged through pinned host
+# buffers (launch/mesh.stage_through_host).  a: SHARD_F32_LAYERS layers in
+# f32 (TF32 off), B SHARD_F32_BATCH, S SHARD_F32_SEQ, one sharded step
+# against the same step in one process on the card: the loss within
+# TRAIN_LOSS_RTOL, every state leaf within TRAIN_GRAD_REL of its largest;
+# AdamW's first update moves a weight by lr g / (|g| + 1e-8), which turns a
+# gradient's last bits into up to 2 lr where |g| is ~1e-8, so the weights
+# are held to the single-process weights moved by lr times the difference
+# of the two runs' AdamW directions (each from its own m and v), the
+# gradients through m and v; each of SHARD_FAULTS, planted at run time in
+# every rank, must fail the gate.  b: SHARD_LAYERS
+# layers in bf16, B TRAIN_BATCH, S TRAIN_SEQ, SHARD_STEPS steps of
+# launch/train.train(mesh=...); the losses within SHARD_BF16_LOSS_RTOL of the
+# same steps in one process: the card read 1.15e-5 at these 4 layers (two
+# runs, 5.59e-6 at 12), so 1e-4 is about 9x that; then SHARD_B_FAULT planted
+# for SHARD_B_FAULT_STEPS steps of the same run must read above the bound
+# (the gradient fault shows from the second step's loss on); the ranks are
+# killed after SHARD_TIMEOUT_S
+SHARD_ARCH, SHARD_RANKS, SHARD_MESH, SHARD_AXES = "tinyllama-1.1b", 4, (2, 2), ("data", "model")
+SHARD_F32_LAYERS, SHARD_F32_BATCH, SHARD_F32_SEQ = 2, 4, 128
+SHARD_LAYERS, SHARD_STEPS = 4, 3
+SHARD_BF16_LOSS_RTOL = 1e-4
+SHARD_FAULTS = ("wo's model reduction dropped", "the data gradient reduction skipped",
+                "one data shard a copy of the other")
+SHARD_B_FAULT, SHARD_B_FAULT_STEPS = SHARD_FAULTS[1], 2
+SHARD_TIMEOUT_S = 600
 
 KERNELS = [
     {
@@ -1784,7 +1815,8 @@ class LogitsRecorder:
 
 def serve_on_card(torch, cfg, *, seed: int = 0) -> dict:
     """One model through ``launch/serve``'s functions on the card: weights
-    from ``lm.init_params`` (seeded CPU generator), a random prompt, one
+    from ``lm.init_params`` (seeded CPU generator, ``drawn_on_card``), a
+    random prompt, one
     prefill and LM_GEN - 1 greedy decodes; the decode logits held against
     the train-mode forward over the same LM_PROMPT + LM_GEN - 1 positions
     within LM_BF16_REL of its largest logit magnitude."""
@@ -1793,7 +1825,8 @@ def serve_on_card(torch, cfg, *, seed: int = 0) -> dict:
     from repro_torch.pytree import leaves
 
     t0 = time.perf_counter()
-    params = lm.init_params(torch.Generator().manual_seed(seed), cfg, device="cuda")
+    with drawn_on_card():
+        params = lm.init_params(torch.Generator().manual_seed(seed), cfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     batch = serve.make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator().manual_seed(seed + 1), "cuda")
@@ -2350,6 +2383,34 @@ def _profile_step(torch, fn) -> dict:
             "qsgd_dequantize": sum(e.self_device_time_total for e in dev
                                    if "dequantize_rows" in e.key) / 1e3},
     }
+
+
+@contextmanager
+def drawn_on_card():
+    """For the block, ``nn.truncated_normal_init`` draws on the card: the
+    same law (a uniform's inverse CDF, clipped to [-2, 2]) from a CUDA
+    generator seeded by the next draw of the CPU generator it is handed,
+    so a full-size init spends no host time on its draws (rwkv6-7b's
+    7.53e9 took 60.9 s on the host).  The weights are another draw of the
+    same law, a function of the seed as before."""
+    import math
+
+    import torch
+
+    from repro_torch.models import nn
+
+    def make(_host_draws):
+        def on_card(gen, shape, dtype, stddev):
+            seed = int(torch.randint(0, 2**62, (1,), generator=gen))
+            t = torch.empty(tuple(shape), dtype=torch.float32, device="cuda")
+            t.uniform_(nn._ERF_LO, nn._ERF_HI,
+                       generator=torch.Generator(device="cuda").manual_seed(seed))
+            t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+            return t.mul_(stddev).to(dtype)
+        return on_card
+
+    with planted(nn, "truncated_normal_init", make):
+        yield
 
 
 @contextmanager
@@ -3184,7 +3245,8 @@ def rwkv_decode_readings(torch, cfg, params, batch) -> dict:
 def serve_rwkv(torch, smi: str) -> dict:
     """b: RWKV_ARCH at full width and RWKV_SERVE_LAYERS layers through
     ``launch/serve``'s functions, weights from one seeded ``lm.init_params``
-    (its init time recorded) with the constant-at-init leaves redrawn
+    (``drawn_on_card``, its init time recorded) with the constant-at-init
+    leaves redrawn
     (``randomised_rwkv_leaves``).  ``rwkv_decode_readings`` in f32 (TF32
     off), then on the same weights in the config's bf16 layout
     (``decay_0`` and ``bonus_u`` stay f32); prefill ms, decode ms/token
@@ -3199,7 +3261,8 @@ def serve_rwkv(torch, smi: str) -> dict:
     cfg = configs.get_config(RWKV_ARCH).replace(num_layers=RWKV_SERVE_LAYERS)
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
     t0 = time.perf_counter()
-    params = lm.init_params(torch.Generator().manual_seed(35), cfg32, device="cuda")
+    with drawn_on_card():
+        params = lm.init_params(torch.Generator().manual_seed(35), cfg32, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     randomised_rwkv_leaves(torch, params, RWKV_LEAF_SEED)
@@ -4025,6 +4088,350 @@ def log_pod_ranks(pods: dict, smi: str) -> None:
         log(f"[4i pod ranks] rank {r['rank']}: {json.dumps(r)}")
 
 
+@contextmanager
+def shard_fault(kind: str):
+    """One of SHARD_FAULTS planted in the port at run time (in a rank of
+    phase 4j): the attention's ``wo`` output (``lm``'s attention mixer
+    entry), a partial sum over ``model``, read as already reduced; every parameter gradient's partial sum over
+    ``data`` read as reduced (the FSDP gathers' backward and the grads'
+    placement), so each data rank keeps its own batch's share; the batch
+    placed with data rank 0's rows on every data rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch import optim
+    from repro_torch.launch import specs
+    from repro_torch.models import lm, nn
+
+    def unreduced(t, axis):
+        """``t`` with its partial sums over ``axis`` read as replicated."""
+        names = t.device_mesh.mesh_dim_names
+        pls = [Replicate() if n == axis and isinstance(pl, Partial) else pl
+               for n, pl in zip(names, t.placements)]
+        return DTensor.from_local(t.to_local(), t.device_mesh, pls, shape=t.shape,
+                                  stride=t.stride())
+
+    if kind == SHARD_FAULTS[0]:
+        def make(entry):
+            def gqa(*a, **k):
+                out, cache = entry[1](*a, **k)
+                return (unreduced(out, "model") if isinstance(out, DTensor) else out), cache
+            return (entry[0], gqa, entry[2])
+        ctx = planted(lm._MIXERS, "attn", make)
+    elif kind == SHARD_FAULTS[1]:
+        import torch
+
+        class Gather(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, w, gather):
+                ctx.placements = w.placements
+                return gather(w.detach())
+
+            @staticmethod
+            def backward(ctx, g):
+                g = unreduced(g, "data")
+                return g.redistribute(g.device_mesh, ctx.placements), None
+
+        def make_gather(orig):
+            return lambda w: Gather.apply(w, orig) if isinstance(w, DTensor) else w
+
+        def make_placed(orig):
+            return lambda t, like: orig(unreduced(t, "data") if isinstance(t, DTensor) else t,
+                                        like)
+
+        @contextmanager
+        def both():
+            with planted(nn, "gather_fsdp", make_gather), \
+                    planted(optim, "placed_like", make_placed):
+                yield
+        ctx = both()
+    elif kind == SHARD_FAULTS[2]:
+        def make(orig):
+            def place(tree, shardings):
+                out = orig(tree, shardings)
+                if "labels" not in tree:
+                    return out
+                fixed = {}
+                for k, t in tree.items():
+                    d = out[k]
+                    mesh = d.device_mesh
+                    first = t.chunk(mesh.size(mesh.mesh_dim_names.index("data")), 0)[0]
+                    fixed[k] = DTensor.from_local(first.contiguous(), mesh, d.placements,
+                                                  shape=d.shape, stride=d.stride())
+                return fixed
+            return place
+        ctx = planted(specs, "place", make)
+    else:
+        raise ValueError(kind)
+    with ctx:
+        yield
+
+
+def _adam_direction(m, v):
+    """AdamW's first-step direction from its moments, in f64: (m / c1) /
+    (sqrt(v / c2) + eps) at step 1 under the optimizer's defaults."""
+    c1, c2 = 1.0 - 0.9, 1.0 - 0.95
+    return (m.double() / c1) / ((v.double() / c2).sqrt() + 1e-8)
+
+
+def shard_readings(torch, state, want: dict, lr: float) -> tuple:
+    """Phase 4j a on one rank: each state leaf's shard (a DTensor of the
+    sharded step's state) against the same slice of the single-process
+    step's leaf (``want``: leaf path -> the whole leaf, this rank's own
+    run): the largest difference.  A weight (parameters, master) is held
+    to the single-process weight moved by lr times the difference of the
+    two runs' AdamW directions, each from its own m and v: the first
+    update, lr g / (|g| + 1e-8), turns a gradient's rounding into up to
+    2 lr where |g| is ~1e-8, so the weights are compared after that map
+    and the gradients through m and v.  Returns (paths, a (leaves,) f64
+    tensor)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.ckpt import key_paths
+    from repro_torch.pytree import leaves
+
+    paths = key_paths(state)
+    local = dict(zip(paths, (t.to_local() for t in leaves(state))))
+    rows = []
+    for path, t in zip(paths, leaves(state)):
+        def mine(whole):
+            return distribute_tensor(whole, t.device_mesh, t.placements,
+                                     src_data_rank=None).to_local()
+        w = mine(want[path]).double()
+        if path.startswith(("params/", "opt/master/")):
+            leaf = path.split("/", 1)[1].removeprefix("master/")
+            m, v = f"opt/m/{leaf}", f"opt/v/{leaf}"
+            w = w - lr * (_adam_direction(local[m], local[v])
+                          - _adam_direction(mine(want[m]), mine(want[v])))
+        d = (local[path].double() - w).abs()
+        rows.append(float(d.max()) if d.numel() else 0.0)
+    return paths, torch.tensor(rows, dtype=torch.float64)
+
+
+def shard_gate(readings, want: dict, loss: float) -> dict:
+    """Phase 4j a's gate from every rank's ``shard_readings`` (their
+    element-wise max, ``readings``): the loss within TRAIN_LOSS_RTOL and
+    each leaf's largest difference within TRAIN_GRAD_REL of its largest
+    magnitude."""
+    paths, rows = readings
+    rel = {p: float(r) / max(float(want[p].float().abs().max()), 1e-30)
+           for p, r in zip(paths, rows)}
+    out = {"loss_rel": abs(loss - want["loss"]) / abs(want["loss"]), "leaf_rel": rel,
+           "leaf_rel_max": max(rel.values())}
+    out["passed"] = out["loss_rel"] <= TRAIN_LOSS_RTOL and out["leaf_rel_max"] <= TRAIN_GRAD_REL
+    return out
+
+
+def shard_rank(rank: int, tmp: str, layers: int) -> None:
+    """One rank of phase 4j (spawned): a, the f32 gate and its planted
+    faults (launch/train's seed-0 parameters and first batch, drawn once;
+    the single-process step on every rank, each rank reading its own
+    shards against it); b, the bf16 run through ``launch/train.train``
+    with its collectives logged.  Writes ``tmp/rank{rank}.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # every rank on this host
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=SHARD_RANKS,
+                            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        from repro_torch import configs
+        from repro_torch.config import RunPlan, ShapeSpec
+        from repro_torch.fl import steps
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.launch import specs, train
+        from repro_torch.models import lm
+        from repro_torch.pytree import key_paths, leaves
+
+        t0 = time.perf_counter()
+        mesh = mesh_mod._mk(SHARD_MESH, SHARD_AXES, "cuda")
+        tiny = configs.get_config(SHARD_ARCH)
+        plan = RunPlan(aggregation="totoro_tree")
+        f32 = cut_depth(tiny, SHARD_F32_LAYERS).replace(dtype="float32", param_dtype="float32")
+        # launch/train's seed-0 parameters and first batch, drawn once
+        params = lm.init_params(torch.Generator().manual_seed(0), f32, device="cuda")
+        batch = train.make_batch(f32, train.StreamConfig(f32.vocab_size, SHARD_F32_SEQ,
+                                                         SHARD_F32_BATCH), 0, None, "cuda")
+        state, metrics = steps.build_train_step(f32, plan)(steps.init_train_state(f32, params),
+                                                           batch)  # one process, every rank
+        want = dict(zip(key_paths(state), leaves(state)), loss=float(metrics["loss"]))
+        del state
+        state_sh, batch_sh = specs.cell_for(f32, ShapeSpec("4j a", "train", SHARD_F32_SEQ,
+                                                           SHARD_F32_BATCH), plan,
+                                            mesh).in_shardings
+        step = steps.build_train_step(f32, plan, mesh=mesh)
+        gate = {}
+        for kind in ("sound",) + SHARD_FAULTS:
+            with nullcontext() if kind == "sound" else shard_fault(kind):
+                state = specs.place(steps.init_train_state(f32, specs.place(
+                    params, state_sh["params"])), state_sh)
+                state, metrics = step(state, specs.place(batch, batch_sh))
+            paths, rows = shard_readings(torch, state, want, f32.learning_rate)
+            dist.all_reduce(rows, op=dist.ReduceOp.MAX)  # a CPU tensor: gloo as it is
+            gate[kind] = shard_gate((paths, rows), want, float(metrics["loss"].full_tensor()))
+            del state
+        del want, params
+        torch.cuda.empty_cache()
+        gate_s = time.perf_counter() - t0
+
+        cfg = cut_depth(tiny, layers)
+        torch.cuda.reset_peak_memory_stats()
+        mesh_mod.reset_wire()
+        set_counts(dict.fromkeys(COUNTED, 0))
+        with mesh_mod.CollectiveLog(mesh) as coll:
+            t0 = time.perf_counter()
+            run = train.train(cfg, plan, steps=SHARD_STEPS, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, device="cuda", mesh=mesh,
+                              log=lambda *a: None)
+            wall = time.perf_counter() - t0
+        wire = mesh_mod.wire_stats()
+        launches, peak_gb = counts(), torch.cuda.max_memory_allocated() / 1e9
+        with shard_fault(SHARD_B_FAULT):  # the same run's first steps, faulted
+            faulted = train.train(cfg, plan, steps=SHARD_B_FAULT_STEPS, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, device="cuda", mesh=mesh,
+                                  log=lambda *a: None)["losses"]
+        out = {
+            "rank": rank, "coords": {a: mesh.get_local_rank(a) for a in SHARD_AXES},
+            "gate": gate, "layers": cfg.num_layers, "losses": run["losses"],
+            "step_ms": run["step_ms"], "launches": launches, "faulted_losses": faulted,
+            "peak_mem_gb": peak_gb,
+            "collectives_per_step": {k: {"count": v["count"] / SHARD_STEPS,
+                                         "bytes": v["bytes"] / SHARD_STEPS}
+                                     for k, v in coll.summary().items()},
+            "wire_per_step": {k: {"calls": v["calls"] / SHARD_STEPS,
+                                  "ms": v["seconds"] * 1e3 / SHARD_STEPS,
+                                  "bytes": v["bytes"] / SHARD_STEPS} for k, v in wire.items()},
+            "train_wall_s": wall, "gate_s": gate_s,
+        }
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def drive_shard_ranks(torch, smi: str, plain: dict) -> dict:
+    """Phase 4j: SHARD_RANKS ranks spawned (``shard_rank``), killed if they
+    outlast SHARD_TIMEOUT_S.  The f32 gate must pass the sound run and fail
+    each planted fault; the bf16 losses must lie within SHARD_BF16_LOSS_RTOL
+    of ``plain``'s (the same steps in one process on the card), with no
+    kernel launched (none lies on this path), and SHARD_B_FAULT's must
+    not."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shards_")
+    try:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(shard_rank, args=(tmp, SHARD_LAYERS), nprocs=SHARD_RANKS,
+                                 start_method="spawn", join=False)
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > SHARD_TIMEOUT_S:
+                    raise SystemExit(f"phase 4j: the ranks outlasted {SHARD_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(SHARD_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    gate = ranks[0]["gate"]
+    rel = [abs(a - b) / abs(b) for r in ranks for a, b in zip(r["losses"], plain["losses"])]
+    faulted = [max(abs(a - b) / abs(b) for a, b in zip(r["faulted_losses"], plain["losses"]))
+               for r in ranks]
+    steady = [float(np.mean(r["step_ms"][1:])) for r in ranks]
+    wire_ms = [sum(v["ms"] for v in r["wire_per_step"].values()) for r in ranks]
+    out = {
+        "arch": SHARD_ARCH, "mesh": dict(zip(SHARD_AXES, SHARD_MESH)), "ranks": SHARD_RANKS,
+        "aggregation": "totoro_tree", "layers": ranks[0]["layers"], "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps": SHARD_STEPS, "wall_s": wall,
+        "a_f32_gate": gate, "a_sound_passes": gate["sound"]["passed"],
+        "a_faults_caught": {k: not gate[k]["passed"] for k in SHARD_FAULTS},
+        "b_losses": ranks[0]["losses"], "b_losses_plain": plain["losses"],
+        "b_loss_rel_max": max(rel), "b_losses_equal_across_ranks": all(
+            r["losses"] == ranks[0]["losses"] for r in ranks),
+        "b_fault": SHARD_B_FAULT, "b_fault_losses": ranks[0]["faulted_losses"],
+        "b_fault_loss_rel_max_per_rank": faulted,
+        "ms_per_step_per_rank": steady,
+        "wire_ms_per_step_per_rank": wire_ms,
+        "wire_share_of_step": [w / s for w, s in zip(wire_ms, steady)],
+        "collectives_per_step": ranks[0]["collectives_per_step"],
+        "wire_per_step_rank0": ranks[0]["wire_per_step"],
+        "gate_s_per_rank": [r["gate_s"] for r in ranks],
+        "b_train_wall_s_per_rank": [r["train_wall_s"] for r in ranks],
+        "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in ranks],
+        "launches_per_rank": [r["launches"] for r in ranks], "card": smi,
+    }
+    ok = (out["a_sound_passes"] and all(out["a_faults_caught"].values())
+          and out["b_loss_rel_max"] <= SHARD_BF16_LOSS_RTOL and out["b_losses_equal_across_ranks"]
+          and min(faulted) > SHARD_BF16_LOSS_RTOL
+          and all(np.isfinite(out["b_losses"]))
+          and all(r["launches"] == dict.fromkeys(COUNTED, 0) for r in ranks))
+    if not ok:
+        raise SystemExit(f"phase 4j: {json.dumps(out)}")
+    return out
+
+
+def shard_plain_losses(torch) -> dict:
+    """Phase 4j b's reference: the same SHARD_STEPS bf16 steps at
+    SHARD_LAYERS layers in one process on the card."""
+    from repro_torch import configs
+    from repro_torch.config import RunPlan
+    from repro_torch.launch import train
+
+    cfg = cut_depth(configs.get_config(SHARD_ARCH), SHARD_LAYERS)
+    with uncounted():
+        run = train.train(cfg, RunPlan(), steps=SHARD_STEPS, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, device="cuda", log=lambda *a: None)
+    torch.cuda.empty_cache()
+    return {"losses": run["losses"], "from": f"one process, {SHARD_LAYERS} layers"}
+
+
+def log_shard_ranks(sh: dict, smi: str) -> None:
+    """Phase 4j's lines."""
+    a = sh["a_f32_gate"]
+    log(f"[4j sharded a] {sh['arch']} full width, {SHARD_F32_LAYERS} layers f32, mesh "
+        f"{json.dumps(sh['mesh'])} over {sh['ranks']} gloo ranks on the one card, totoro_tree, "
+        f"B={SHARD_F32_BATCH} S={SHARD_F32_SEQ}: one sharded step against the single-process "
+        f"step (each rank its shards; the weights after AdamW's first-step map), loss rel "
+        f"{a['sound']['loss_rel']:.3g}, leaves rel max {a['sound']['leaf_rel_max']:.3g} (bounds "
+        f"{TRAIN_LOSS_RTOL}, {TRAIN_GRAD_REL}); faults caught "
+        f"{json.dumps(sh['a_faults_caught'])}: "
+        + "; ".join(f"{k}: loss rel {a[k]['loss_rel']:.3g}, leaves {a[k]['leaf_rel_max']:.3g}"
+                    for k in SHARD_FAULTS))
+    log(f"[4j sharded b] {sh['layers']} layers bf16, B={sh['batch']} S={sh['seq']}, "
+        f"{sh['steps']} steps: losses {sh['b_losses']} against one process's "
+        f"{sh['b_losses_plain']} (rel max {sh['b_loss_rel_max']:.3g}, bound "
+        f"{SHARD_BF16_LOSS_RTOL}); {sh['b_fault']} for {SHARD_B_FAULT_STEPS} steps: losses "
+        f"{sh['b_fault_losses']} (rel max a rank "
+        f"{[f'{x:.3g}' for x in sh['b_fault_loss_rel_max_per_rank']]}, above the bound); four ranks sharing one card, not a multi-card number: ms a "
+        f"step a rank (steps 2-{sh['steps']}) {[round(x, 1) for x in sh['ms_per_step_per_rank']]}, "
+        f"of it in the staged collectives (host clock) "
+        f"{[round(x, 1) for x in sh['wire_ms_per_step_per_rank']]}; peak memory a rank "
+        f"{[round(x, 2) for x in sh['peak_mem_gb_per_rank']]} GB; phase wall {sh['wall_s']:.1f} "
+        f"s; card: {smi}")
+    log(f"[4j sharded b] collectives a step (rank 0, op/mesh axis): "
+        f"{json.dumps(sh['collectives_per_step'])}")
+    log(f"[4j sharded] {json.dumps(sh)}")
+
+
 def main() -> int:
     import torch
 
@@ -4516,6 +4923,11 @@ def main() -> int:
     # -- 4i. the podded step with one pod per rank: tinyllama-1.1b ----------------
     pods = drive_pod_ranks(torch, smi, tr["d_podded_q8"])
     log_pod_ranks(pods, smi)
+
+    marks.append(("4j", time.perf_counter()))
+    # -- 4j. the dense family's step sharded over (data, model): tinyllama-1.1b --
+    sharded = drive_shard_ranks(torch, smi, shard_plain_losses(torch))
+    log_shard_ranks(sharded, smi)
 
     marks.append(("5", time.perf_counter()))
     # -- 5. times -------------------------------------------------------------

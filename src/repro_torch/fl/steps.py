@@ -25,12 +25,32 @@ it, aggregates through ``hierarchy.cross_pod_q8`` over the ``pod`` process
 group, applies ``opt.update`` (leaf by leaf, in place), and returns the
 pods' mean loss and aux.
 Given the same inputs each rank's state is ``state[p]`` of the
-single-process podded step bit for bit.  With P = 1, or another
-aggregation, a mesh gives the plain step.  A mesh whose ``data`` or
-``model`` axis is larger than 1 raises ``NotImplementedError``: a step
-sharded inside a pod is ROADMAP §1's "data / model axes" item, and the
-reference's ``nn.constrain`` / ``with_sharding_constraint`` calls are left
-out of the forward passes until then.
+single-process podded step bit for bit.  ``totoro_tree_q8`` on a mesh
+whose ``data`` or ``model`` axis is larger than 1 raises
+``NotImplementedError`` (ROADMAP §1, the q8 hop inside a sharded pod).
+
+``xla_auto`` and ``totoro_tree`` on a mesh with any axis larger than 1
+give the sharded step (``_sharded_step``), for the dense GQA family (every
+layer ``("attn", "dense")``; the other families raise
+``NotImplementedError``, ROADMAP §1).  Its state and batch are DTensors
+placed by ``launch/specs.build_cell``'s shardings (``specs.place``): the
+parameters FSDP over ``("pod", "data")`` and TP over ``model`` under
+``xla_auto``, replicated across pods and FSDP over ``data`` under
+``totoro_tree``; the batch over ``("pod", "data")``.  The forward runs on
+DTensors with ``nn.constrain`` wired in where the reference calls it
+(``models/nn``, ``attention``, ``lm``), so each collective is one of its
+redistributions: every weight gathered over its FSDP axes where it is
+used (``nn.gather_fsdp``), the attention core and the vocab-parallel loss
+on each rank's shards (``local_map``).  Each gradient comes back under
+its parameter's placements (``optim.placed_like``), and so the two
+aggregations' schedules differ as the paper's do: ``totoro_tree``
+reduce-scatters a weight's gradient over ``data`` inside a zone and
+all-reduces it over ``pod`` across zones, gathering nothing across pods;
+``xla_auto`` gathers every weight over ``("pod", "data")`` at every use.
+The update runs on the shards; the new state keeps the old one's
+placements (the reference's donated in/out shardings), the metrics come
+back replicated.  Against the single-process step it is fp-tight.  With
+P = 1 and no other axis, a mesh gives the plain step.
 
 ``q8_mean_over_pods`` runs through ``kernels.ops``' ``qsgd_quantize`` and
 ``qsgd_dequantize`` (the CUDA kernels on the card, their plain versions on
@@ -56,7 +76,7 @@ import torch.nn.functional as F
 
 from .. import optim as optim_mod
 from ..kernels import ops
-from ..models import encdec, lm
+from ..models import encdec, lm, nn
 from ..models.nn import P
 from ..pytree import leaves, tree_map, unflatten_like
 
@@ -76,9 +96,14 @@ def _loss(cfg, params, batch):
 def _split_microbatches(batch: dict, accum: int) -> list[dict]:
     """(B, ...) -> ``accum`` microbatches of B // accum rows, *strided*:
     microbatch j holds rows j, j + accum, j + 2 accum, ... (the reference
-    strides them so that each spans every (pod, data) shard)."""
+    strides them so that each spans every (pod, data) shard).  A
+    batch-sharded DTensor takes the reference's reshape, swapaxes and
+    constrain, which keep each rank's rows where they are."""
     def split(x):
         assert x.shape[0] % accum == 0, (x.shape[0], accum)
+        if isinstance(x, nn.DTensor):
+            y = x.reshape(x.shape[0] // accum, accum, *x.shape[1:]).swapaxes(0, 1)
+            return list(nn.constrain(y, (None, "dp") + (None,) * (y.ndim - 2)).unbind(0))
         return [x[j::accum] for j in range(accum)]
 
     parts = {k: split(v) for k, v in batch.items()}
@@ -92,26 +117,28 @@ def _value_and_grad(cfg, params, batch):
     ps = tree_map(lambda t: t.detach().requires_grad_(True), params)
     total, (ce, aux) = _loss(cfg, ps, batch)
     g = torch.autograd.grad(total, leaves(ps), allow_unused=True, materialize_grads=True)
-    return ce.detach(), aux.detach(), unflatten_like(params, list(g))
+    g = [optim_mod.placed_like(x, p) for x, p in zip(g, leaves(params))]
+    return ce.detach(), aux.detach(), unflatten_like(params, g)
 
 
 def grads_and_metrics(cfg, plan, params, batch):
     """Gradient accumulation over ``plan.grad_accum`` microbatches: each
     microbatch's gradients widened to f32 after its backward and summed
-    from zero in microbatch order, divided by ``grad_accum`` at the end."""
+    from zero in microbatch order, divided by ``grad_accum`` at the end.
+    On DTensor parameters each gradient comes back under its parameter's
+    placements (reduced over the batch axes), and so do the zero buffers."""
     accum = plan.grad_accum
     if accum == 1:
         ce, aux, g = _value_and_grad(cfg, params, batch)
         return tree_map(lambda x: x.float(), g), {"loss": ce, "aux": aux}
 
-    dev = leaves(params)[0].device
-    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=dev), params)
-    lsum = torch.zeros((), dtype=torch.float32, device=dev)
-    asum = torch.zeros((), dtype=torch.float32, device=dev)
+    gsum = tree_map(optim_mod._zeros_f32, params)
+    lsum = asum = None
     for mb in _split_microbatches(batch, accum):
         ce, aux, g = _value_and_grad(cfg, params, mb)
         gsum = tree_map(lambda a, b: a + b.float(), gsum, g)
-        lsum, asum = lsum + ce, asum + aux
+        # from zero in microbatch order (0 + ce is ce)
+        lsum, asum = (ce, aux) if lsum is None else (lsum + ce, asum + aux)
         del g
     g = tree_map(lambda x: x / accum, gsum)
     return g, {"loss": lsum / accum, "aux": asum / accum}
@@ -215,15 +242,18 @@ def build_train_step(cfg, plan, *, mesh=None, num_pods: int = 1):
     if mesh is not None:
         sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
         inside = {a: n for a, n in sizes.items() if a != "pod" and n > 1}
-        if inside:
-            raise NotImplementedError(
-                f"a train step sharded over {inside}: ROADMAP §1, running a step over "
-                f"data / model axes larger than 1")
         if num_pods not in (1, sizes.get("pod", 1)):
             raise ValueError(f"num_pods {num_pods} on a mesh of {sizes}")
         num_pods = sizes.get("pod", 1)
-        if plan.aggregation == "totoro_tree_q8" and num_pods > 1:
-            return _pod_per_rank_step(cfg, plan, opt, mesh, num_pods)
+        if plan.aggregation == "totoro_tree_q8":
+            if inside:
+                raise NotImplementedError(
+                    f"totoro_tree_q8 on a pod sharded over {inside}: ROADMAP §1, the q8 hop "
+                    f"inside a sharded pod")
+            if num_pods > 1:
+                return _pod_per_rank_step(cfg, plan, opt, mesh, num_pods)
+        elif runs_sharded(plan, mesh):
+            return _sharded_step(cfg, plan, opt, mesh)
     podded = plan.aggregation == "totoro_tree_q8" and num_pods > 1
 
     if not podded:
@@ -248,6 +278,42 @@ def build_train_step(cfg, plan, *, mesh=None, num_pods: int = 1):
             optim_mod.update_in_place(opt, agg, mine["opt"], mine["params"])
         return state, {"loss": torch.mean(torch.stack(losses)),
                        "aux": torch.mean(torch.stack(auxes))}
+
+    return train_step
+
+
+def runs_sharded(plan, mesh) -> bool:
+    """Whether ``build_train_step(mesh=mesh)`` gives the sharded step:
+    ``xla_auto`` or ``totoro_tree`` on a mesh with an axis larger than 1."""
+    return plan.aggregation != "totoro_tree_q8" and any(n > 1 for n in mesh.mesh.shape)
+
+
+def sharded_family(cfg) -> bool:
+    """Whether the sharded step runs ``cfg``: the dense GQA family, every
+    layer ``("attn", "dense")``."""
+    return (not cfg.is_encoder_decoder and not cfg.first_dense
+            and set(lm.layer_pattern(cfg)) == {("attn", "dense")})
+
+
+def _sharded_step(cfg, plan, opt, mesh):
+    """The step over DTensors on ``mesh`` (module docstring): the state and
+    the batch placed by ``launch/specs.build_cell``'s shardings, the
+    gradients reduced to the parameters' placements, the new state under
+    the old one's placements, the metrics replicated."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    if not sharded_family(cfg):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on a mesh of {sizes}: ROADMAP §1, the other families on "
+            f"sharded meshes")
+    axes = nn.mesh_activation_axes(sizes)
+
+    def train_step(state, batch):
+        nn.set_activation_axes(**axes)
+        grads, metrics = grads_and_metrics(cfg, plan, state["params"], batch)
+        new_params, new_opt = opt.update(grads, state["opt"], state["params"])
+        new = tree_map(optim_mod.placed_like, {"params": new_params, "opt": new_opt}, state)
+        loss = metrics["loss"]  # replicated: the vocab-parallel loss reduces it
+        return new, {"loss": loss, "aux": nn.distribute_like(metrics["aux"], loss, ())}
 
     return train_step
 

@@ -5,7 +5,10 @@ stand-ins for every input of a cell's step (``torch.device("meta")``: the
 shapes and dtypes, no memory and no draws, as ``jax.eval_shape``; a 398B
 config touches no host memory), the partition-spec trees (``models.nn.P``)
 resolved to the mesh's axes and fitted to the shapes, and the DTensor
-placements of each leaf (``nn.shardings_for``: ``nn.NamedSharding``s).  ``lower_cell`` and the
+placements of each leaf (``nn.shardings_for``: ``nn.NamedSharding``s);
+``cell_for`` does the same for a config, shape and plan in hand, and
+``place`` puts a state or a batch on a mesh under those shardings (the
+inputs of ``fl/steps``' sharded step).  ``lower_cell`` and the
 dry-run tools built on it (``dryrun.py``, ``sweep.py``) are not ported
 yet (ROADMAP §1).
 """
@@ -101,6 +104,12 @@ def build_cell(arch: str, shape_name: str, mesh, *, aggregation: str | None = No
         plan = dataclasses.replace(plan, aggregation=aggregation)
     if grad_accum is not None:
         plan = dataclasses.replace(plan, grad_accum=grad_accum)
+    return cell_for(cfg, spec, plan, mesh)
+
+
+def cell_for(cfg: ModelConfig, spec: ShapeSpec, plan: RunPlan, mesh) -> Cell:
+    """``build_cell`` of a config, shape and plan in hand (a reduced config,
+    ``launch/train``'s batch and sequence)."""
     sizes = mesh_mod.mesh_axis_sizes(mesh)
     multi_pod = "pod" in sizes
     npods = sizes.get("pod", 1)
@@ -125,10 +134,7 @@ def build_cell(arch: str, shape_name: str, mesh, *, aggregation: str | None = No
     # disjoint clients); in the podded (q8) mode the pod dim is outside each
     # pod's view, so 'data' only.
     podded_mode = plan.aggregation == "totoro_tree_q8" and multi_pod and spec.kind == "train"
-    if multi_pod and not podded_mode:
-        nn.set_activation_axes(dp=("pod", "data"), tp="model", sp="model", sizes=sizes)
-    else:
-        nn.set_activation_axes(dp="data", tp="model", sp="model", sizes=sizes)
+    nn.set_activation_axes(**nn.mesh_activation_axes(sizes, podded=podded_mode))
 
     model = encdec if cfg.is_encoder_decoder else lm
     with torch.device("meta"):
@@ -174,3 +180,23 @@ def build_cell(arch: str, shape_name: str, mesh, *, aggregation: str | None = No
     in_sh = (shardings(pspecs), cache_sh, tok_sh, replicated)
     out_sh = (cache_sh, nn.named_sharding(mesh, fit_spec(P(dp_part), (B,), sizes)))
     return Cell(cfg, spec, plan, step, (params_shapes, cache_shp, token, idx), in_sh, out_sh, (1,))
+
+
+def place(tree, shardings):
+    """Each leaf of ``tree`` as a DTensor under its ``nn.NamedSharding``
+    of ``shardings`` (a tree of the same structure, a ``Cell``'s
+    ``in_shardings[i]``).  A plain tensor, which every rank holds whole and
+    alike (parameters drawn from one seed, a global batch), is cut into
+    this rank's shard with no collective (``distribute_tensor`` with
+    ``src_data_rank=None``); a DTensor is redistributed where its
+    placements differ."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def one(t, sh):
+        if isinstance(t, DTensor):
+            if tuple(t.placements) == tuple(sh.placements):
+                return t
+            return t.redistribute(sh.mesh, sh.placements)
+        return distribute_tensor(t, sh.mesh, sh.placements, src_data_rank=None)
+
+    return tree_map(one, tree, shardings)

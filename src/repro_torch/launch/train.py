@@ -28,7 +28,13 @@ rank runs the loop as one pod: every rank initialises the same parameters
 from seed 0 (pod-replicated, as the reference's ``totoro_tree`` mode),
 builds the same global batches, and the step (``build_train_step(...,
 mesh=mesh)``) takes the rank's share of each and aggregates over the
-``pod`` group.  Checkpoints with a mesh are not ported yet and raise.
+``pod`` group.  With ``xla_auto`` or ``totoro_tree`` on a mesh with any
+axis larger than 1 (``steps.runs_sharded``), the step is the sharded one:
+every rank draws the same parameters from seed 0 and keeps its shards of
+them (``launch/specs.place`` under ``specs.cell_for``'s shardings, no
+collective), initialises the optimizer state on them, and places each
+global batch ``Shard(0)`` over the batch axes; the losses are read through
+``full_tensor()``.  Checkpoints with a mesh are not ported yet and raise.
 Step times are taken on the host clock after ``torch.cuda.synchronize()``.
 """
 from __future__ import annotations
@@ -40,7 +46,7 @@ import numpy as np
 import torch
 
 from .. import ckpt
-from ..config import RunPlan
+from ..config import RunPlan, ShapeSpec
 from ..configs import get_config, get_reduced
 from ..data import StreamConfig, embeds_batch, learnable_lm_batch
 from ..fl import steps as steps_mod
@@ -78,6 +84,11 @@ def make_batch(cfg, sc: StreamConfig, step: int, drop: np.ndarray | None, device
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in b.items()}
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A metric read on the host: a DTensor through ``full_tensor()``."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -95,17 +106,26 @@ def train(cfg, plan: RunPlan, *, steps: int, seq_len: int = 128, global_batch: i
     if mesh is not None and ckpt_dir:
         raise NotImplementedError("checkpoints with a mesh: ROADMAP §1, checkpoints with a mesh")
     device = resolve_device(device)
+    train_step = steps_mod.build_train_step(cfg, plan, mesh=mesh, num_pods=num_pods)
     model = encdec if cfg.is_encoder_decoder else lm
     params = model.init_params(torch.Generator().manual_seed(0), cfg, device=device)
-    podded = plan.aggregation == "totoro_tree_q8" and num_pods > 1 and mesh is None
-    state = steps_mod.init_train_state(cfg, params, num_pods=num_pods, podded=podded)
+    batch_sh = None
+    if mesh is not None and steps_mod.runs_sharded(plan, mesh):
+        from . import specs
+
+        cell = specs.cell_for(cfg, ShapeSpec("train", "train", seq_len, global_batch), plan, mesh)
+        state_sh, batch_sh = cell.in_shardings
+        params = specs.place(params, state_sh["params"])
+        state = specs.place(steps_mod.init_train_state(cfg, params), state_sh)
+    else:
+        podded = plan.aggregation == "totoro_tree_q8" and num_pods > 1 and mesh is None
+        state = steps_mod.init_train_state(cfg, params, num_pods=num_pods, podded=podded)
     del params
     start = 0
     if resume and ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
         state, start = ckpt.restore(state, ckpt_dir, device=device)
         log(f"resumed from step {start}")
 
-    train_step = steps_mod.build_train_step(cfg, plan, mesh=mesh, num_pods=num_pods)
     sc = StreamConfig(vocab_size=cfg.vocab_size, seq_len=seq_len, batch_per_shard=global_batch,
                       non_iid_alpha=non_iid)
     rng = np.random.default_rng(0)
@@ -116,13 +136,15 @@ def train(cfg, plan: RunPlan, *, steps: int, seq_len: int = 128, global_batch: i
         # get zero weight by masking their labels (paper §III ch.2)
         drop = rng.random(global_batch) < straggler_rate if straggler_rate > 0 else None
         batch = make_batch(cfg, sc, step, drop, device)
+        if batch_sh is not None:
+            batch = specs.place(batch, batch_sh)
         _sync(device)
         ts = time.perf_counter()
         state, metrics = train_step(state, batch)
         _sync(device)
         step_ms.append((time.perf_counter() - ts) * 1e3)
-        losses.append(float(metrics["loss"]))
-        auxes.append(float(metrics["aux"]))
+        losses.append(float(_whole(metrics["loss"])))
+        auxes.append(float(_whole(metrics["aux"])))
         if step % log_every == 0 or step == steps - 1:
             log(f"step {step}: loss={losses[-1]:.4f} "
                 f"({(time.perf_counter() - t0) / max(step - start + 1, 1) * 1e3:.0f} ms/step)")

@@ -53,10 +53,24 @@ Sharding specs (``nn``'s placeholders): ``gqa_specs``, ``mla_specs`` and
 ``cross_attn_specs`` answer to the reference's; where the reference's
 ``*_cache_shape`` returns (shapes, specs), the port's returns the shapes
 (meta tensors) and a sibling ``*_cache_specs(cfg)`` the specs.
+
+On a mesh (a DTensor ``x``, the sharded train step of ``fl/steps``),
+``gqa_forward`` runs the same code, whose ``nn.constrain`` and
+``nn.gather_fsdp`` calls are the identity on plain tensors: the
+reference's constraints, the sequence gathered and q, k and v
+head-sharded over ``tp`` and batch-sharded over ``dp``; rope, the kv
+repeat and ``chunked_attention`` with ``_Flash`` run on each rank's
+shards through ``local_map`` (heads are kv-major, so a rank's query heads
+are exactly its kv heads' groups, and KV must divide by the ``tp`` axis);
+the padded heads' mask is sliced the same way, so the padding stays
+exact; ``wo`` leaves a partial sum over ``tp``.  Prefill and decode on a
+mesh raise ``NotImplementedError`` (ROADMAP §1, serving on a sharded
+mesh).
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 
@@ -305,35 +319,72 @@ def _cache_slot(cache_index, Smax: int) -> int:
     return idx
 
 
+def _rope_attend(q, k, v, positions, *, cfg, G: int, causal: bool):
+    """The train / prefill core on one device's tensors (on a mesh, on one
+    rank's shards through ``local_map``): rope, each kv head repeated G
+    times in place (heads are kv-major, so a rank's query heads are
+    exactly its kv heads' groups), the flash core.  Returns the output and
+    the roped keys (the prefill cache)."""
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    k_full = torch.repeat_interleave(k, G, dim=2) if G > 1 else k
+    v_full = torch.repeat_interleave(v, G, dim=2) if G > 1 else v
+    out = chunked_attention(q, k_full, v_full, causal=causal, chunk_q=cfg.attn_chunk,
+                            chunk_kv=cfg.attn_chunk, window=cfg.window)
+    return out, k
+
+
+def _attend(q, k, v, positions, *, cfg, G: int, causal: bool):
+    """``_rope_attend`` on plain tensors, or on each rank's shards of
+    DTensors (``local_map``, the positions sliced as q's batch)."""
+    fn = partial(_rope_attend, cfg=cfg, G=G, causal=causal)
+    if not isinstance(q, nn.DTensor):
+        return fn(q, k, v, positions)
+    from torch.distributed.tensor.experimental import local_map
+
+    pos = nn.distribute_like(positions, q, ("dp", None))
+    return local_map(fn, out_placements=(q.placements, k.placements),
+                     in_placements=(q.placements, k.placements, v.placements, pos.placements),
+                     device_mesh=q.device_mesh)(q, k, v, pos)
+
+
 def gqa_forward(p, cfg, x, *, positions, mode, cache=None, cache_index=None, causal=True):
     """mode: 'train'/'prefill' (full seq) or 'decode' (one token).
 
     Returns (out, new_cache); new_cache is None in train mode.  In decode
     mode ``cache_index`` is a Python int (or a 0-d tensor, read on the
-    host) in [0, max_len), and the cache is written in place.
+    host) in [0, max_len), and the cache is written in place.  A DTensor
+    ``x`` (train mode only) runs the same code under the module
+    docstring's constraints.
     """
+    if isinstance(x, nn.DTensor):
+        if mode != "train":
+            raise NotImplementedError(f"{mode} on a sharded mesh: ROADMAP §1, serving on a "
+                                      f"sharded mesh")
+        tp = nn.axis_size("tp")
+        if cfg.num_kv_heads % tp:
+            raise ValueError(f"{cfg.num_kv_heads} kv heads do not divide over a tp axis of "
+                             f"{tp}: heads are kv-major, so each rank's query heads need their "
+                             f"kv heads")
     B, S, d = x.shape
     H, G = padded_heads(cfg)
     hmask = head_mask(cfg, x.device)
-    q = _project(x, p["wq"])
-    k = _project(x, p["wk"])
-    v = _project(x, p["wv"])
+    x = nn.constrain(x, ("dp", None, None))  # Megatron-SP: the sequence gathered
+    q = _project(x, nn.gather_fsdp(p["wq"]))
+    k = _project(x, nn.gather_fsdp(p["wk"]))
+    v = _project(x, nn.gather_fsdp(p["wv"]))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    heads = ("dp", None, "tp", None)
+    q, k, v = (nn.constrain(t, heads) for t in (q, k, v))
 
     if mode in ("train", "prefill"):
-        # each kv head repeated G times in place: heads are kv-major
-        k_full = torch.repeat_interleave(k, G, dim=2) if G > 1 else k
-        v_full = torch.repeat_interleave(v, G, dim=2) if G > 1 else v
-        out = chunked_attention(
-            q, k_full, v_full, causal=causal, chunk_q=cfg.attn_chunk,
-            chunk_kv=cfg.attn_chunk, window=cfg.window,
-        )
+        out, k = _attend(q, k, v, positions, cfg=cfg, G=G, causal=causal)
         new_cache = {"k": k, "v": v} if mode == "prefill" else None
     elif mode == "decode":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
         k_cache, v_cache = cache["k"], cache["v"]
         Smax = k_cache.shape[1]
         idx = _cache_slot(cache_index, Smax)
@@ -349,8 +400,10 @@ def gqa_forward(p, cfg, x, *, positions, mode, cache=None, cache_index=None, cau
         raise ValueError(mode)
 
     if hmask is not None:  # zero the padded query heads (exact-math padding)
-        out = out * hmask[None, None, :, None].to(out.dtype)
-    out = out.flatten(-2) @ p["wo"].to(x.dtype).flatten(0, 1)
+        out = out * nn.distribute_like(hmask[None, None, :, None].to(out.dtype), out,
+                                       (None, None, "tp", None))
+    # on a mesh a partial sum over tp (row-parallel wo), for the caller to reduce
+    out = out.flatten(-2) @ nn.gather_fsdp(p["wo"]).to(x.dtype).flatten(0, 1)
     return out, new_cache
 
 

@@ -50,6 +50,18 @@ The recurrent mixers checkpoint each chunk of their scans too (the
 reference's ``jax.checkpoint`` on a chunk body), nested inside the
 block's or the sublayer's checkpoint.  Remat changes no value, only what
 is kept for the backward.
+
+On a mesh (DTensor parameters and batch, ``fl/steps``' sharded step for
+the dense family) the reference's constraints are wired in: the
+embedding is a masked lookup of each rank's vocab shard (``local_map``;
+the table is ``P(TP, FSDP)``), reduced to ``("dp", None, None)``; each
+residual sum sits at a sequence-parallel boundary ``("dp", "sp", None)``
+(``_residual``: a mixer's or FFN's partial sum over ``tp`` is
+reduce-scattered over the sequence); the logits are ``("dp", None,
+"tp")`` with the padded vocabulary masked on each shard; and ``lm_loss``
+takes the vocab-parallel form (``_vocab_parallel_loss``), never gathering
+the (B, S, V) logits.  On plain tensors each of these is the
+single-device code.
 """
 from __future__ import annotations
 
@@ -57,6 +69,7 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from ..pytree import leaves, tree_map
 from . import attention as attn
@@ -201,6 +214,17 @@ def _ffn_sublayer(p, cfg, x, ffn: str, mode="train", cache=None):
     return nn.swiglu(h, p["ffn"]["wi"], p["ffn"]["wg"], p["ffn"]["wo"]), 0.0, None
 
 
+SP = ("dp", "sp", None)  # the residual between sublayers: sequence-parallel
+
+
+def _residual(x, out):
+    """``x + out`` at a sequence-parallel boundary: on a mesh both are
+    brought to ``SP`` first (``out``, a partial sum over ``tp``, is
+    reduce-scattered over the sequence), as the reference constrains the
+    sum."""
+    return nn.constrain(x, SP) + nn.constrain(out, SP)
+
+
 def apply_layer(p, cfg, x, mixer: str, ffn: str, *, positions, mode, cache=None, cache_index=None,
                 remat_sublayers: bool = False):
     """Returns (x, new_cache, aux); a dense layer's aux loss is 0.0, an MoE
@@ -210,15 +234,15 @@ def apply_layer(p, cfg, x, mixer: str, ffn: str, *, positions, mode, cache=None,
     mixer, norm and FFN, in the backward from its input.
     """
     if remat_sublayers:
-        x = x + nn.remat(lambda y: _mixer_sublayer(p, cfg, y, mixer, positions=positions,
-                                                   mode=mode)[0], x)
+        x = _residual(x, nn.remat(lambda y: _mixer_sublayer(p, cfg, y, mixer, positions=positions,
+                                                            mode=mode)[0], x))
         out, aux, _ = nn.remat(lambda y: _ffn_sublayer(p, cfg, y, ffn, mode), x)
-        return x + out, None, aux
+        return _residual(x, out), None, aux
     out, nc = _mixer_sublayer(p, cfg, x, mixer, positions=positions, mode=mode, cache=cache,
                               cache_index=cache_index)
-    x = x + out
+    x = _residual(x, out)
     out, aux, fc = _ffn_sublayer(p, cfg, x, ffn, mode, cache)
-    x = x + out
+    x = _residual(x, out)
     new_cache = None
     if mode in ("prefill", "decode"):
         new_cache = {"mix": nc} if fc is None else {"mix": nc, "ffn": fc}
@@ -285,7 +309,35 @@ def param_specs(cfg) -> nn.Specs:
 
 
 def embed_tokens(params, cfg, tokens):
-    return params["embed"].to(cfg.adtype)[tokens]
+    """The table's rows of ``tokens`` in the activation dtype.  On a mesh
+    the table is vocab-sharded over ``tp``: ``F.embedding`` looks up each
+    rank's rows (a masked local lookup, a partial sum over ``tp``), reduced
+    to the batch-sharded ``("dp", None, None)``."""
+    emb = params["embed"]
+    if isinstance(emb, nn.DTensor):
+        from torch.distributed.tensor.experimental import local_map
+
+        table = nn.gather_fsdp(emb).to(cfg.adtype)
+        ids = nn.distribute_like(torch.arange(emb.shape[0], device=table.device), table, ("tp",))
+        mesh = table.device_mesh
+        out = nn.layout(mesh, ("dp", None, None), (*tokens.shape, table.shape[1]))
+        rows = local_map(_lookup_local, out_placements=list(nn.partial_over(out, mesh, "tp")),
+                         in_placements=(table.placements, tokens.placements, ids.placements),
+                         in_grad_placements=(nn.partial_over(table.placements, mesh, "dp"),
+                                             tokens.placements, ids.placements),
+                         device_mesh=mesh)
+        return nn.constrain(rows(table, tokens, ids), ("dp", None, None))
+    return emb.to(cfg.adtype)[tokens]
+
+
+def _lookup_local(table, tokens, ids):
+    """One rank's share of an embedding lookup: the rows of its vocab ids
+    (``ids``, its slice of arange(V)), zeros for the tokens outside them.
+    Summed over the ``tp`` ranks, each token's row once."""
+    idx = tokens.long() - ids[0]
+    hit = (idx >= 0) & (idx < table.shape[0])
+    rows = F.embedding(idx.clamp(0, table.shape[0] - 1), table)
+    return torch.where(hit[..., None], rows, 0.0)
 
 
 def forward(params, cfg, *, tokens=None, embeds=None, mode="train", cache=None, cache_index=None,
@@ -348,13 +400,14 @@ def forward(params, cfg, *, tokens=None, embeds=None, mode="train", cache=None, 
         aux = aux + a
         per_block.append(new_cache)
 
-    x = rms_norm(x, params["final_norm"])
+    x = nn.constrain(rms_norm(x, params["final_norm"]), ("dp", None, None))
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     # logits stay in the activation dtype (the loss widens them to f32)
-    logits = x @ head.to(cfg.adtype)
+    logits = x @ nn.gather_fsdp(head).to(cfg.adtype)
     if cfg.padded_vocab != cfg.vocab_size:  # mask padded vocab columns
         vmask = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
-        logits = logits.masked_fill(~vmask, -1e9)
+        logits = logits.masked_fill(~nn.distribute_like(vmask, logits, ("tp",)), -1e9)
+    logits = nn.constrain(logits, ("dp", None, "tp"))
 
     if mode == "prefill":
         new_cache = {"blocks": _stack(per_block)}
@@ -370,10 +423,45 @@ def forward(params, cfg, *, tokens=None, embeds=None, mode="train", cache=None, 
 # loss
 
 
+def _target_logit(lf, labels, ids):
+    """One rank's share of the target logits: ``lf[..., label]`` where the
+    label falls in this rank's vocab ids (``ids``, its slice of arange(V)),
+    else 0.  Summed over the ``tp`` ranks, each label's logit once."""
+    idx = labels.long() - ids[0]
+    hit = (idx >= 0) & (idx < lf.shape[-1])
+    got = torch.gather(lf, -1, idx.clamp(0, lf.shape[-1] - 1)[..., None])[..., 0]
+    return torch.where(hit, got, 0.0)
+
+
+def _vocab_parallel_loss(logits, labels, mask):
+    """``lm_loss`` on vocab-sharded logits ``("dp", None, "tp")``: the local
+    max, sum of exps and target logit of each rank's vocab shard, reduced
+    over ``tp``, never the whole (B, S, V); the reference's formula, mask
+    and ``max(sum(mask), 1)``.  The max is a constant to autograd (its
+    terms cancel in the reference's gradient too)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    lf = logits.float()
+    m = nn.constrain(lf.detach().amax(dim=-1, keepdim=True), ("dp", None, None))
+    lse = torch.log(nn.constrain(torch.sum(torch.exp(lf - m), dim=-1), ("dp", None))) + m[..., 0]
+    ids = nn.distribute_like(torch.arange(lf.shape[-1], device=lf.device), lf, ("tp",))
+    labels = torch.clamp(labels, min=0)
+    out = nn.partial_over(lse.placements, lse.device_mesh, "tp")
+    share = local_map(_target_logit, out_placements=list(out),
+                      in_placements=(lf.placements, labels.placements, ids.placements),
+                      device_mesh=lf.device_mesh)
+    ll = nn.constrain(share(lf, labels, ids), ("dp", None))
+    ce = (lse - ll) * mask.float()
+    return nn.replicated(torch.sum(ce)) / torch.clamp(nn.replicated(torch.sum(mask)), min=1)
+
+
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None):
-    """Mean cross-entropy in f32. labels: (B, S) int (-1 = pad)."""
+    """Mean cross-entropy in f32. labels: (B, S) int (-1 = pad).  Logits
+    that are a DTensor take the vocab-parallel form (``_vocab_parallel_loss``)."""
     if mask is None:
         mask = labels >= 0
+    if isinstance(logits, nn.DTensor):
+        return _vocab_parallel_loss(logits, labels, mask)
     lf = logits.float()
     m = lf.amax(dim=-1, keepdim=True)
     lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]

@@ -25,9 +25,19 @@ splits in mesh-dim order, which is JAX's major-to-minor order only for a
 tuple in mesh order, so ``placements`` refuses any other.
 
 ``constrain`` redistributes a DTensor and hands a plain tensor back
-unchanged (the reference's is a no-op without a mesh).  The forward
-passes do not call it yet: they run on one device or one pod per rank
-(ROADMAP §1, running a step over ``data`` / ``model`` axes).
+unchanged (the reference's is a no-op without a mesh).  The dense forward
+calls it where the reference does (``swiglu`` here; the attention heads,
+the residual's sequence-parallel boundaries, the embedding and the logits
+in ``attention`` and ``lm``), so on DTensors placed by
+``launch/specs.build_cell`` (a train step sharded over a mesh's ``pod``,
+``data`` and ``model`` axes, ``fl/steps``) every collective is one of
+these redistributions: DTensor's sharding propagation then finds the
+layout of each op's inputs already agreed and issues none of its own.
+``gather_fsdp`` is the parameters' counterpart: a weight with its FSDP
+shards (the batch axes) gathered and its ``tp`` split kept, the gather
+XLA makes for each use of an FSDP weight; its backward reduce-scatters
+the weight's gradient back over those axes.  On plain tensors every one
+of these is the identity, so one code path serves one device and a mesh.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor
 
 from ..pytree import leaves, tree_map
 
@@ -233,10 +244,17 @@ def remat(fn, *args):
 
 
 def swiglu(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """``(silu(x wg) * (x wi)) wo`` in ``x``'s dtype."""
-    h = x @ wi.to(x.dtype)
-    g = x @ wg.to(x.dtype)
-    return (F.silu(g) * h) @ wo.to(x.dtype)
+    """``(silu(x wg) * (x wi)) wo`` in ``x``'s dtype.  On a mesh: the
+    sequence gathered (the Megatron-SP boundary), the FF dim over ``tp``
+    and the batch over ``dp`` (the reference's constraints); the output is
+    then a partial sum over ``tp``, which the caller reduces."""
+    x = constrain(x, ("dp",) + (None,) * (x.ndim - 1))
+    h = x @ gather_fsdp(wi).to(x.dtype)
+    g = x @ gather_fsdp(wg).to(x.dtype)
+    dims = ("dp",) + (None,) * (h.ndim - 2) + ("tp",)
+    h = constrain(h, dims)
+    g = constrain(g, dims)
+    return (F.silu(g) * h) @ gather_fsdp(wo).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +305,23 @@ def set_activation_axes(dp=None, tp=None, sp=None, sizes: dict | None = None) ->
     _ACT_AXES["sizes"] = sizes or {}
 
 
+def mesh_activation_axes(sizes: dict, *, podded: bool = False) -> dict:
+    """``set_activation_axes``' arguments for a mesh of axis ``sizes``:
+    batch dims over ``("pod", "data")`` where there is a ``pod`` axis
+    (zones process disjoint clients, also where the parameters are
+    pod-replicated), over ``data`` alone in the podded (q8) mode, whose
+    pod axis is outside each pod's view; ``tp`` and ``sp`` over
+    ``model``."""
+    dp = ("pod", "data") if "pod" in sizes and not podded else "data"
+    return dict(dp=dp, tp="model", sp="model", sizes=sizes)
+
+
+def axis_size(name: str) -> int:
+    """The mesh size behind a logical axis name ("dp", "tp", "sp"): 1
+    without a mesh."""
+    return _axis_size(_ACT_AXES.get(name))
+
+
 def _axis_size(axis) -> int:
     sizes = _ACT_AXES["sizes"]
     if axis is None:
@@ -299,21 +334,86 @@ def _axis_size(axis) -> int:
     return sizes.get(axis, 1)
 
 
-def constrain(x: torch.Tensor, dims) -> torch.Tensor:
-    """dims: a tuple like ('dp', None, 'tp'), resolved through
-    ``set_activation_axes``.  Axes that do not evenly divide their dim are
-    dropped (batch-1 decode, a sequence shorter than the model axis).  A
-    DTensor is redistributed to the resulting placements on its own mesh;
-    a plain tensor comes back unchanged."""
-    from torch.distributed.tensor import DTensor
-
+def _resolve(dims, shape) -> list:
+    """The mesh axes of ``dims`` (logical names, ``set_activation_axes``),
+    each dropped where it does not evenly divide its dim of ``shape``."""
     axes = []
     for i, d in enumerate(dims):
         a = _ACT_AXES.get(d) if isinstance(d, str) else None
         if a is not None and _ACT_AXES["sizes"]:
-            if i >= x.ndim or x.shape[i] % _axis_size(a) != 0:
+            if i >= len(shape) or shape[i] % _axis_size(a) != 0:
                 a = None
         axes.append(a)
+    return axes
+
+
+def constrain(x: torch.Tensor, dims) -> torch.Tensor:
+    """dims: a tuple like ('dp', None, 'tp'), resolved through
+    ``set_activation_axes``.  Axes that do not evenly divide their dim are
+    dropped (batch-1 decode, a sequence shorter than the model axis).  A
+    DTensor is redistributed to the resulting placements on its own mesh
+    (a partial sum is reduced on the way, a mesh dim left out of ``dims``
+    replicated); a plain tensor comes back unchanged, and so does a DTensor
+    when every dim resolves to None (as the reference's)."""
+    axes = _resolve(dims, tuple(x.shape))
     if all(a is None for a in axes) or not isinstance(x, DTensor):
         return x
-    return x.redistribute(x.device_mesh, placements(P(*axes), x.device_mesh))
+    want = placements(P(*axes), x.device_mesh)
+    return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor replicated on every mesh dim (partial sums reduced,
+    shards gathered); a plain tensor unchanged."""
+    if not isinstance(x, DTensor):
+        return x
+    want = placements(P(), x.device_mesh)
+    return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+
+def layout(mesh, dims, shape) -> tuple:
+    """The placements ``constrain(x, dims)`` gives a tensor of ``shape`` on
+    ``mesh``."""
+    return placements(P(*_resolve(dims, tuple(shape))), mesh)
+
+
+def partial_over(pls, mesh, name: str) -> tuple:
+    """Placements ``pls`` on ``mesh`` with the mesh dims of the logical axis
+    ``name`` partial sums: a ``local_map`` output summed over them, or the
+    gradient of an input each of their ranks used on its own rows."""
+    from torch.distributed.tensor import Partial
+
+    axis = _ACT_AXES.get(name)
+    axes = axis if isinstance(axis, tuple) else (axis,)
+    return tuple(Partial() if n in axes else pl for n, pl in zip(mesh.mesh_dim_names, pls))
+
+
+def gather_fsdp(w: torch.Tensor) -> torch.Tensor:
+    """A parameter as a layer uses it: a DTensor's shards on every mesh dim
+    but the ``tp`` axis gathered (the FSDP axes: ``("pod", "data")`` under
+    ``xla_auto``, ``data`` under ``totoro_tree``), its ``tp`` split kept.
+    The gather's backward reduce-scatters the gradient over those axes (and
+    all-reduces it over an axis the parameter is replicated on).  A plain
+    tensor comes back unchanged."""
+    if not isinstance(w, DTensor):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    tp = _ACT_AXES["tp"]
+    want = tuple(pl if name == tp else Replicate()
+                 for name, pl in zip(w.device_mesh.mesh_dim_names, w.placements))
+    return w if tuple(w.placements) == want else w.redistribute(w.device_mesh, want)
+
+
+def distribute_like(t: torch.Tensor | None, like: torch.Tensor, dims) -> torch.Tensor | None:
+    """``t``, a tensor every rank holds whole (a mask, positions), placed on
+    ``like``'s mesh by ``dims`` as ``constrain`` resolves them, each rank
+    keeping its own slice (no collective); ``t`` itself when ``like`` is a
+    plain tensor or ``t`` is None."""
+    if t is None or not isinstance(like, DTensor):
+        return t
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = like.device_mesh
+    return distribute_tensor(t, mesh, placements(P(*_resolve(dims, tuple(t.shape))), mesh),
+                             src_data_rank=None)

@@ -25,12 +25,19 @@ moments take their parameter's spec, the step is replicated, and
 adafactor's factored ``vr`` / ``vc`` drop the factored axis.
 ``update_in_place`` runs ``opt.update`` one leaf at a time into the
 state's own tensors (the update of ``fl/steps``' podded steps).
+
+On DTensor leaves (``fl/steps``' sharded step) the same expressions run
+on each rank's shards: the moments, the master weights and the step take
+their parameter's placements (``opt.init`` makes them so, the step
+replicated), and adafactor's means over a sharded dim reduce over its
+mesh axis, as the reference's jitted update does under its shardings.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .models.nn import P
 from .pytree import leaves, tree_map, unflatten_like
@@ -43,12 +50,22 @@ class Optimizer(NamedTuple):
 
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    if isinstance(p, DTensor):  # on the parameter's mesh, under its placements
+        return torch.zeros_like(p, dtype=torch.float32)
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
 def _step0(params) -> torch.Tensor:
-    dev = leaves(params)[0].device
-    return torch.zeros((), dtype=torch.int32, device=dev)
+    """The int32 0-d step: a DTensor replicated on the parameters' mesh
+    when they are DTensors."""
+    p = leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=p.device)
+    if isinstance(p, DTensor):
+        from torch.distributed.tensor import Replicate, distribute_tensor
+
+        mesh = p.device_mesh
+        return distribute_tensor(step, mesh, [Replicate()] * mesh.ndim, src_data_rank=None)
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +183,8 @@ def adafactor(
             shape = tuple(p.shape)
             vr = torch.zeros(shape[:c] + shape[c + 1:], dtype=torch.float32, device=p.device)
             vc = torch.zeros(shape[:r] + shape[r + 1:], dtype=torch.float32, device=p.device)
+            if isinstance(p, DTensor):
+                vr, vc = _without_dim(vr, p, c), _without_dim(vc, p, r)
             return {"vr": vr, "vc": vc}
 
         return {"step": _step0(params), "v": tree_map(per_param, params)}
@@ -184,8 +203,8 @@ def adafactor(
                 v_new = {"v": vn}
             else:
                 r, c = f  # r < c
-                vr = beta * v["vr"] + (1 - beta) * torch.mean(g2, dim=c)
-                vc = beta * v["vc"] + (1 - beta) * torch.mean(g2, dim=r)
+                vr = beta * v["vr"] + (1 - beta) * placed_like(torch.mean(g2, dim=c), v["vr"])
+                vc = beta * v["vc"] + (1 - beta) * placed_like(torch.mean(g2, dim=r), v["vc"])
                 v_new = {"vr": vr, "vc": vc}
                 red = torch.mean(vr, dim=r, keepdim=True)  # vr still has axis r at index r
                 vr_n = vr / torch.clamp_min(red, eps)
@@ -220,6 +239,27 @@ def adafactor(
         return {"step": P(), "v": tree_map(per_param, pspecs, pshapes)}
 
     return Optimizer(init, update, state_specs)
+
+
+def placed_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A DTensor ``t`` redistributed to ``like``'s placements (partial sums
+    or means reduced over the mesh axes ``like`` is replicated on);
+    anything else as it is."""
+    if isinstance(t, DTensor) and tuple(t.placements) != tuple(like.placements):
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
+
+
+def _without_dim(t: torch.Tensor, p: DTensor, dim: int) -> DTensor:
+    """``t``, a factored moment of ``p`` without ``p``'s dim ``dim``, placed
+    as ``state_specs`` places it: ``p``'s placements with that dim's shard
+    replicated and the later dims' shifted down."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    pls = [Replicate() if isinstance(pl, Shard) and pl.dim == dim
+           else Shard(pl.dim - 1) if isinstance(pl, Shard) and pl.dim > dim else pl
+           for pl in p.placements]
+    return distribute_tensor(t, p.device_mesh, pls, src_data_rank=None)
 
 
 def _per_leaf(tree, like) -> list:

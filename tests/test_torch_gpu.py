@@ -964,3 +964,55 @@ def test_cross_pod_q8_on_card_through_a_gloo_group(cuda, tmp_path):
             assert got[k].is_cuda and torch.equal(got[k], want[k])
     finally:
         dist.destroy_process_group()
+
+
+def _sharded_rank(rank: int, tmp: str) -> None:
+    """One of two gloo ranks sharing the card: one sharded step of reduced
+    tinyllama on a (data 1, model 2) mesh; rank 0 saves the whole state."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.config import RunPlan
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+    from repro_torch.pytree import tree_map
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank, world_size=2)
+    try:
+        mesh = mesh_mod._mk((1, 2), ("data", "model"), "cuda")
+        run = train.train(configs.get_reduced("tinyllama-1.1b"), RunPlan(), steps=1, seq_len=128,
+                          global_batch=4, device="cuda", mesh=mesh, log=lambda *a: None)
+        state = tree_map(lambda t: t.full_tensor().cpu(), run["state"])
+        if rank == 0:
+            torch.save({"losses": run["losses"], "state": state,
+                        "wire": mesh_mod.wire_stats()}, f"{tmp}/out.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_step_on_card_matches_the_single_process_step(cuda, tmp_path):
+    """Two gloo ranks on the card, ``model`` 2 (heads, the FF dim and the
+    vocabulary split over them, the sequence-parallel residual): one step
+    of ``launch/train.train(mesh=...)``, its collectives staged through
+    pinned host buffers (``launch/mesh.stage_through_host``); the loss and
+    every state leaf fp-tight (rtol 1e-4, atol 1e-5) against the same step
+    in one process on the card."""
+    import torch.multiprocessing as mp
+
+    from repro_torch import configs
+    from repro_torch.config import RunPlan
+    from repro_torch.launch import train
+    from repro_torch.pytree import key_paths, leaves
+
+    mp.start_processes(_sharded_rank, args=(str(tmp_path),), nprocs=2, start_method="spawn",
+                       join=True)
+    got = torch.load(tmp_path / "out.pt", weights_only=False)
+    want = train.train(configs.get_reduced("tinyllama-1.1b"), RunPlan(), steps=1, seq_len=128,
+                       global_batch=4, device=cuda, log=lambda *a: None)
+    assert got["wire"]["all_gather_into_tensor"]["calls"] > 0
+    torch.testing.assert_close(torch.tensor(got["losses"]), torch.tensor(want["losses"]),
+                               rtol=1e-4, atol=1e-5)
+    assert key_paths(got["state"]) == key_paths(want["state"])
+    for path, a, b in zip(key_paths(want["state"]), leaves(got["state"]), leaves(want["state"])):
+        torch.testing.assert_close(a, b.cpu(), rtol=1e-4, atol=1e-5, msg=path)
