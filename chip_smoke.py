@@ -281,6 +281,16 @@ the CPU):
       output, must fail gate 1 where the sound run passes; ms a step a
       rank and the hop split into quantize, all_gather and
       dequantize-and-mean, labelled as two ranks sharing one card;
+   j. the dense family's step sharded over (data 2, model 2): four gloo
+      ranks on the one card (the constants' comment, SHARD_*), the
+      collectives a step by op and mesh axis, the bytes the placed state
+      and batch take on each rank, the peak memory a rank;
+   k. the dry-run (``repro_torch.launch.dryrun``, two subprocesses that
+      never touch the card) of 4j
+      b's own cell on a fake process group, held to what 4j measured
+      (DRYRUN_*); and the dry-run of
+      tinyllama-1.1b's train_4k cell at DRYRUN_PROD_LAYERS layers on the
+      256-rank production mesh, its record printed;
 5. times: each kernel's device time (a CUDA graph of calls between CUDA
    events) beside its bound, its plain version and one PyTorch call
    computing the same function where there is one (timed in turns, a b b
@@ -549,6 +559,27 @@ SHARD_FAULTS = ("wo's model reduction dropped", "the data gradient reduction ski
                 "one data shard a copy of the other")
 SHARD_B_FAULT, SHARD_B_FAULT_STEPS = SHARD_FAULTS[1], 2
 SHARD_TIMEOUT_S = 600
+# The dry-run (phase 4k): ``python -m repro_torch.launch.dryrun`` on 4j b's
+# own cell, on a fake process group of SHARD_RANKS ranks, in a subprocess
+# that never touches the card.  Gates: a, its collective calls of one step
+# (op, mesh axis, bytes, in order), repeated for each of 4j b's steps, equal
+# to 4j b's calls on rank 0, exactly; b, its
+# argument bytes a device within DRYRUN_ARG_REL of what the placed state and
+# batch take on each 4j rank (torch.cuda.memory_allocated before and after
+# placing them, which the caching allocator's block rounding put 7.2e-4
+# above on the H100; the allocator's requested bytes, which it does not
+# round, equal to the byte); c, its peak a device within DRYRUN_PEAK_REL of 4j b's
+# max_memory_allocated on each rank.  Printed, not gated: d, its FLOPs a
+# device times the ranks against ``model_flops`` of that step.  Each of
+# DRYRUN_FAULTS, planted in the dry-run's record, must fail its gate.  Then
+# the dry-run of the production 16x16 mesh (256 fake ranks) at
+# DRYRUN_PROD_LAYERS layers.  Both run after phase 4j, not beside it:
+# beside it, even at the lowest CPU priority, they slowed 4j's steps from
+# 2.9 to 4.2 s a rank on the H100's host; they are killed after
+# DRYRUN_TIMEOUT_S
+DRYRUN_ARG_REL, DRYRUN_PEAK_REL = 1e-3, 0.25
+DRYRUN_FAULTS = ("a collective dropped from the log", "the largest state leaf counted twice")
+DRYRUN_PROD_LAYERS, DRYRUN_TIMEOUT_S = 2, 300
 
 KERNELS = [
     {
@@ -4281,6 +4312,24 @@ def shard_rank(rank: int, tmp: str, layers: int) -> None:
         gate_s = time.perf_counter() - t0
 
         cfg = cut_depth(tiny, layers)
+        # what b's placed state and batch take on this rank (phase 4k b):
+        # launch/train.train's placement, measured around it
+        requested = "requested_bytes.all.current"
+        before = torch.cuda.memory_allocated(), torch.cuda.memory_stats()[requested]
+        state_sh, batch_sh = specs.cell_for(cfg, ShapeSpec("4j b", "train", TRAIN_SEQ, TRAIN_BATCH),
+                                            plan, mesh).in_shardings
+        params = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+        placed = (specs.place(steps.init_train_state(cfg, specs.place(params, state_sh["params"])),
+                              state_sh),
+                  specs.place(train.make_batch(cfg, train.StreamConfig(
+                      cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH), 0, None, "cuda"), batch_sh))
+        del params
+        placed_bytes = {"allocated": torch.cuda.memory_allocated() - before[0],
+                        "requested": torch.cuda.memory_stats()[requested] - before[1],
+                        "largest_state_leaf": max(t.to_local().numel() * t.element_size()
+                                                  for t in leaves(placed[0]))}
+        del placed
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         mesh_mod.reset_wire()
         set_counts(dict.fromkeys(COUNTED, 0))
@@ -4291,7 +4340,7 @@ def shard_rank(rank: int, tmp: str, layers: int) -> None:
                               log=lambda *a: None)
             wall = time.perf_counter() - t0
         wire = mesh_mod.wire_stats()
-        launches, peak_gb = counts(), torch.cuda.max_memory_allocated() / 1e9
+        launches, peak_bytes = counts(), torch.cuda.max_memory_allocated()
         with shard_fault(SHARD_B_FAULT):  # the same run's first steps, faulted
             faulted = train.train(cfg, plan, steps=SHARD_B_FAULT_STEPS, seq_len=TRAIN_SEQ,
                                   global_batch=TRAIN_BATCH, device="cuda", mesh=mesh,
@@ -4300,7 +4349,8 @@ def shard_rank(rank: int, tmp: str, layers: int) -> None:
             "rank": rank, "coords": {a: mesh.get_local_rank(a) for a in SHARD_AXES},
             "gate": gate, "layers": cfg.num_layers, "losses": run["losses"],
             "step_ms": run["step_ms"], "launches": launches, "faulted_losses": faulted,
-            "peak_mem_gb": peak_gb,
+            "peak_mem_gb": peak_bytes / 1e9, "peak_bytes": peak_bytes,
+            "placed_bytes": placed_bytes, "collective_calls": coll.calls,
             "collectives_per_step": {k: {"count": v["count"] / SHARD_STEPS,
                                          "bytes": v["bytes"] / SHARD_STEPS}
                                      for k, v in coll.summary().items()},
@@ -4377,6 +4427,9 @@ def drive_shard_ranks(torch, smi: str, plain: dict) -> dict:
         "gate_s_per_rank": [r["gate_s"] for r in ranks],
         "b_train_wall_s_per_rank": [r["train_wall_s"] for r in ranks],
         "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in ranks],
+        "peak_bytes_per_rank": [r["peak_bytes"] for r in ranks],
+        "placed_bytes_per_rank": [r["placed_bytes"] for r in ranks],
+        "collective_calls_rank0": ranks[0]["collective_calls"],
         "launches_per_rank": [r["launches"] for r in ranks], "card": smi,
     }
     ok = (out["a_sound_passes"] and all(out["a_faults_caught"].values())
@@ -4429,7 +4482,129 @@ def log_shard_ranks(sh: dict, smi: str) -> None:
         f"s; card: {smi}")
     log(f"[4j sharded b] collectives a step (rank 0, op/mesh axis): "
         f"{json.dumps(sh['collectives_per_step'])}")
-    log(f"[4j sharded] {json.dumps(sh)}")
+    log(f"[4j sharded] "
+        f"{json.dumps({k: v for k, v in sh.items() if k != 'collective_calls_rank0'})}")
+
+
+def dryrun_cmd(*args: str) -> list:
+    return [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", SHARD_ARCH,
+            "--shape", "train_4k", *args]
+
+
+def dryrun_gates(rec: dict, sh: dict) -> dict:
+    """Phase 4k's gates a-c and reading d, from the dry-run's record of 4j
+    b's cell and 4j's output ``sh``."""
+    from repro_torch import configs
+
+    # 4j b's log holds its steps' collectives in order, each step's alike: the
+    # dry-run's one step, repeated, must be it call for call (op, mesh axis,
+    # bytes), which holds the per-op totals too
+    want = [list(c) for c in rec["collectives"]["calls"]] * sh["steps"]
+    card_calls = sh["collective_calls_rank0"]
+    first_diff = next((i for i, (a, b) in enumerate(zip(want, card_calls)) if a != b),
+                      None if len(want) == len(card_calls) else min(len(want), len(card_calls)))
+    arg = rec["memory"]["argument_bytes_per_dev"]
+    placed = [r["allocated"] for r in sh["placed_bytes_per_rank"]]
+    requested = [r["requested"] for r in sh["placed_bytes_per_rank"]]
+    peak = rec["memory"]["peak_bytes_per_dev"]
+    cfg = cut_depth(configs.get_config(SHARD_ARCH), sh["layers"])
+    mf = model_flops(cfg, sh["batch"] * sh["seq"], sh["seq"])
+    return {
+        "a_schedule_equal": card_calls == want,
+        "a_calls_first_difference": first_diff,
+        "b_argument_bytes": arg, "b_placed_allocated_per_rank": placed,
+        "b_placed_requested_per_rank": requested,
+        "b_rel_per_rank": [abs(arg - m) / m for m in placed],
+        "b_passes": (all(abs(arg - m) <= DRYRUN_ARG_REL * m for m in placed)
+                     and all(m == arg for m in requested)),
+        "c_peak_bytes": peak, "c_card_peak_bytes_per_rank": sh["peak_bytes_per_rank"],
+        "c_ratio_per_rank": [peak / m for m in sh["peak_bytes_per_rank"]],
+        "c_passes": all(abs(peak / m - 1) <= DRYRUN_PEAK_REL for m in sh["peak_bytes_per_rank"]),
+        "d_flops_per_dev": rec["cost"]["flops_per_dev"], "d_model_flops": mf,
+        "d_ratio": rec["cost"]["flops_per_dev"] * rec["chips"] / mf,
+    }
+
+
+def drive_dryrun(smi: str, sh: dict) -> dict:
+    """Phase 4k: the dry-run of 4j b's cell (``--calls``) and of the
+    production mesh's at DRYRUN_PROD_LAYERS layers, two subprocesses at once
+    with no card visible, read against 4j's output ``sh``; gates a-c must
+    pass on the sound record and each of DRYRUN_FAULTS, planted in a copy
+    of it, must fail its gate."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"), CUDA_VISIBLE_DEVICES="")
+    cmds = {
+        "cell": dryrun_cmd("--mesh-shape", "x".join(map(str, SHARD_MESH)), "--layers",
+                           str(sh["layers"]), "--seq-len", str(sh["seq"]), "--global-batch",
+                           str(sh["batch"]), "--aggregation", sh["aggregation"], "--calls",
+                           "--out", os.path.join(tmp, "cell.json")),
+        "production": dryrun_cmd("--mesh", "single", "--layers", str(DRYRUN_PROD_LAYERS),
+                                 "--out", os.path.join(tmp, "production.json")),
+    }
+    procs: dict = {}
+    try:
+        t0 = time.perf_counter()
+        for k, c in cmds.items():
+            procs[k] = subprocess.Popen(c, env=env, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+        outs = {k: p.communicate(timeout=DRYRUN_TIMEOUT_S) for k, p in procs.items()}
+        wall = time.perf_counter() - t0
+        for k, p in procs.items():
+            if p.returncode:
+                raise SystemExit(f"phase 4k: the {k} dry-run exited {p.returncode}: "
+                                 f"{outs[k][1][-3000:]}")
+        with open(os.path.join(tmp, "cell.json")) as f:
+            rec = json.load(f)[0]
+        with open(os.path.join(tmp, "production.json")) as f:
+            prod = json.load(f)[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+    gates = dryrun_gates(rec, sh)
+    dropped = json.loads(json.dumps(rec))
+    dropped["collectives"]["calls"].pop(0)
+    doubled = json.loads(json.dumps(rec))
+    doubled["memory"]["argument_bytes_per_dev"] += sh["placed_bytes_per_rank"][0][
+        "largest_state_leaf"]
+    faults = {DRYRUN_FAULTS[0]: not dryrun_gates(dropped, sh)["a_schedule_equal"],
+              DRYRUN_FAULTS[1]: not dryrun_gates(doubled, sh)["b_passes"]}
+    out = {"cell": {k: v for k, v in rec.items() if k != "collectives"},
+           "cell_collectives": {k: v for k, v in rec["collectives"].items() if k != "calls"},
+           "gates": gates, "faults_caught": faults, "production": prod, "wall_s": wall,
+           "card": smi}
+    ok = (gates["a_schedule_equal"] and gates["b_passes"] and gates["c_passes"]
+          and all(faults.values()) and prod["cost"]["flops_per_dev"] > 0)
+    if not ok:
+        raise SystemExit(f"phase 4k: {json.dumps(out)}")
+    return out
+
+
+def log_dryrun(dr: dict, smi: str) -> None:
+    """Phase 4k's lines."""
+    g = dr["gates"]
+    log(f"[4k dryrun] 4j b's cell on a fake process group of {dr['cell']['chips']} ranks (CPU "
+        f"counts, no card): a, collectives of one step, repeated, equal to 4j b's calls on rank "
+        f"0 (op, mesh axis, bytes, in order): {g['a_schedule_equal']} (first difference at "
+        f"{g['a_calls_first_difference']}); b, argument bytes "
+        f"{g['b_argument_bytes']} against the placed state and batch on each rank "
+        f"{g['b_placed_allocated_per_rank']} (memory_allocated), rel "
+        f"{[f'{x:.3g}' for x in g['b_rel_per_rank']]} (bound {DRYRUN_ARG_REL}), and requested "
+        f"{g['b_placed_requested_per_rank']} (equal to the byte); c, peak {g['c_peak_bytes']} "
+        f"against 4j b's {g['c_card_peak_bytes_per_rank']}, ratio {[round(x, 4) for x in g['c_ratio_per_rank']]} "
+        f"(bound ±{DRYRUN_PEAK_REL}); d, flops a device x {dr['cell']['chips']} over model_flops "
+        f"{g['d_ratio']:.4f} (not gated); faults caught {json.dumps(dr['faults_caught'])}; "
+        f"wall {dr['wall_s']:.1f} s; card: {smi}")
+    log(f"[4k dryrun] {json.dumps({k: v for k, v in dr.items() if k != 'production'})}")
+    log(f"[4k dryrun] production 16x16, {DRYRUN_PROD_LAYERS} layers: "
+        f"{json.dumps(dr['production'])}")
 
 
 def main() -> int:
@@ -4928,6 +5103,10 @@ def main() -> int:
     # -- 4j. the dense family's step sharded over (data, model): tinyllama-1.1b --
     sharded = drive_shard_ranks(torch, smi, shard_plain_losses(torch))
     log_shard_ranks(sharded, smi)
+
+    marks.append(("4k", time.perf_counter()))
+    # -- 4k. the dry-run of 4j b's cell, held to 4j; the production mesh's ----
+    log_dryrun(drive_dryrun(smi, sharded), smi)
 
     marks.append(("5", time.perf_counter()))
     # -- 5. times -------------------------------------------------------------

@@ -148,23 +148,35 @@ class CollectiveLog(TorchDispatchMode):
         self.axis = {mesh.get_group(d).group_name: d for d in mesh.mesh_dim_names}
         self.calls: list[tuple] = []
 
+    def log(self, func, args) -> tuple | None:
+        """The (op, mesh axis, bytes in) of ``func`` on ``args`` if it is a
+        functional collective, logged; None otherwise."""
+        if not ((func.namespace == "_c10d_functional" and func._opname in COLLECTIVES)
+                or (func.namespace == "_dtensor" and func._opname == "shard_dim_alltoall")):
+            return None
+        group = args[-1] if isinstance(args[-1], str) else args[-1].group_name
+        call = (func._opname, self.axis.get(group, group), args[0].numel() * args[0].element_size())
+        self.calls.append(call)
+        return call
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
 
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
-        if ((func.namespace == "_c10d_functional" and func._opname in COLLECTIVES)
-                or (func.namespace == "_dtensor" and func._opname == "shard_dim_alltoall")):
-            group = args[-1] if isinstance(args[-1], str) else args[-1].group_name
-            self.calls.append((func._opname, self.axis.get(group, group),
-                               args[0].numel() * args[0].element_size()))
+        self.log(func, args)
         return func(*args, **(kwargs or {}))
 
     def summary(self) -> dict:
         """{"op/axis": {"count", "bytes"}} over the logged calls."""
-        out: dict = {}
-        for op, axis, nbytes in self.calls:
-            rec = out.setdefault(f"{op}/{axis}", {"count": 0, "bytes": 0})
-            rec["count"] += 1
-            rec["bytes"] += nbytes
-        return out
+        return summarize(self.calls)
+
+
+def summarize(calls) -> dict:
+    """{"op/axis": {"count", "bytes"}} over (op, mesh axis, bytes) calls."""
+    out: dict = {}
+    for op, axis, nbytes in calls:
+        rec = out.setdefault(f"{op}/{axis}", {"count": 0, "bytes": 0})
+        rec["count"] += 1
+        rec["bytes"] += nbytes
+    return out

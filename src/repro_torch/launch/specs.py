@@ -8,13 +8,15 @@ resolved to the mesh's axes and fitted to the shapes, and the DTensor
 placements of each leaf (``nn.shardings_for``: ``nn.NamedSharding``s);
 ``cell_for`` does the same for a config, shape and plan in hand, and
 ``place`` puts a state or a batch on a mesh under those shardings (the
-inputs of ``fl/steps``' sharded step).  ``lower_cell`` and the
-dry-run tools built on it (``dryrun.py``, ``sweep.py``) are not ported
-yet (ROADMAP §1).
+inputs of ``fl/steps``' sharded step).  ``lower_cell`` runs a train
+cell's sharded step once on fake tensors and counts one rank's FLOPs,
+bytes, collectives and memory (``launch/hlo.StepCounter``); the dry-run
+tools read it (``dryrun.py``, ``sweep.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, NamedTuple
 
 import torch
@@ -200,3 +202,56 @@ def place(tree, shardings):
         return distribute_tensor(t, sh.mesh, sh.placements, src_data_rank=None)
 
     return tree_map(one, tree, shardings)
+
+
+def lower_cell(cell: Cell, mesh) -> dict:
+    """The reference's ``lower_cell`` and ``compile`` in one: the cell's
+    step (``steps.build_train_step(cfg, plan, mesh=mesh)``; ``Cell.step_fn``
+    stays the plain step) run once under ``FakeTensorMode`` on fake CPU
+    tensors of ``cell.args``' shapes and dtypes, put on ``mesh`` by
+    ``place`` under the cell's ``in_shardings`` (no tensor memory: a 398B
+    config touches no host memory), counted by ``hlo.StepCounter``.  The
+    outputs' placements must be ``out_shardings``'.  Returns
+    ``{"stats": hlo.ModuleStats, "calls": CollectiveLog's calls,
+    "memory": {...}, "trace_s": s}``, every number rank ``mesh``'s own.
+
+    Memory a device, in bytes: ``argument`` the distinct local storages of
+    the placed state and batch; ``output`` those of the returned state and
+    metrics; ``peak`` the most bytes of live local storages over the run,
+    the arguments included; ``temp`` = peak - argument - output.  The step
+    returns a new state rather than writing into a donated one, so
+    ``alias`` is 0 and the peak is measured, not summed from the others.
+
+    Serving cells raise ``NotImplementedError`` (ROADMAP §1, serving on a
+    sharded mesh), as the step builder does for the other families and for
+    ``totoro_tree_q8`` inside a sharded pod."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from . import hlo
+
+    if cell.shape.kind != "train":
+        raise NotImplementedError(f"{cell.shape.name} ({cell.shape.kind}) on a mesh: ROADMAP §1, "
+                                  f"serving on a sharded mesh")
+    step = steps_mod.build_train_step(cell.cfg, cell.plan, mesh=mesh)
+    counter = hlo.StepCounter(mesh)
+    with FakeTensorMode():
+        args = tuple(place(tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype), a), sh)
+                     for a, sh in zip(cell.args, cell.in_shardings))
+        argument = counter.track(args)
+        t0 = time.perf_counter()
+        with counter:
+            out = step(*args)
+        trace_s = time.perf_counter() - t0
+        output = counter.storage_bytes(out)
+        peak = counter.peak_bytes
+        state_sh, metric_sh = cell.out_shardings
+        got = [tree_map(lambda t: tuple(t.placements), o) for o in out]
+        want = [tree_map(lambda sh: tuple(sh.placements), state_sh),
+                {k: tuple(metric_sh.placements) for k in out[1]}]
+        if got != want:
+            raise RuntimeError(f"the step's outputs are not under the cell's out_shardings: "
+                                 f"{got} against {want}")
+        del args, out
+    return {"stats": counter.stats, "calls": counter.calls, "trace_s": trace_s,
+            "memory": {"argument": argument, "output": output, "temp": peak - argument - output,
+                       "alias": 0, "peak": peak}}

@@ -61,7 +61,9 @@ reference's constraints, the sequence gathered and q, k and v
 head-sharded over ``tp`` and batch-sharded over ``dp``; rope, the kv
 repeat and ``chunked_attention`` with ``_Flash`` run on each rank's
 shards through ``local_map`` (heads are kv-major, so a rank's query heads
-are exactly its kv heads' groups, and KV must divide by the ``tp`` axis);
+are exactly its kv heads' groups; where the ``tp`` axis does not divide
+KV, k and v are repeated to every query head before the head split and
+the core runs at G = 1, as the reference's);
 the padded heads' mask is sliced the same way, so the padding stays
 exact; ``wo`` leaves a partial sum over ``tp``.  Prefill and decode on a
 mesh raise ``NotImplementedError`` (ROADMAP §1, serving on a sharded
@@ -361,11 +363,6 @@ def gqa_forward(p, cfg, x, *, positions, mode, cache=None, cache_index=None, cau
         if mode != "train":
             raise NotImplementedError(f"{mode} on a sharded mesh: ROADMAP §1, serving on a "
                                       f"sharded mesh")
-        tp = nn.axis_size("tp")
-        if cfg.num_kv_heads % tp:
-            raise ValueError(f"{cfg.num_kv_heads} kv heads do not divide over a tp axis of "
-                             f"{tp}: heads are kv-major, so each rank's query heads need their "
-                             f"kv heads")
     B, S, d = x.shape
     H, G = padded_heads(cfg)
     hmask = head_mask(cfg, x.device)
@@ -376,6 +373,12 @@ def gqa_forward(p, cfg, x, *, positions, mode, cache=None, cache_index=None, cau
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
+    if isinstance(k, nn.DTensor) and G > 1 and cfg.num_kv_heads % nn.axis_size("tp"):
+        # kv heads that the tp axis does not divide: every query head's k and
+        # v before the head split, the core at G = 1, as the reference
+        # (src/repro/models/attention.py:294-302)
+        k, v = (torch.repeat_interleave(t, G, dim=2) for t in (k, v))
+        G = 1
     heads = ("dp", None, "tp", None)
     q, k, v = (nn.constrain(t, heads) for t in (q, k, v))
 

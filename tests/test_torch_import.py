@@ -41,9 +41,9 @@ def test_every_module_imports_without_jax_or_repro(tmp_path):
     res = _run(PROBE, tmp_path)
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 29 + 20 + 3 + 3 + 1 + 3  # slices A, B and C; aggregation, dp, configs,
-    # models, serving; then optim, ckpt and the training entry point; moe, rwkv, ssm; encdec;
-    # the multi-device slice
+    assert len(names) >= 29 + 20 + 3 + 3 + 1 + 3 + 3  # slices A, B and C; aggregation, dp,
+    # configs, models, serving; then optim, ckpt and the training entry point; moe, rwkv, ssm;
+    # encdec; the multi-device slice; the dry-run tools
     assert {
         "repro_torch.fl.compression", "repro_torch.fl.async_engine",
         "repro_torch.fl.selection", "repro_torch.core.sim",
@@ -59,6 +59,7 @@ def test_every_module_imports_without_jax_or_repro(tmp_path):
         "repro_torch.models.moe", "repro_torch.models.rwkv", "repro_torch.models.ssm",
         "repro_torch.models.encdec",
         "repro_torch.launch.mesh", "repro_torch.launch.specs", "repro_torch.fl.hierarchy",
+        "repro_torch.launch.hlo", "repro_torch.launch.dryrun", "repro_torch.launch.sweep",
     } <= names
 
 

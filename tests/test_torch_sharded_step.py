@@ -64,6 +64,10 @@ CASES = [
     ("tinyllama-1.1b", (2, 2, 1), "totoro_tree", None, 1),
     ("qwen3-8b", (2, 2), "totoro_tree", "save_mixer_ffn", 1),
     ("llava-next-34b", (2, 2), "totoro_tree", None, 2),
+    # a model axis wider than the kv heads (KV 2, H 4 on tp 4): k and v
+    # repeated to every query head before the head split
+    ("tinyllama-1.1b", (1, 4), "xla_auto", None, 1),
+    ("qwen3-8b", (1, 4), "totoro_tree", None, 1),
 ]
 IDS = [f"{a}-{'x'.join(map(str, s))}-{g}{f'-remat-{r}' if r else ''}"
        f"{f'-accum{n}' if n > 1 else ''}" for a, s, g, r, n in CASES]
