@@ -114,10 +114,13 @@ the CPU):
          beside ``scaled_dot_product_attention``'s (a yardstick only);
       c. tinyllama-1.1b at full width and depth, bf16, AdamW (lr 3e-4),
          remat on, 6 steps of B 8, S 1024 of ``data.learnable_lm_batch``
-         through ``launch/train.train``: every loss finite and the last
-         below the first; ms/step (steps 2-6, host clock after
-         synchronize), tokens/s, MFU (6 N T with N without the embedding
-         table, plus 6 L H hd S T, over 989 TFLOP/s), peak memory, one
+         through ``launch/train.train``, the weights drawn on the card
+         (``drawn_on_card``): every loss finite, and the first step's
+         update lowering its own batch's loss by TRAIN_FIRST_DROP at least
+         (``first_step_drop``; the later losses logged); ms/step (steps
+         2-6, host clock after synchronize), tokens/s, MFU (6 N T with N
+         without the embedding table, plus 6 L H hd S T, over 989
+         TFLOP/s), peak memory, one
          step's idle share, device ops and top five under
          torch.profiler; the seven kernels' counters must read 0.
          Phases 4e, 4f and 4g each run with the script's own heap frozen
@@ -171,7 +174,7 @@ the CPU):
          decode step's idle share and top five ops;
       c. bf16 training at 3 layers (dense + 2 MoE blocks), AdamW, remat
          "nothing", B 8, S 1024, 6 steps through ``launch/train.train``:
-         losses finite and falling, aux losses finite and positive,
+         losses finite, aux losses finite and positive, the gate of 4e c,
          ms/step, tokens/s, MFU on the active parameters (a token's 6 of
          64 experts; MLA's q/k head dim 192, v 128), peak memory, one
          step's idle share and top ops; then remat on against off at 2
@@ -218,8 +221,9 @@ the CPU):
          top ops;
       c. rwkv6-7b training at full width and 7 layers, bf16,
          AdamW, remat, 6 steps of B 8, S 1024 through
-         ``launch/train.train`` (ms/step, tokens/s, MFU on 6 N T without the
-         wkv core's FLOPs, peak memory, one step's idle share and top ops);
+         ``launch/train.train``, gated as 4e c (ms/step, tokens/s, MFU on
+         6 N T without the wkv core's FLOPs, peak memory, one step's idle
+         share and top ops);
          then remat on against off at 2 layers on the card
          (``remat_agreement``, as phase 4f c), every gradient leaf
          bit-equal but the embedding's (within REMAT_EMBED_REL);
@@ -252,9 +256,9 @@ the CPU):
          cross caches), a decode step's idle share and device ops;
       c. bf16 training at full width and depth, AdamW, remat, B 4 (cut from
          8 by the card's memory), S_src = S_tgt = 1024, 6 steps through
-         ``launch/train.train`` (ms/step, target tokens/s, MFU on
-         ``model_flops``' enc-dec count, peak memory, one step's idle share
-         and top ops); remat on against off at 2 + 2 layers
+         ``launch/train.train``, gated as 4e c (ms/step, target tokens/s,
+         MFU on ``model_flops``' enc-dec count, peak memory, one step's
+         idle share and top ops); remat on against off at 2 + 2 layers
          (``remat_agreement``);
       d. the podded ``totoro_tree_q8`` step at full depth, B 4, 2 pods, 3
          steps: one quantize and one dequantize launch per leaf a step (27
@@ -386,6 +390,16 @@ FLASH_F32_REL = 1e-5
 FLASH_FAULTS = ("delta dropped", "dk/dv of the last query chunk only")
 # c, d, e: tinyllama-1.1b in bf16 through launch/train's loop
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, POD_STEPS, PODS = 8, 1024, 6, 3, 2
+# c's gate (4e c to 4h c, ``first_step_drop``): the first step's update
+# lowers its own batch's cross-entropy by TRAIN_FIRST_DROP at least.  On an
+# H100 (tools/train_learnability.py, PERF.md §6) it read 0.410-0.466 for
+# seamless-m4t-medium (seeds 0-4, host and card draws), 2.07-2.16 for
+# tinyllama-1.1b, 3.85-3.86 for deepseek-v2-lite at 3 layers and 2.25-2.32
+# for rwkv6-7b at 7 layers; seamless's losses on fresh batches moved at
+# most 0.035 from one step to the next.  TRAIN_FIRST_FAULT, planted in the
+# same step, must read under it
+TRAIN_FIRST_DROP = 0.2
+TRAIN_FIRST_FAULT = "the AdamW update's sign flipped"
 # d (and 4f d, 4g d): faults planted in a hop kernel's output, each of
 # which the hop's bit-equality gate must catch on one leaf's rows
 HOP_FAULTS = ("a lattice point a step off", "a dequantized value an ulp off")
@@ -407,8 +421,8 @@ MOE_F32_LAYERS = 2
 # first card run to LM_F32_REL, the f32 bound of 4d and 4e a).
 MOE_F32_DECODE_REL = LM_F32_REL
 MOE_DECODE_FAULTS = ("shared experts dropped", "rope scores left out")
-# Then bf16 serving at 5 of 27 layers (the port draws every leaf on the host
-# in f32: the expert stack alone is 19 GB at full depth).  There a bf16
+# Then bf16 serving at 5 of 27 layers (the port draws every leaf in f32
+# first: the expert stack alone is 19 GB at full depth).  There a bf16
 # rounding that differs between the two paths may resolve a near-tie in the
 # top 6 of 64 the other way, a legitimate difference that reaches its row's
 # logits from its step on (by the cache), so the bound holds on the entries
@@ -559,6 +573,33 @@ SHARD_FAULTS = ("wo's model reduction dropped", "the data gradient reduction ski
                 "one data shard a copy of the other")
 SHARD_B_FAULT, SHARD_B_FAULT_STEPS = SHARD_FAULTS[1], 2
 SHARD_TIMEOUT_S = 600
+# The MoE family's step sharded inside a pod (phase 4l): MOE_ARCH at full
+# width on 4j's ranks and mesh (the same spawn, after 4j), totoro_tree, at
+# MOE_SHARD_LAYERS layers: the dense first layer (MLA) and one MoE layer
+# (MLA, GShard dispatch with its expert all-to-all over data).  The weights
+# are drawn on the card (``drawn_on_card``).  a: f32 (TF32 off), B
+# MOE_SHARD_F32_BATCH, S MOE_SHARD_F32_SEQ (B 8: two groups of 512 tokens,
+# one a data rank, so the expert all-to-alls run; at B 4 the one group is
+# routed whole on both), one sharded step against the same step in one
+# process, which the ranks compute in turn on the card (1.09e9 parameters,
+# ~22 GB with AdamW's state and the gradients), each keeping its own shards
+# of it on the host: 4j a's gate (shard_readings' AdamW map) and every top-k
+# routing of the rank's groups equal, no flip allowed (4f a's strict f32
+# gate); each of MOE_SHARD_FAULTS, planted at run time in every rank, must
+# fail it.  b: bf16, B TRAIN_BATCH, S TRAIN_SEQ, MOE_SHARD_STEPS steps of
+# launch/train.train(mesh=...), the losses within MOE_SHARD_BF16_LOSS_RTOL
+# of the same steps in one process (``moe_shard_plain_losses``); then
+# MOE_SHARD_B_FAULT planted for SHARD_B_FAULT_STEPS steps must read above it
+MOE_SHARD_LAYERS, MOE_SHARD_SEED = 2, 0
+MOE_SHARD_F32_BATCH, MOE_SHARD_F32_SEQ = 8, 128
+MOE_SHARD_STEPS = 3
+# b's bound: the card read 9.27e-6 in the first run of the phase, so 1e-4
+# is about 10x that, as 4j b's; the fault read 3.11e-3
+MOE_SHARD_BF16_LOSS_RTOL = 1e-4
+MOE_SHARD_FAULTS = ("the expert all-to-all's return skipped",
+                    "the router gradient's data reduction skipped",
+                    "two ranks' expert shards swapped")
+MOE_SHARD_B_FAULT = MOE_SHARD_FAULTS[0]
 # The dry-run (phase 4k): ``python -m repro_torch.launch.dryrun`` on 4j b's
 # own cell, on a fake process group of SHARD_RANKS ranks, in a subprocess
 # that never touches the card.  Gates: a, its collective calls of one step
@@ -2275,7 +2316,8 @@ def remat_agreement(torch, arch: str, layers: int, seed: int,
     chunk checkpoints with it) and without; the recompute's top-k indices
     equal the forward's, the loss and aux equal, every leaf bit-equal but
     the embedding table's (within REMAT_EMBED_REL of its largest: its
-    backward adds repeated tokens' rows in any order)."""
+    backward adds repeated tokens' rows in any order).  The weights are
+    drawn on the card (``drawn_on_card``)."""
     from repro_torch import configs
     from repro_torch.ckpt import key_paths
     from repro_torch.config import RunPlan
@@ -2286,7 +2328,8 @@ def remat_agreement(torch, arch: str, layers: int, seed: int,
 
     cfg = cut_depth(configs.get_config(arch), layers)
     model = encdec if cfg.is_encoder_decoder else lm
-    params = model.init_params(torch.Generator().manual_seed(seed), cfg, device="cuda")
+    with drawn_on_card():  # 5-8 s of host draws a run
+        params = model.init_params(torch.Generator().manual_seed(seed), cfg, device="cuda")
     batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, global_batch), 0,
                              None, "cuda")
     with RoutingRecorder() as rec:
@@ -2430,8 +2473,10 @@ def drawn_on_card():
 
     from repro_torch.models import nn
 
-    def make(_host_draws):
+    def make(host_draws):
         def on_card(gen, shape, dtype, stddev):
+            if torch.empty(()).is_meta:  # shapes only (``launch/specs``): no draws
+                return host_draws(gen, shape, dtype, stddev)
             seed = int(torch.randint(0, 2**62, (1,), generator=gen))
             t = torch.empty(tuple(shape), dtype=torch.float32, device="cuda")
             t.uniform_(nn._ERF_LO, nn._ERF_HI,
@@ -2507,15 +2552,47 @@ def model_flops(cfg, tokens: int, seq: int) -> float:
     return 6.0 * n * tokens + 3.0 * n_attn * cfg.num_heads * (dk + cfg.head_dim) * seq * tokens
 
 
+def first_step_drop(torch, cfg, global_batch: int, fault: str | None = None) -> dict:
+    """The training gate's reading: one step of ``launch/train.train`` from
+    its seed-0 weights (drawn as the caller's are), then, with no gradient,
+    the cross-entropy of that step's own batch under the updated weights
+    against the step's own: how far the first AdamW update lowers the
+    loss of the batch it was computed on (TRAIN_FIRST_DROP).  ``fault``
+    (TRAIN_FIRST_FAULT) runs the step at the negated learning rate."""
+    from repro_torch.config import RunPlan
+    from repro_torch.launch import train
+    from repro_torch.models import encdec, lm
+
+    if fault == TRAIN_FIRST_FAULT:
+        cfg = cfg.replace(learning_rate=-cfg.learning_rate)
+    elif fault is not None:
+        raise ValueError(fault)
+    with uncounted():
+        run = train.train(cfg, RunPlan(), steps=1, seq_len=TRAIN_SEQ, global_batch=global_batch,
+                          device="cuda", log=lambda *a: None)
+        batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_SEQ, global_batch),
+                                 0, None, "cuda")
+        loss = encdec.forward_train if cfg.is_encoder_decoder else lm.train_loss
+        with torch.no_grad():
+            after = float(loss(run["state"]["params"], cfg, batch)[1][0])
+    before = run["losses"][0]
+    return {"before": before, "after": after, "drop": before - after}
+
+
 def train_lm(torch, smi: str, cfg, global_batch: int = TRAIN_BATCH) -> dict:
     """c (4e: tinyllama-1.1b at full width and depth; 4f: deepseek-v2-lite
     at full width, MOE_TRAIN_LAYERS layers; 4g: rwkv6-7b at full width,
     RWKV_TRAIN_LAYERS layers; 4h: seamless-m4t-medium at full width and
     depth, B SEAMLESS_BATCH), bf16, AdamW, remat on, through
     ``launch/train.train`` (its garbage collections timed, ``gc_during``):
-    TRAIN_STEPS steps of B = ``global_batch``, S = TRAIN_SEQ, losses finite and
-    falling (an MoE model's aux losses finite and positive); then one more
-    step under torch.profiler."""
+    TRAIN_STEPS steps of B = ``global_batch``, S = TRAIN_SEQ, every loss
+    finite (an MoE model's aux losses finite and positive); then one more
+    step under torch.profiler; then the gate, ``first_step_drop`` at least
+    TRAIN_FIRST_DROP, which TRAIN_FIRST_FAULT must fail.  Whether the later
+    steps' losses fall is logged, not gated: on fresh batches of a stream
+    whose successor cycles are longer than the steps see (seamless-m4t-
+    medium: 256,206 tokens, 1.6 % of them a step; rwkv6-7b) they stay
+    within ±0.1 of the first (PERF.md §6)."""
     from repro_torch.config import RunPlan
     from repro_torch.fl import steps
     from repro_torch.launch import train
@@ -2531,8 +2608,8 @@ def train_lm(torch, smi: str, cfg, global_batch: int = TRAIN_BATCH) -> dict:
     wall = time.perf_counter() - t0
     got = counts()
     losses, auxes = run["losses"], run["auxes"]
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise SystemExit(f"{cfg.name} training: losses {losses} not finite or not falling")
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"{cfg.name} training: losses {losses} not finite")
     if cfg.moe_num_experts and not all(np.isfinite(a) and a > 0 for a in auxes):
         raise SystemExit(f"{cfg.name} training: aux losses {auxes} not finite and positive")
     if got != dict.fromkeys(COUNTED, 0):
@@ -2554,6 +2631,18 @@ def train_lm(torch, smi: str, cfg, global_batch: int = TRAIN_BATCH) -> dict:
                              TRAIN_STEPS, None, "cuda")
     state = run.pop("state")
     out["profile"] = _profile_step(torch, lambda: step(state, batch))
+    del state, batch
+    torch.cuda.empty_cache()
+    out["first_step"] = first_step_drop(torch, cfg, global_batch)
+    torch.cuda.empty_cache()
+    out["first_step_fault"] = first_step_drop(torch, cfg, global_batch, TRAIN_FIRST_FAULT)
+    torch.cuda.empty_cache()
+    if not (out["first_step"]["drop"] >= TRAIN_FIRST_DROP
+            and not out["first_step_fault"]["drop"] >= TRAIN_FIRST_DROP):
+        raise SystemExit(f"{cfg.name} training: the first step lowers its own batch's loss by "
+                         f"{out['first_step']['drop']:.4f} (TRAIN_FIRST_DROP {TRAIN_FIRST_DROP}), "
+                         f"and by {out['first_step_fault']['drop']:.4f} under "
+                         f"{TRAIN_FIRST_FAULT!r}, which must fail it")
     return out
 
 
@@ -2782,7 +2871,8 @@ def drive_training(torch, smi: str, qz, ops, ref) -> dict:
         with uncounted():
             out["b_flash_backward"] = flash_backward_on_card(torch)
         tiny = configs.get_config("tinyllama-1.1b")
-        out["c_tinyllama"] = train_lm(torch, smi, tiny)
+        with drawn_on_card():
+            out["c_tinyllama"] = train_lm(torch, smi, tiny)
         out["d_podded_q8"] = train_podded(torch, qz, ops, ref, tiny, "largest")
         with uncounted():
             out["e_checkpoint"] = checkpoint_resume(torch, cut_depth(tiny, CKPT_LAYERS))
@@ -3016,7 +3106,8 @@ def serve_moe(torch, smi: str) -> dict:
     cfg = configs.get_config(MOE_ARCH).replace(num_layers=MOE_SERVE_LAYERS)
     n_moe = _n_moe(cfg)
     t0 = time.perf_counter()
-    params = lm.init_params(torch.Generator().manual_seed(20), cfg, device="cuda")
+    with drawn_on_card():  # 26.7 s of host draws before (PERF.md §7)
+        params = lm.init_params(torch.Generator().manual_seed(20), cfg, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     batch = serve.make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator().manual_seed(21), "cuda")
@@ -3068,7 +3159,8 @@ def drive_moe(torch, smi: str, qz, ops, ref) -> dict:
         out["b_serve"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.empty_cache()
         cfg = configs.get_config(MOE_ARCH)
-        out["c_train"] = train_lm(torch, smi, cfg.replace(num_layers=MOE_TRAIN_LAYERS))
+        with drawn_on_card():
+            out["c_train"] = train_lm(torch, smi, cfg.replace(num_layers=MOE_TRAIN_LAYERS))
         torch.cuda.empty_cache()
         with uncounted():
             out["c_remat"] = remat_agreement(torch, MOE_ARCH, MOE_REMAT_LAYERS, 4)
@@ -3327,15 +3419,16 @@ def mamba_chunk_loop_share(torch) -> dict:
     TRAIN_SEQ, forward plus backward, eager (CUDA events, host cost
     included): the whole sublayer, and ``ssm.selective_scan`` alone (the
     chunk loop: per chunk the log-depth scan, under its checkpoint) on the
-    inputs the sublayer handed it; the loop's share and the peak memory.
-    A lead for later work, not a gate."""
+    inputs the sublayer handed it; the loop's share and the peak memory;
+    the weights drawn on the card.  A lead for later work, not a gate."""
     from repro_torch import configs
     from repro_torch.models import ssm
     from repro_torch.pytree import tree_map
 
     cfg = configs.get_config(JAMBA_ARCH)
-    p = tree_map(lambda t: t.cuda().requires_grad_(True),
-                 ssm.init_mamba(torch.Generator().manual_seed(37), cfg))
+    with drawn_on_card():
+        p = tree_map(lambda t: t.cuda().requires_grad_(True),
+                     ssm.init_mamba(torch.Generator().manual_seed(37), cfg))
     gen = torch.Generator(device="cuda").manual_seed(38)
     x = torch.randn(MAMBA_BATCH, TRAIN_SEQ, cfg.d_model, device="cuda", generator=gen)
     x = x.to(cfg.adtype).requires_grad_(True)
@@ -3397,7 +3490,8 @@ def drive_recurrent(torch, smi: str, qz, ops, ref) -> dict:
         out["b_serve"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.empty_cache()
         cfg = configs.get_config(RWKV_ARCH)
-        out["c_train"] = train_lm(torch, smi, cfg.replace(num_layers=RWKV_TRAIN_LAYERS))
+        with drawn_on_card():
+            out["c_train"] = train_lm(torch, smi, cfg.replace(num_layers=RWKV_TRAIN_LAYERS))
         torch.cuda.empty_cache()
         with uncounted():
             out["c_remat"] = remat_agreement(torch, RWKV_ARCH, RWKV_REMAT_LAYERS, 36)
@@ -3621,7 +3715,8 @@ def drive_encdec(torch, smi: str, qz, ops, ref) -> dict:
         out["b_serve"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.empty_cache()
         cfg = configs.get_config(SEAMLESS_ARCH)
-        out["c_train"] = train_lm(torch, smi, cfg, SEAMLESS_BATCH)
+        with drawn_on_card():
+            out["c_train"] = train_lm(torch, smi, cfg, SEAMLESS_BATCH)
         torch.cuda.empty_cache()
         with uncounted():
             out["c_remat"] = remat_agreement(torch, SEAMLESS_ARCH, SEAMLESS_REMAT_LAYERS, 45,
@@ -4252,6 +4347,76 @@ def shard_gate(readings, want: dict, loss: float) -> dict:
     return out
 
 
+def sharded_bf16_run(torch, cfg, mesh, n_steps: int, fault) -> dict:
+    """b of phases 4j and 4l on one rank: ``n_steps`` bf16 steps of
+    ``launch/train.train(mesh=...)`` under totoro_tree (B TRAIN_BATCH, S
+    TRAIN_SEQ), every launch counter set to 0 first, the collectives logged
+    (``CollectiveLog``, ``wire_stats``), peak memory; then the same run's
+    first SHARD_B_FAULT_STEPS steps under ``fault`` (a context manager)."""
+    from repro_torch.config import RunPlan
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+
+    plan = RunPlan(aggregation="totoro_tree")
+
+    def run(steps: int) -> dict:
+        return train.train(cfg, plan, steps=steps, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                           device="cuda", mesh=mesh, log=lambda *a: None)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh_mod.reset_wire()
+    set_counts(dict.fromkeys(COUNTED, 0))
+    with mesh_mod.CollectiveLog(mesh) as coll:
+        t0 = time.perf_counter()
+        sound = run(n_steps)
+        wall = time.perf_counter() - t0
+    wire = mesh_mod.wire_stats()
+    launches, peak_bytes = counts(), torch.cuda.max_memory_allocated()
+    del sound["state"]
+    torch.cuda.empty_cache()
+    with fault:
+        faulted = run(SHARD_B_FAULT_STEPS)["losses"]
+    return {
+        "layers": cfg.num_layers, "losses": sound["losses"], "auxes": sound["auxes"],
+        "step_ms": sound["step_ms"], "launches": launches, "faulted_losses": faulted,
+        "peak_mem_gb": peak_bytes / 1e9, "peak_bytes": peak_bytes,
+        "collective_calls": coll.calls,
+        "collectives_per_step": {k: {"count": v["count"] / n_steps, "bytes": v["bytes"] / n_steps}
+                                 for k, v in coll.summary().items()},
+        "wire_per_step": {k: {"calls": v["calls"] / n_steps, "ms": v["seconds"] * 1e3 / n_steps,
+                              "bytes": v["bytes"] / n_steps} for k, v in wire.items()},
+        "train_wall_s": wall,
+    }
+
+
+def sharded_bf16_readings(ranks: list, plain: dict) -> dict:
+    """b's readings from every rank's ``sharded_bf16_run`` against
+    ``plain`` (the same steps in one process on the card)."""
+    rel = [abs(a - b) / abs(b) for r in ranks for a, b in zip(r["losses"], plain["losses"])]
+    steady = [float(np.mean(r["step_ms"][1:])) for r in ranks]
+    wire_ms = [sum(v["ms"] for v in r["wire_per_step"].values()) for r in ranks]
+    return {
+        "b_losses": ranks[0]["losses"], "b_losses_plain": plain["losses"],
+        "b_loss_rel_max": max(rel),
+        "b_losses_equal_across_ranks": all(r["losses"] == ranks[0]["losses"] for r in ranks),
+        "b_fault_losses": ranks[0]["faulted_losses"],
+        "b_fault_loss_rel_max_per_rank": [
+            max(abs(a - b) / abs(b) for a, b in zip(r["faulted_losses"], plain["losses"]))
+            for r in ranks],
+        "ms_per_step_per_rank": steady, "wire_ms_per_step_per_rank": wire_ms,
+        # the wire is summed over every step, the first's too: so is the time
+        "wire_share_of_step": [w * len(r["step_ms"]) / sum(r["step_ms"])
+                               for w, r in zip(wire_ms, ranks)],
+        "collectives_per_step": ranks[0]["collectives_per_step"],
+        "wire_per_step_rank0": ranks[0]["wire_per_step"],
+        "b_train_wall_s_per_rank": [r["train_wall_s"] for r in ranks],
+        "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in ranks],
+        "peak_bytes_per_rank": [r["peak_bytes"] for r in ranks],
+        "launches_per_rank": [r["launches"] for r in ranks],
+    }
+
+
 def shard_rank(rank: int, tmp: str, layers: int) -> None:
     """One rank of phase 4j (spawned): a, the f32 gate and its planted
     faults (launch/train's seed-0 parameters and first batch, drawn once;
@@ -4329,38 +4494,17 @@ def shard_rank(rank: int, tmp: str, layers: int) -> None:
                         "largest_state_leaf": max(t.to_local().numel() * t.element_size()
                                                   for t in leaves(placed[0]))}
         del placed
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        mesh_mod.reset_wire()
-        set_counts(dict.fromkeys(COUNTED, 0))
-        with mesh_mod.CollectiveLog(mesh) as coll:
-            t0 = time.perf_counter()
-            run = train.train(cfg, plan, steps=SHARD_STEPS, seq_len=TRAIN_SEQ,
-                              global_batch=TRAIN_BATCH, device="cuda", mesh=mesh,
-                              log=lambda *a: None)
-            wall = time.perf_counter() - t0
-        wire = mesh_mod.wire_stats()
-        launches, peak_bytes = counts(), torch.cuda.max_memory_allocated()
-        with shard_fault(SHARD_B_FAULT):  # the same run's first steps, faulted
-            faulted = train.train(cfg, plan, steps=SHARD_B_FAULT_STEPS, seq_len=TRAIN_SEQ,
-                                  global_batch=TRAIN_BATCH, device="cuda", mesh=mesh,
-                                  log=lambda *a: None)["losses"]
-        out = {
-            "rank": rank, "coords": {a: mesh.get_local_rank(a) for a in SHARD_AXES},
-            "gate": gate, "layers": cfg.num_layers, "losses": run["losses"],
-            "step_ms": run["step_ms"], "launches": launches, "faulted_losses": faulted,
-            "peak_mem_gb": peak_bytes / 1e9, "peak_bytes": peak_bytes,
-            "placed_bytes": placed_bytes, "collective_calls": coll.calls,
-            "collectives_per_step": {k: {"count": v["count"] / SHARD_STEPS,
-                                         "bytes": v["bytes"] / SHARD_STEPS}
-                                     for k, v in coll.summary().items()},
-            "wire_per_step": {k: {"calls": v["calls"] / SHARD_STEPS,
-                                  "ms": v["seconds"] * 1e3 / SHARD_STEPS,
-                                  "bytes": v["bytes"] / SHARD_STEPS} for k, v in wire.items()},
-            "train_wall_s": wall, "gate_s": gate_s,
-        }
+        out = dict(sharded_bf16_run(torch, cfg, mesh, SHARD_STEPS, shard_fault(SHARD_B_FAULT)),
+                   rank=rank, coords={a: mesh.get_local_rank(a) for a in SHARD_AXES},
+                   gate=gate, placed_bytes=placed_bytes, gate_s=gate_s)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe = moe_shard_part(torch, rank, tmp, mesh)  # phase 4l, on the same ranks
+        with open(os.path.join(tmp, f"moe{rank}.json"), "w") as f:
+            json.dump(moe, f)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -4395,50 +4539,35 @@ def drive_shard_ranks(torch, smi: str, plain: dict) -> dict:
                     p.kill()
                     p.join()
         wall = time.perf_counter() - t0
-        ranks = []
+        ranks, moe_ranks = [], []
         for r in range(SHARD_RANKS):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
+            with open(os.path.join(tmp, f"moe{r}.json")) as f:
+                moe_ranks.append(json.load(f))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     gate = ranks[0]["gate"]
-    rel = [abs(a - b) / abs(b) for r in ranks for a, b in zip(r["losses"], plain["losses"])]
-    faulted = [max(abs(a - b) / abs(b) for a, b in zip(r["faulted_losses"], plain["losses"]))
-               for r in ranks]
-    steady = [float(np.mean(r["step_ms"][1:])) for r in ranks]
-    wire_ms = [sum(v["ms"] for v in r["wire_per_step"].values()) for r in ranks]
     out = {
         "arch": SHARD_ARCH, "mesh": dict(zip(SHARD_AXES, SHARD_MESH)), "ranks": SHARD_RANKS,
         "aggregation": "totoro_tree", "layers": ranks[0]["layers"], "batch": TRAIN_BATCH,
         "seq": TRAIN_SEQ, "steps": SHARD_STEPS, "wall_s": wall,
         "a_f32_gate": gate, "a_sound_passes": gate["sound"]["passed"],
         "a_faults_caught": {k: not gate[k]["passed"] for k in SHARD_FAULTS},
-        "b_losses": ranks[0]["losses"], "b_losses_plain": plain["losses"],
-        "b_loss_rel_max": max(rel), "b_losses_equal_across_ranks": all(
-            r["losses"] == ranks[0]["losses"] for r in ranks),
-        "b_fault": SHARD_B_FAULT, "b_fault_losses": ranks[0]["faulted_losses"],
-        "b_fault_loss_rel_max_per_rank": faulted,
-        "ms_per_step_per_rank": steady,
-        "wire_ms_per_step_per_rank": wire_ms,
-        "wire_share_of_step": [w / s for w, s in zip(wire_ms, steady)],
-        "collectives_per_step": ranks[0]["collectives_per_step"],
-        "wire_per_step_rank0": ranks[0]["wire_per_step"],
+        "b_fault": SHARD_B_FAULT, **sharded_bf16_readings(ranks, plain),
         "gate_s_per_rank": [r["gate_s"] for r in ranks],
-        "b_train_wall_s_per_rank": [r["train_wall_s"] for r in ranks],
-        "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in ranks],
-        "peak_bytes_per_rank": [r["peak_bytes"] for r in ranks],
         "placed_bytes_per_rank": [r["placed_bytes"] for r in ranks],
-        "collective_calls_rank0": ranks[0]["collective_calls"],
-        "launches_per_rank": [r["launches"] for r in ranks], "card": smi,
+        "collective_calls_rank0": ranks[0]["collective_calls"], "card": smi,
+        "moe_ranks": moe_ranks,  # phase 4l's records (``moe_shard_outcome``)
     }
     ok = (out["a_sound_passes"] and all(out["a_faults_caught"].values())
           and out["b_loss_rel_max"] <= SHARD_BF16_LOSS_RTOL and out["b_losses_equal_across_ranks"]
-          and min(faulted) > SHARD_BF16_LOSS_RTOL
+          and min(out["b_fault_loss_rel_max_per_rank"]) > SHARD_BF16_LOSS_RTOL
           and all(np.isfinite(out["b_losses"]))
           and all(r["launches"] == dict.fromkeys(COUNTED, 0) for r in ranks))
     if not ok:
-        raise SystemExit(f"phase 4j: {json.dumps(out)}")
+        raise SystemExit(f"phase 4j: {json.dumps({k: v for k, v in out.items() if k != 'moe_ranks'})}")
     return out
 
 
@@ -4476,14 +4605,286 @@ def log_shard_ranks(sh: dict, smi: str) -> None:
         f"{sh['b_fault_losses']} (rel max a rank "
         f"{[f'{x:.3g}' for x in sh['b_fault_loss_rel_max_per_rank']]}, above the bound); four ranks sharing one card, not a multi-card number: ms a "
         f"step a rank (steps 2-{sh['steps']}) {[round(x, 1) for x in sh['ms_per_step_per_rank']]}, "
-        f"of it in the staged collectives (host clock) "
-        f"{[round(x, 1) for x in sh['wire_ms_per_step_per_rank']]}; peak memory a rank "
+        f"the staged collectives (host clock) a step of all {sh['steps']} "
+        f"{[round(x, 1) for x in sh['wire_ms_per_step_per_rank']]}, their share of the steps' time "
+        f"{[round(x, 3) for x in sh['wire_share_of_step']]}; peak memory a rank "
         f"{[round(x, 2) for x in sh['peak_mem_gb_per_rank']]} GB; phase wall {sh['wall_s']:.1f} "
         f"s; card: {smi}")
     log(f"[4j sharded b] collectives a step (rank 0, op/mesh axis): "
         f"{json.dumps(sh['collectives_per_step'])}")
-    log(f"[4j sharded] "
-        f"{json.dumps({k: v for k, v in sh.items() if k != 'collective_calls_rank0'})}")
+    log(f"[4j sharded] {json.dumps({k: v for k, v in sh.items() if k not in ('collective_calls_rank0', 'moe_ranks')})}")
+
+
+@contextmanager
+def moe_shard_fault(kind: str):
+    """One of MOE_SHARD_FAULTS planted in the port at run time (in a rank of
+    phase 4l): the expert outputs' all-to-all back to groups replaced by
+    each rank's own capacity slots (the others' left zero), so each rank
+    combines only what its own experts' tokens there computed; the router
+    gradient's partial sum over ``data`` read as reduced; the expert
+    stacks placed with their expert dim rolled by half, so the two
+    ``model`` ranks hold each other's experts."""
+    import torch
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch import optim
+    from repro_torch.launch import specs
+    from repro_torch.models import nn
+
+    if kind == MOE_SHARD_FAULTS[0]:
+        def make(orig):
+            def apply(x, dims, src, dst):
+                if (src, dst) != (1, 2):  # the dispatch's own way (G -> C)
+                    return orig(x, dims, src, dst)
+                mesh, (m,) = x.device_mesh, dims
+                n, c = mesh.size(m), mesh.get_local_rank(m)
+                local = x.to_local()  # (E, C / n, G, d): this rank's slots of every group
+                g = local.shape[2] // n
+                mine = torch.zeros((local.shape[0], local.shape[1] * n, g, local.shape[3]),
+                                   dtype=local.dtype, device=local.device)
+                mine[:, c * local.shape[1]:(c + 1) * local.shape[1]] = local[:, :, c * g:(c + 1) * g]
+                pls = list(x.placements)
+                pls[m] = type(pls[m])(dst)
+                return DTensor.from_local(mine, mesh, pls, shape=x.shape,
+                                          stride=nn._contiguous_stride(x.shape))
+            return apply
+
+        ctx = planted(nn._AllToAll, "apply", make)
+    elif kind == MOE_SHARD_FAULTS[1]:
+        def make(orig):
+            def placed(t, like):
+                if isinstance(t, DTensor) and tuple(t.shape[-2:]) == ROUTER_SHAPE[0]:
+                    names = t.device_mesh.mesh_dim_names
+                    pls = [Replicate() if n == "data" and isinstance(pl, Partial) else pl
+                           for n, pl in zip(names, t.placements)]
+                    t = DTensor.from_local(t.to_local(), t.device_mesh, pls, shape=t.shape,
+                                           stride=t.stride())
+                return orig(t, like)
+            return placed
+        ctx = planted(optim, "placed_like", make)
+    elif kind == MOE_SHARD_FAULTS[2]:
+        def make(orig):
+            def place(tree, shardings):
+                if isinstance(tree, dict) and "blocks" in tree:
+                    tree = dict(tree, blocks={
+                        name: dict(pos, ffn={k: (t.roll(t.shape[1] // 2, dims=1)
+                                                 if k in ("wi", "wg", "wo") else t)
+                                             for k, t in pos["ffn"].items()})
+                        for name, pos in tree["blocks"].items()})
+                return orig(tree, shardings)
+            return place
+        ctx = planted(specs, "place", make)
+    else:
+        raise ValueError(kind)
+    with ctx:
+        yield
+
+
+ROUTER_SHAPE = [(2048, 64)]  # MOE_ARCH's router (d_model, experts), set where its config is read
+
+
+def moe_shard_readings(torch, state, want: dict, lr: float) -> tuple:
+    """4l a on one rank: ``shard_readings`` against this rank's own shards
+    of the single-process state (``want``: leaf path -> the local shard, on
+    the host): each leaf's largest difference and its largest magnitude on
+    this rank.  Returns (paths, a (leaves, 2) f64 tensor)."""
+    from repro_torch.ckpt import key_paths
+    from repro_torch.pytree import leaves
+
+    paths = key_paths(state)
+    local = dict(zip(paths, (t.to_local() for t in leaves(state))))
+    rows = []
+    for path in paths:
+        w = want[path].to(local[path].device).double()
+        mag = float(w.abs().max()) if w.numel() else 0.0
+        if path.startswith(("params/", "opt/master/")):
+            leaf = path.split("/", 1)[1].removeprefix("master/")
+            m, v = f"opt/m/{leaf}", f"opt/v/{leaf}"
+            w = w - lr * (_adam_direction(local[m], local[v])
+                          - _adam_direction(want[m].to(w.device), want[v].to(w.device)))
+        d = (local[path].double() - w).abs()
+        rows.append((float(d.max()) if d.numel() else 0.0, mag))
+    return paths, torch.tensor(rows, dtype=torch.float64)
+
+
+def moe_shard_gate(paths, rows, loss: float, aux: float, want: dict, flips: int) -> dict:
+    """4l a's gate from every rank's readings (their element-wise max,
+    ``rows``) and flips (their sum): the loss and the aux loss within
+    TRAIN_LOSS_RTOL, each leaf's largest difference within TRAIN_GRAD_REL
+    of its largest magnitude, no routing flip."""
+    rel = {p: float(r[0]) / max(float(r[1]), 1e-30) for p, r in zip(paths, rows)}
+    out = {"loss_rel": abs(loss - want["loss"]) / abs(want["loss"]),
+           "aux_rel": abs(aux - want["aux"]) / abs(want["aux"]), "aux": aux,
+           "leaf_rel_max": max(rel.values()), "routing_flips": flips,
+           "leaf_rel_worst": max(rel, key=rel.get)}
+    out["passed"] = (out["loss_rel"] <= TRAIN_LOSS_RTOL and out["aux_rel"] <= TRAIN_LOSS_RTOL
+                     and out["leaf_rel_max"] <= TRAIN_GRAD_REL and flips == 0
+                     and want["aux"] > 0)
+    return out
+
+
+def moe_shard_part(torch, rank: int, tmp: str, mesh) -> dict:
+    """Phase 4l on one of 4j's ranks (``shard_rank``): a, the single-process
+    f32 step computed by the ranks in turn, each keeping its shards on the
+    host, then the sharded step, sound and under each of MOE_SHARD_FAULTS;
+    b, the bf16 run through ``launch/train.train`` with its collectives
+    logged, then MOE_SHARD_B_FAULT.  Returns the rank's record."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch import configs
+    from repro_torch.config import RunPlan, ShapeSpec
+    from repro_torch.fl import steps
+    from repro_torch.launch import specs, train
+    from repro_torch.models import lm
+    from repro_torch.pytree import key_paths, leaves
+
+    t0 = time.perf_counter()
+    full = configs.get_config(MOE_ARCH)
+    ROUTER_SHAPE[0] = (full.d_model, full.moe_num_experts)
+    plan = RunPlan(aggregation="totoro_tree")
+    f32 = cut_depth(full, MOE_SHARD_LAYERS).replace(dtype="float32", param_dtype="float32")
+    shape = ShapeSpec("4l a", "train", MOE_SHARD_F32_SEQ, MOE_SHARD_F32_BATCH)
+    state_sh, batch_sh = specs.cell_for(f32, shape, plan, mesh).in_shardings
+    batch = train.make_batch(f32, train.StreamConfig(f32.vocab_size, MOE_SHARD_F32_SEQ,
+                                                     MOE_SHARD_F32_BATCH), 0, None, "cuda")
+    dp = mesh.get_local_rank("data"), mesh.size(mesh.mesh_dim_names.index("data"))
+
+    def params():
+        with drawn_on_card():
+            return lm.init_params(torch.Generator().manual_seed(MOE_SHARD_SEED), f32,
+                                  device="cuda")
+
+    def mine(idx):  # this rank's groups of a single-process top-k call
+        g = idx.shape[0] // dp[1]
+        return idx[dp[0] * g:(dp[0] + 1) * g]
+
+    want = None
+    for turn in range(SHARD_RANKS):  # the single-process step, one rank at a time
+        if turn == rank:
+            with RoutingRecorder() as rec:
+                state, metrics = steps.build_train_step(f32, plan)(
+                    steps.init_train_state(f32, params()), batch)
+            pls = dict(zip(key_paths(state_sh), (sh.placements for sh in leaves(state_sh))))
+            want = {path: distribute_tensor(t, mesh, pls[path], src_data_rank=None)
+                    .to_local().cpu() for path, t in zip(key_paths(state), leaves(state))}
+            want.update(loss=float(metrics["loss"]), aux=float(metrics["aux"]),
+                        idx=[mine(i) for i in rec.idx])
+            del state, metrics
+            torch.cuda.empty_cache()
+        dist.barrier()
+    want_s = time.perf_counter() - t0
+    step = steps.build_train_step(f32, plan, mesh=mesh)
+    gate = {}
+    for kind in ("sound",) + MOE_SHARD_FAULTS:
+        with nullcontext() if kind == "sound" else moe_shard_fault(kind):
+            state = specs.place(steps.init_train_state(f32, specs.place(params(),
+                                                                        state_sh["params"])),
+                                state_sh)
+            with RoutingRecorder() as rec:
+                state, metrics = step(state, specs.place(batch, batch_sh))
+        paths, rows = moe_shard_readings(torch, state, want, f32.learning_rate)
+        flips = torch.tensor([sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                                  for a, b in zip(rec.idx, want["idx"]))
+                              + abs(len(rec.idx) - len(want["idx"]))], dtype=torch.int64)
+        dist.all_reduce(rows, op=dist.ReduceOp.MAX)  # CPU tensors: gloo as it is
+        dist.all_reduce(flips)
+        gate[kind] = moe_shard_gate(paths, rows, float(metrics["loss"].full_tensor()),
+                                    float(metrics["aux"].full_tensor()), want, int(flips))
+        del state, metrics
+        torch.cuda.empty_cache()
+    del want
+    gate_s = time.perf_counter() - t0
+
+    with drawn_on_card():
+        b = sharded_bf16_run(torch, cut_depth(full, MOE_SHARD_LAYERS), mesh, MOE_SHARD_STEPS,
+                             moe_shard_fault(MOE_SHARD_B_FAULT))
+    return dict(b, rank=rank, gate=gate, want_s=want_s, gate_s=gate_s,
+                phase_s=time.perf_counter() - t0)
+
+
+def moe_shard_plain_losses(torch) -> dict:
+    """Phase 4l b's reference: the same MOE_SHARD_STEPS bf16 steps at
+    MOE_SHARD_LAYERS layers in one process on the card, the weights drawn
+    on the card as the ranks draw them."""
+    from repro_torch import configs
+    from repro_torch.config import RunPlan
+    from repro_torch.launch import train
+
+    cfg = cut_depth(configs.get_config(MOE_ARCH), MOE_SHARD_LAYERS)
+    with uncounted(), drawn_on_card():
+        run = train.train(cfg, RunPlan(), steps=MOE_SHARD_STEPS, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, device="cuda", log=lambda *a: None)
+    out = {"losses": run["losses"], "auxes": run["auxes"], "step_ms": run["step_ms"],
+           "from": f"one process, {MOE_SHARD_LAYERS} layers"}
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_shard_outcome(ranks: list, plain: dict, smi: str) -> dict:
+    """Phase 4l's record from the ranks' ``moe_shard_part``: a's gate must
+    pass the sound run and fail each planted fault; b's losses within
+    MOE_SHARD_BF16_LOSS_RTOL of ``plain``'s and equal across ranks, no
+    kernel launched, MOE_SHARD_B_FAULT's above the bound."""
+    gate = ranks[0]["gate"]
+    out = {
+        "arch": MOE_ARCH, "mesh": dict(zip(SHARD_AXES, SHARD_MESH)), "ranks": SHARD_RANKS,
+        "aggregation": "totoro_tree", "layers": ranks[0]["layers"], "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps": MOE_SHARD_STEPS,
+        "a_f32_gate": gate, "a_sound_passes": gate["sound"]["passed"],
+        "a_faults_caught": {k: not gate[k]["passed"] for k in MOE_SHARD_FAULTS},
+        "b_fault": MOE_SHARD_B_FAULT, **sharded_bf16_readings(ranks, plain),
+        "b_auxes": ranks[0]["auxes"], "b_auxes_plain": plain["auxes"],
+        "plain_ms_per_step": float(np.mean(plain["step_ms"][1:])),
+        "want_s_per_rank": [r["want_s"] for r in ranks],
+        "gate_s_per_rank": [r["gate_s"] for r in ranks],
+        "phase_s_per_rank": [r["phase_s"] for r in ranks],
+        "plain_reference_s": plain.get("s"), "card": smi,
+    }
+    ok = (out["a_sound_passes"] and all(out["a_faults_caught"].values())
+          and out["b_loss_rel_max"] <= MOE_SHARD_BF16_LOSS_RTOL
+          and out["b_losses_equal_across_ranks"]
+          and min(out["b_fault_loss_rel_max_per_rank"]) > MOE_SHARD_BF16_LOSS_RTOL
+          and all(np.isfinite(out["b_losses"]))
+          and any(k.startswith("all_to_all_single/") for k in out["collectives_per_step"])
+          and all(r["launches"] == dict.fromkeys(COUNTED, 0) for r in ranks))
+    if not ok:
+        raise SystemExit(f"phase 4l: {json.dumps(out)}")
+    return out
+
+
+def log_moe_shard(ml: dict, smi: str) -> None:
+    """Phase 4l's lines."""
+    a = ml["a_f32_gate"]
+    log(f"[4l moe sharded a] {ml['arch']} full width, {MOE_SHARD_LAYERS} layers (the dense first "
+        f"layer, one MoE layer) f32, mesh {json.dumps(ml['mesh'])} over {ml['ranks']} gloo ranks "
+        f"on the one card, totoro_tree, B={MOE_SHARD_F32_BATCH} S={MOE_SHARD_F32_SEQ}: one sharded "
+        f"step against the single-process step (the ranks in turn, each its shards; the weights "
+        f"after AdamW's first-step map), loss rel {a['sound']['loss_rel']:.3g}, aux rel "
+        f"{a['sound']['aux_rel']:.3g}, leaves rel max {a['sound']['leaf_rel_max']:.3g} (bounds "
+        f"{TRAIN_LOSS_RTOL}, {TRAIN_LOSS_RTOL}, {TRAIN_GRAD_REL}), routing flips "
+        f"{a['sound']['routing_flips']} (none allowed); faults caught "
+        f"{json.dumps(ml['a_faults_caught'])}: "
+        + "; ".join(f"{k}: loss rel {a[k]['loss_rel']:.3g}, leaves {a[k]['leaf_rel_max']:.3g} "
+                    f"({a[k]['leaf_rel_worst']}), flips {a[k]['routing_flips']}"
+                    for k in MOE_SHARD_FAULTS))
+    log(f"[4l moe sharded b] {ml['layers']} layers bf16, B={ml['batch']} S={ml['seq']}, "
+        f"{ml['steps']} steps: losses {ml['b_losses']} against one process's "
+        f"{ml['b_losses_plain']} (rel max {ml['b_loss_rel_max']:.3g}, bound "
+        f"{MOE_SHARD_BF16_LOSS_RTOL}); aux {ml['b_auxes']} against {ml['b_auxes_plain']}; "
+        f"{ml['b_fault']} for {SHARD_B_FAULT_STEPS} steps: losses {ml['b_fault_losses']} (rel max "
+        f"a rank {[f'{x:.3g}' for x in ml['b_fault_loss_rel_max_per_rank']]}); four ranks sharing "
+        f"one card, not a multi-card number: ms a step a rank (steps 2-{ml['steps']}) "
+        f"{[round(x, 1) for x in ml['ms_per_step_per_rank']]} (one process "
+        f"{ml['plain_ms_per_step']:.1f}), the staged collectives (host clock) a step of all "
+        f"{ml['steps']} {[round(x, 1) for x in ml['wire_ms_per_step_per_rank']]}, their share of "
+        f"the steps' time {[round(x, 3) for x in ml['wire_share_of_step']]}; peak memory a rank "
+        f"{[round(x, 2) for x in ml['peak_mem_gb_per_rank']]} GB; phase a rank "
+        f"{[round(x, 1) for x in ml['phase_s_per_rank']]} s; card: {smi}")
+    log(f"[4l moe sharded b] collectives a step (rank 0, op/mesh axis): "
+        f"{json.dumps(ml['collectives_per_step'])}")
+    log(f"[4l moe sharded] {json.dumps(ml)}")
 
 
 def dryrun_cmd(*args: str) -> list:
@@ -5101,8 +5502,19 @@ def main() -> int:
 
     marks.append(("4j", time.perf_counter()))
     # -- 4j. the dense family's step sharded over (data, model): tinyllama-1.1b --
-    sharded = drive_shard_ranks(torch, smi, shard_plain_losses(torch))
+    # -- 4l. the MoE family's, deepseek-v2-lite-16b, on the same spawned ranks --
+    plain = shard_plain_losses(torch)
+    t0 = time.perf_counter()
+    moe_plain = moe_shard_plain_losses(torch)
+    moe_plain["s"] = time.perf_counter() - t0
+    sharded = drive_shard_ranks(torch, smi, plain)
+    moe_ranks = sharded.pop("moe_ranks")
+    # 4l's share of the spawn, by the ranks' own clocks (its one-process
+    # reference ran before the spawn, in 4j's wall)
+    marks.append(("4l", time.perf_counter() - max(r["phase_s"] for r in moe_ranks)))
     log_shard_ranks(sharded, smi)
+    moe_sharded = moe_shard_outcome(moe_ranks, moe_plain, smi)
+    log_moe_shard(moe_sharded, smi)
 
     marks.append(("4k", time.perf_counter()))
     # -- 4k. the dry-run of 4j b's cell, held to 4j; the production mesh's ----

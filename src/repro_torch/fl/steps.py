@@ -30,27 +30,33 @@ whose ``data`` or ``model`` axis is larger than 1 raises
 ``NotImplementedError`` (ROADMAP §1, the q8 hop inside a sharded pod).
 
 ``xla_auto`` and ``totoro_tree`` on a mesh with any axis larger than 1
-give the sharded step (``_sharded_step``), for the dense GQA family (every
-layer ``("attn", "dense")``; the other families raise
-``NotImplementedError``, ROADMAP §1).  Its state and batch are DTensors
+give the sharded step (``_sharded_step``), for the dense and the MoE
+families (``sharded_family``: every layer GQA or MLA with a dense or an
+MoE FFN, ``first_dense`` layers or not; the recurrent and the
+encoder-decoder families raise ``NotImplementedError``, ROADMAP §1).  Its
+state and batch are DTensors
 placed by ``launch/specs.build_cell``'s shardings (``specs.place``): the
 parameters FSDP over ``("pod", "data")`` and TP over ``model`` under
 ``xla_auto``, replicated across pods and FSDP over ``data`` under
 ``totoro_tree``; the batch over ``("pod", "data")``.  The forward runs on
 DTensors with ``nn.constrain`` wired in where the reference calls it
-(``models/nn``, ``attention``, ``lm``), so each collective is one of its
-redistributions: every weight gathered over its FSDP axes where it is
-used (``nn.gather_fsdp``), the attention core and the vocab-parallel loss
-on each rank's shards (``local_map``).  Each gradient comes back under
-its parameter's placements (``optim.placed_like``), and so the two
-aggregations' schedules differ as the paper's do: ``totoro_tree``
-reduce-scatters a weight's gradient over ``data`` inside a zone and
-all-reduces it over ``pod`` across zones, gathering nothing across pods;
-``xla_auto`` gathers every weight over ``("pod", "data")`` at every use.
-The update runs on the shards; the new state keeps the old one's
-placements (the reference's donated in/out shardings), the metrics come
-back replicated.  Against the single-process step it is fp-tight.  With
-P = 1 and no other axis, a mesh gives the plain step.
+(``models/nn``, ``attention``, ``moe``, ``lm``), so each collective is
+one of its redistributions: every weight gathered over its FSDP axes
+where it is used (``nn.gather_fsdp``), the attention core and the
+vocab-parallel loss on each rank's shards (``local_map``), an MoE layer's
+tokens routed by the rank that holds their group and moved to and from
+the experts over ``tp`` by all-to-alls over the batch axes.  Each
+gradient comes back under its parameter's placements
+(``optim.placed_like``), and so the two aggregations' schedules differ
+as the paper's do: ``totoro_tree`` reduce-scatters a weight's gradient
+over ``data`` inside a zone and all-reduces it over ``pod`` across zones,
+gathering nothing across pods; ``xla_auto`` gathers every weight over
+``("pod", "data")`` at every use.  The update runs on the shards; the
+new state keeps the old one's placements (the reference's donated in/out
+shardings), the metrics come back replicated (the MoE aux loss the mean
+over every group).  Against the single-process step it is fp-tight, and
+routes every token alike.  With P = 1 and no other axis, a mesh gives
+the plain step.
 
 ``q8_mean_over_pods`` runs through ``kernels.ops``' ``qsgd_quantize`` and
 ``qsgd_dequantize`` (the CUDA kernels on the card, their plain versions on
@@ -289,10 +295,12 @@ def runs_sharded(plan, mesh) -> bool:
 
 
 def sharded_family(cfg) -> bool:
-    """Whether the sharded step runs ``cfg``: the dense GQA family, every
-    layer ``("attn", "dense")``."""
-    return (not cfg.is_encoder_decoder and not cfg.first_dense
-            and set(lm.layer_pattern(cfg)) == {("attn", "dense")})
+    """Whether the sharded step runs ``cfg``: a decoder whose layers are
+    GQA or MLA with a dense or an MoE FFN, ``first_dense`` layers or not
+    (the dense and the MoE families)."""
+    return (not cfg.is_encoder_decoder
+            and set(lm.layer_pattern(cfg)) <= {(m, f) for m in ("attn", "mla")
+                                               for f in ("dense", "moe")})
 
 
 def _sharded_step(cfg, plan, opt, mesh):
@@ -313,7 +321,8 @@ def _sharded_step(cfg, plan, opt, mesh):
         new_params, new_opt = opt.update(grads, state["opt"], state["params"])
         new = tree_map(optim_mod.placed_like, {"params": new_params, "opt": new_opt}, state)
         loss = metrics["loss"]  # replicated: the vocab-parallel loss reduces it
-        return new, {"loss": loss, "aux": nn.distribute_like(metrics["aux"], loss, ())}
+        # the MoE layers' sum (a dense model's zeros), kept on the mesh by lm.forward
+        return new, {"loss": loss, "aux": nn.replicated(metrics["aux"])}
 
     return train_step
 

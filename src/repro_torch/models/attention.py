@@ -65,9 +65,10 @@ are exactly its kv heads' groups; where the ``tp`` axis does not divide
 KV, k and v are repeated to every query head before the head split and
 the core runs at G = 1, as the reference's);
 the padded heads' mask is sliced the same way, so the padding stays
-exact; ``wo`` leaves a partial sum over ``tp``.  Prefill and decode on a
-mesh raise ``NotImplementedError`` (ROADMAP §1, serving on a sharded
-mesh).
+exact; ``wo`` leaves a partial sum over ``tp``.  ``mla_forward`` runs
+the reference's MLA constraints on a mesh likewise (its docstring).
+Prefill and decode on a mesh raise ``NotImplementedError`` (ROADMAP §1,
+serving on a sharded mesh).
 """
 from __future__ import annotations
 
@@ -75,6 +76,7 @@ import math
 from functools import partial
 
 import torch
+from torch.distributed.tensor import Shard
 
 from . import nn
 from .nn import DP, FSDP, TP, P, apply_rope, dense_init, rms_norm
@@ -338,16 +340,10 @@ def _rope_attend(q, k, v, positions, *, cfg, G: int, causal: bool):
 
 def _attend(q, k, v, positions, *, cfg, G: int, causal: bool):
     """``_rope_attend`` on plain tensors, or on each rank's shards of
-    DTensors (``local_map``, the positions sliced as q's batch)."""
-    fn = partial(_rope_attend, cfg=cfg, G=G, causal=causal)
-    if not isinstance(q, nn.DTensor):
-        return fn(q, k, v, positions)
-    from torch.distributed.tensor.experimental import local_map
-
+    DTensors (``nn.per_rank``, the positions sliced as q's batch)."""
     pos = nn.distribute_like(positions, q, ("dp", None))
-    return local_map(fn, out_placements=(q.placements, k.placements),
-                     in_placements=(q.placements, k.placements, v.placements, pos.placements),
-                     device_mesh=q.device_mesh)(q, k, v, pos)
+    return nn.per_rank(partial(_rope_attend, cfg=cfg, G=G, causal=causal), q, k, v, pos,
+                       out=lambda q, k, *_: (q.placements, k.placements))
 
 
 def gqa_forward(p, cfg, x, *, positions, mode, cache=None, cache_index=None, causal=True):
@@ -462,17 +458,43 @@ def mla_specs(cfg) -> nn.Specs:
     }
 
 
+def _rope(x, positions, theta: float):
+    """``apply_rope`` on a plain tensor, or on each rank's shard of a DTensor
+    (``nn.per_rank``, the positions sliced as ``x``'s batch)."""
+    pos = nn.distribute_like(positions, x, ("dp", None))
+    return nn.per_rank(partial(apply_rope, theta=theta), x, pos, out=lambda x, _: (x.placements,))
+
+
 def _mla_qc(p, cfg, x, positions):
     """(q_nope, q_rope, c_kv, k_rope): per-head queries split at head_dim,
     the normed latent and the one rope key all heads share."""
     lora, nope_d = cfg.kv_lora_rank, cfg.head_dim
-    q = _project(x, p["wq"])
+    q = _project(x, nn.gather_fsdp(p["wq"]))
     q_nope, q_rope = q[..., :nope_d], q[..., nope_d:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    c = x @ p["w_dkv"].to(x.dtype)
+    q_rope = _rope(q_rope, positions, cfg.rope_theta)
+    c = x @ nn.gather_fsdp(p["w_dkv"]).to(x.dtype)
     c_kv = rms_norm(c[..., :lora], p["kv_norm"])
-    k_rope = apply_rope(c[..., None, lora:], positions, cfg.rope_theta)[:, :, 0]  # (B, S, rope)
+    k_rope = _rope(c[..., None, lora:], positions, cfg.rope_theta)[:, :, 0]  # (B, S, rope)
     return q_nope, q_rope, c_kv, k_rope
+
+
+def _rope_key_heads(k_rope, like):
+    """The shared rope key (B, S, rope) repeated to every head of ``like``
+    (B, S, H, ·): on a mesh to each rank's heads of ``like`` alone
+    (``nn.per_rank``), so no rank gathers the others' heads; its gradient,
+    the sum over the rank's heads, is then a partial sum over ``tp``
+    where ``like``'s heads are split."""
+    heads = (like.to_local() if isinstance(like, nn.DTensor) else like).shape[2]
+
+    def expand(kr):
+        return kr[:, :, None, :].expand(kr.shape[0], kr.shape[1], heads, kr.shape[-1])
+
+    def grad(kr):
+        if any(isinstance(pl, Shard) and pl.dim == 2 for pl in like.placements):
+            return (nn.partial_over(kr.placements, kr.device_mesh, "tp"),)
+        return (kr.placements,)
+
+    return nn.per_rank(expand, k_rope, out=lambda _: (like.placements,), grad=grad)
 
 
 def mla_forward(p, cfg, x, *, positions, mode, cache=None, cache_index=None):
@@ -480,22 +502,32 @@ def mla_forward(p, cfg, x, *, positions, mode, cache=None, cache_index=None):
 
     Returns (out, new_cache); new_cache is None in train mode, the prompt's
     {"c_kv", "k_rope"} in prefill, and in decode ``cache`` written in place
-    at ``cache_index`` (a Python int or a 0-d tensor in [0, max_len)).
+    at ``cache_index`` (a Python int or a 0-d tensor in [0, max_len)).  A
+    DTensor ``x`` (train mode only) runs the same code under the
+    reference's constraints: the sequence gathered; ``wq``, ``w_dkv`` and
+    ``wo`` gathered over their FSDP axes; the latent and the rope key
+    replicated over ``tp``; k_nope, v and q head-sharded over ``tp``; the
+    flash core on each rank's heads; ``wo`` leaves a partial sum over
+    ``tp``.
     """
-    B, S, _ = x.shape
-    H = cfg.num_heads
+    if isinstance(x, nn.DTensor) and mode != "train":
+        raise NotImplementedError(f"{mode} on a sharded mesh: ROADMAP §1, serving on a "
+                                  f"sharded mesh")
     rope_d, nope_d = cfg.qk_rope_dim, cfg.head_dim
     scale = 1.0 / math.sqrt(nope_d + rope_d)
+    x = nn.constrain(x, ("dp", None, None))  # Megatron-SP: the sequence gathered
     q_nope, q_rope, c_kv, k_rope = _mla_qc(p, cfg, x, positions)
 
     if mode in ("train", "prefill"):
         # up-projected attention: every head's key and value from the latent
-        k_nope = _project(c_kv, p["w_uk"])
-        v = _project(c_kv, p["w_uv"])
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope_d)], dim=-1)
-        q = torch.cat([q_nope, q_rope], dim=-1)
-        out = chunked_attention(q, k, v, causal=True, chunk_q=cfg.attn_chunk,
-                                chunk_kv=cfg.attn_chunk, scale=scale)
+        heads = ("dp", None, "tp", None)
+        k_nope = nn.constrain(_project(c_kv, nn.gather_fsdp(p["w_uk"])), heads)
+        v = nn.constrain(_project(c_kv, nn.gather_fsdp(p["w_uv"])), heads)
+        k = torch.cat([k_nope, _rope_key_heads(k_rope, k_nope)], dim=-1)
+        q = nn.constrain(torch.cat([q_nope, q_rope], dim=-1), heads)
+        out = nn.per_rank(partial(chunked_attention, causal=True, chunk_q=cfg.attn_chunk,
+                                  chunk_kv=cfg.attn_chunk, scale=scale), q, k, v,
+                          out=lambda q, *_: (q.placements,))
         new_cache = {"c_kv": c_kv, "k_rope": k_rope} if mode == "prefill" else None
     elif mode == "decode":
         c_cache, r_cache = cache["c_kv"], cache["k_rope"]
@@ -517,7 +549,8 @@ def mla_forward(p, cfg, x, *, positions, mode, cache=None, cache_index=None):
     else:
         raise ValueError(mode)
 
-    out = out.flatten(-2) @ p["wo"].to(x.dtype).flatten(0, 1)
+    # on a mesh a partial sum over tp (row-parallel wo), for the caller to reduce
+    out = out.flatten(-2) @ nn.gather_fsdp(p["wo"]).to(x.dtype).flatten(0, 1)
     return out, new_cache
 
 

@@ -52,7 +52,8 @@ block's or the sublayer's checkpoint.  Remat changes no value, only what
 is kept for the backward.
 
 On a mesh (DTensor parameters and batch, ``fl/steps``' sharded step for
-the dense family) the reference's constraints are wired in: the
+the dense and the MoE families) the reference's constraints are wired
+in: the
 embedding is a masked lookup of each rank's vocab shard (``local_map``;
 the table is ``P(TP, FSDP)``), reduced to ``("dp", None, None)``; each
 residual sum sits at a sequence-parallel boundary ``("dp", "sp", None)``
@@ -60,8 +61,9 @@ residual sum sits at a sequence-parallel boundary ``("dp", "sp", None)``
 reduce-scattered over the sequence); the logits are ``("dp", None,
 "tp")`` with the padded vocabulary masked on each shard; and ``lm_loss``
 takes the vocab-parallel form (``_vocab_parallel_loss``), never gathering
-the (B, S, V) logits.  On plain tensors each of these is the
-single-device code.
+the (B, S, V) logits.  The MoE layers' aux losses are summed into a
+replicated DTensor.  On plain tensors each of these is the single-device
+code.
 """
 from __future__ import annotations
 
@@ -315,18 +317,15 @@ def embed_tokens(params, cfg, tokens):
     to the batch-sharded ``("dp", None, None)``."""
     emb = params["embed"]
     if isinstance(emb, nn.DTensor):
-        from torch.distributed.tensor.experimental import local_map
-
         table = nn.gather_fsdp(emb).to(cfg.adtype)
         ids = nn.distribute_like(torch.arange(emb.shape[0], device=table.device), table, ("tp",))
         mesh = table.device_mesh
         out = nn.layout(mesh, ("dp", None, None), (*tokens.shape, table.shape[1]))
-        rows = local_map(_lookup_local, out_placements=list(nn.partial_over(out, mesh, "tp")),
-                         in_placements=(table.placements, tokens.placements, ids.placements),
-                         in_grad_placements=(nn.partial_over(table.placements, mesh, "dp"),
-                                             tokens.placements, ids.placements),
-                         device_mesh=mesh)
-        return nn.constrain(rows(table, tokens, ids), ("dp", None, None))
+        rows = nn.per_rank(_lookup_local, table, tokens, ids,
+                           out=lambda *_: list(nn.partial_over(out, mesh, "tp")),
+                           grad=lambda t, tok, i: (nn.partial_over(t.placements, mesh, "dp"),
+                                                   tok.placements, i.placements))
+        return nn.constrain(rows, ("dp", None, None))
     return emb.to(cfg.adtype)[tokens]
 
 
@@ -359,7 +358,8 @@ def forward(params, cfg, *, tokens=None, embeds=None, mode="train", cache=None, 
         else:
             positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # on a mesh the sum stays a (replicated) DTensor: the MoE layers' are
+    aux = nn.distribute_like(torch.zeros((), dtype=torch.float32, device=x.device), x, ())
     first_caches = []
     for i, lp in enumerate(params.get("first", [])):
         x, nc, a = apply_layer(lp, cfg, x, _first_mixer(cfg), "dense", positions=positions,
@@ -439,18 +439,14 @@ def _vocab_parallel_loss(logits, labels, mask):
     over ``tp``, never the whole (B, S, V); the reference's formula, mask
     and ``max(sum(mask), 1)``.  The max is a constant to autograd (its
     terms cancel in the reference's gradient too)."""
-    from torch.distributed.tensor.experimental import local_map
-
     lf = logits.float()
     m = nn.constrain(lf.detach().amax(dim=-1, keepdim=True), ("dp", None, None))
     lse = torch.log(nn.constrain(torch.sum(torch.exp(lf - m), dim=-1), ("dp", None))) + m[..., 0]
     ids = nn.distribute_like(torch.arange(lf.shape[-1], device=lf.device), lf, ("tp",))
     labels = torch.clamp(labels, min=0)
-    out = nn.partial_over(lse.placements, lse.device_mesh, "tp")
-    share = local_map(_target_logit, out_placements=list(out),
-                      in_placements=(lf.placements, labels.placements, ids.placements),
-                      device_mesh=lf.device_mesh)
-    ll = nn.constrain(share(lf, labels, ids), ("dp", None))
+    share = nn.per_rank(_target_logit, lf, labels, ids,
+                        out=lambda *_: list(nn.partial_over(lse.placements, lse.device_mesh, "tp")))
+    ll = nn.constrain(share, ("dp", None))
     ce = (lse - ll) * mask.float()
     return nn.replicated(torch.sum(ce)) / torch.clamp(nn.replicated(torch.sum(mask)), min=1)
 

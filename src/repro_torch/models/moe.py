@@ -28,6 +28,13 @@ are dropped.  Nothing here adds with atomics (no ``index_add_`` or
 ``scatter_add_``): remat recomputes the routing in the backward and must
 route the same way.
 
+On a mesh (a DTensor input, the sharded train step of ``fl/steps``)
+``moe_forward`` runs the reference's constraints: the groups over
+``dp``, each rank routing its own (``route`` through ``nn.per_rank``; the aux
+loss the mean over every group), the experts over ``tp``, the expert
+tokens over ``dp`` by an all-to-all (``nn.constrain``'s ``_AllToAll``) and
+back, and the combine a partial sum over ``tp``.
+
 ``moe_specs`` is the sharding twin of ``init_moe``: the expert stacks
 sharded over ``model`` by expert and over the FSDP axes by their input or
 output width, the router replicated.
@@ -35,9 +42,11 @@ output width, the router replicated.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from . import nn
 from .nn import FSDP, TP, P, dense_init
@@ -92,12 +101,11 @@ def top_k(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return w[..., :k], idx[..., :k]
 
 
-def route(gates: torch.Tensor, k: int, capacity: int):
-    """gates: (G, T, E) probabilities.  Returns (dispatch, combine, aux_loss).
-
-    dispatch/combine: (G, T, E, C) in the gates' dtype.  GShard-style
-    cumulative-position routing with per-group capacity and token dropping.
-    """
+def _route(gates: torch.Tensor, k: int, capacity: int):
+    """``route`` with the load-balance loss's per-group terms, (G,)
+    ``sum_e(frac_tokens_e * mean_prob_e)``, in place of ``E`` times their
+    mean: each group routes on its own, so a rank holding some of the
+    groups routes them alone (``moe_forward`` on a mesh)."""
     G, T, E = gates.shape
     w, idx = top_k(gates, k)  # (G, T, k)
     w = w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-9)
@@ -105,7 +113,7 @@ def route(gates: torch.Tensor, k: int, capacity: int):
     # aux load-balance loss (Switch): E * mean_e(frac_tokens_e * mean_prob_e)
     me = torch.mean(gates, dim=1)  # (G, E)
     ce = torch.mean(F.one_hot(idx[..., 0], E).to(gates.dtype), dim=1)  # (G, E)
-    aux = E * torch.mean(torch.sum(me * ce, dim=-1))
+    balance = torch.sum(me * ce, dim=-1)  # (G,)
 
     slots = torch.arange(capacity, device=gates.device)
     dispatch = torch.zeros((G, T, E, capacity), dtype=gates.dtype, device=gates.device)
@@ -120,11 +128,67 @@ def route(gates: torch.Tensor, k: int, capacity: int):
         d_j = (torch.where(keep, pos, capacity)[..., None] == slots).to(gates.dtype)
         dispatch = dispatch + d_j
         combine = combine + d_j * w[..., j][..., None, None]
-    return dispatch, combine, aux
+    return dispatch, combine, balance
+
+
+def route(gates: torch.Tensor, k: int, capacity: int):
+    """gates: (G, T, E) probabilities.  Returns (dispatch, combine, aux_loss).
+
+    dispatch/combine: (G, T, E, C) in the gates' dtype.  GShard-style
+    cumulative-position routing with per-group capacity and token dropping.
+    On DTensor gates (groups over ``dp``) each rank routes its own groups
+    (``nn.per_rank``) and the aux loss is ``E`` times the mean of every
+    group's term, gathered: the mean over all G groups, replicated.
+    """
+    dispatch, combine, balance = nn.per_rank(
+        partial(_route, k=k, capacity=capacity), gates,
+        out=lambda g: (g.placements, g.placements, nn.layout(g.device_mesh, ("dp",), g.shape[:1])))
+    return dispatch, combine, gates.shape[-1] * torch.mean(nn.replicated(balance))
+
+
+def _dispatch_tokens(dispatch: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
+    """(G, T, E, C) x (G, T, d) -> (E, C, G, d) expert inputs.  On a mesh
+    each rank's groups and experts (``nn.per_rank``: DTensor's sharding
+    search over this einsum takes minutes on a 3-D mesh): the output
+    sharded as the dispatch's g (dim 0) and e (dim 2), and the tokens'
+    gradient a partial sum over the mesh dims that split the experts."""
+    def out(d, x):
+        to_out = {0: Shard(2), 2: Shard(0)}
+        return (tuple(to_out[pl.dim] if isinstance(pl, Shard) else Replicate()
+                      for pl in d.placements),)
+
+    def grad(d, x):
+        return (d.placements, tuple(Partial() if isinstance(dp, Shard) and dp.dim == 2 else pl
+                                    for dp, pl in zip(d.placements, x.placements)))
+
+    return nn.per_rank(partial(torch.einsum, "gtec,gtd->ecgd"), dispatch, xg, out=out, grad=grad)
+
+
+def _combine_tokens(combine: torch.Tensor, expert_out: torch.Tensor) -> torch.Tensor:
+    """(G, T, E, C) x (E, C, G, d) -> (G, T, d).  On a mesh each rank's
+    groups and experts (``nn.per_rank``): the output sharded as the
+    combine's g and a partial sum over the mesh dims that split the
+    experts."""
+    def out(c, e):
+        return (tuple(Shard(0) if isinstance(pl, Shard) and pl.dim == 0
+                      else Partial() if isinstance(pl, Shard) else Replicate()
+                      for pl in c.placements),)
+
+    return nn.per_rank(partial(torch.einsum, "gtec,ecgd->gtd"), combine, expert_out, out=out)
 
 
 def moe_forward(p, cfg, x: torch.Tensor):
-    """x: (B, S, d) -> (out, aux_loss)."""
+    """x: (B, S, d) -> (out, aux_loss).
+
+    On a mesh (a DTensor ``x``): the sequence gathered and the groups over
+    ``dp``, each rank routing its own; each rank's experts (``tp``) take
+    their dispatch slice; one all-to-all over ``dp`` moves the expert
+    inputs from groups to capacity slots, (E, C, G, d) constrained to
+    ``("tp", "dp", None, None)`` before the flatten, as the reference's
+    (E, C·G, d) under ``("tp", "dp", None)`` (C the outer dim); the expert
+    stacks gathered over their FSDP axes; a second all-to-all brings the
+    outputs back to groups for the combine, whose output is a partial sum
+    over ``tp`` for the caller to reduce, as the dense FFN's."""
     B, S, d = x.shape
     T_all = B * S
     gsz = min(cfg.moe_group_size, T_all)
@@ -133,18 +197,30 @@ def moe_forward(p, cfg, x: torch.Tensor):
     E, k = cfg.moe_num_experts, cfg.moe_top_k
     C = _capacity(cfg, gsz)
 
-    xg = x.reshape(G, gsz, d)
+    x = nn.constrain(x, ("dp", None, None))  # Megatron-SP: the sequence gathered
+    if G % nn.axis_size("dp"):  # fewer groups than dp ranks: every rank routes them all
+        x = nn.replicated(x)
+    xg = nn.constrain(x.reshape(G, gsz, d), ("dp", None, None))
     logits = torch.einsum("gtd,de->gte", xg.float(), p["router"])
     gates = torch.softmax(logits, dim=-1)
     dispatch, combine, aux = route(gates, k, C)
-    dispatch = dispatch.to(x.dtype)
+    experts = ("dp", None, "tp", None)  # each rank's experts of its groups
+    dispatch = nn.constrain(dispatch.to(x.dtype), experts)
 
-    expert_in = torch.einsum("gtec,gtd->ecgd", dispatch, xg).reshape(E, C * G, d)
-    h = torch.bmm(expert_in, p["wi"].to(x.dtype))
-    g = torch.bmm(expert_in, p["wg"].to(x.dtype))
+    expert_in = _dispatch_tokens(dispatch, xg)
+    # EP x DP: experts over tp, expert tokens over dp (the all-to-all)
+    expert_in = nn.constrain(expert_in, ("tp", "dp", None, None)).reshape(E, C * G, d)
+    h = torch.bmm(expert_in, nn.gather_fsdp(p["wi"]).to(x.dtype))
+    g = torch.bmm(expert_in, nn.gather_fsdp(p["wg"]).to(x.dtype))
+    h = nn.constrain(h, ("tp", "dp", None))
+    g = nn.constrain(g, ("tp", "dp", None))
     h = F.silu(g) * h
-    expert_out = torch.bmm(h, p["wo"].to(x.dtype)).reshape(E, C, G, d)
-    out = torch.einsum("gtec,ecgd->gtd", combine.to(x.dtype), expert_out).reshape(B, S, d)
+    expert_out = torch.bmm(h, nn.gather_fsdp(p["wo"]).to(x.dtype))
+    expert_out = nn.constrain(expert_out, ("tp", "dp", None)).reshape(E, C, G, d)
+    expert_out = nn.constrain(expert_out, ("tp", None, "dp", None))  # back to groups
+    combine = nn.constrain(combine.to(x.dtype), experts)
+    # on a mesh a partial sum over tp (each rank's experts), for the caller to reduce
+    out = _combine_tokens(combine, expert_out).reshape(B, S, d)
 
     if cfg.moe_num_shared:
         s = p["shared"]

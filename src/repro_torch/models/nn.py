@@ -33,6 +33,10 @@ in ``attention`` and ``lm``), so on DTensors placed by
 ``data`` and ``model`` axes, ``fl/steps``) every collective is one of
 these redistributions: DTensor's sharding propagation then finds the
 layout of each op's inputs already agreed and issues none of its own.
+A shard that moves from one tensor dim to another (the MoE dispatch's
+groups to capacity slots and back) moves by functional all-to-alls of
+its own (``_AllToAll``), the same collective on a CPU, a CUDA and a fake
+mesh.
 ``gather_fsdp`` is the parameters' counterpart: a weight with its FSDP
 shards (the batch axes) gathered and its ``tp`` split kept, the gather
 XLA makes for each use of an FSDP weight; its backward reduce-scatters
@@ -359,7 +363,119 @@ def constrain(x: torch.Tensor, dims) -> torch.Tensor:
     if all(a is None for a in axes) or not isinstance(x, DTensor):
         return x
     want = placements(P(*axes), x.device_mesh)
-    return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
+    return x if tuple(x.placements) == want else _redistribute(x, want)
+
+
+def _redistribute(x: DTensor, want: tuple) -> DTensor:
+    """``x.redistribute`` to ``want``, except that a shard moving from one
+    tensor dim to another (``Shard(i)`` -> ``Shard(j)`` on the mesh dims
+    that shard dim i, the MoE dispatch) moves by all-to-alls
+    (``_AllToAll``), after the other mesh dims' slices (``Replicate`` ->
+    ``Shard``, no collective) so that it carries only this rank's part.
+    DTensor's own move is an all-to-all on a CUDA mesh but an all-gather
+    and a slice on a CPU one; this is the same all-to-all on both, and on
+    the dry-run's fake process group."""
+    from torch.distributed.tensor import Shard
+
+    mesh, cur = x.device_mesh, list(x.placements)
+    moves = [m for m, (c, w) in enumerate(zip(cur, want))
+             if isinstance(c, Shard) and isinstance(w, Shard) and c.dim != w.dim]
+    src = {cur[m].dim for m in moves}
+    dst = {want[m].dim for m in moves}
+    nested = (len(src) == len(dst) == 1
+              and moves == [m for m, c in enumerate(cur) if isinstance(c, Shard) and c.dim in src]
+              and moves == [m for m, w in enumerate(want) if isinstance(w, Shard) and w.dim in dst])
+    if not moves or not nested:
+        return x.redistribute(mesh, want)
+    sliced = [w if c.is_replicate() and isinstance(w, Shard) else c for c, w in zip(cur, want)]
+    if sliced != cur:
+        x = x.redistribute(mesh, sliced)
+    x = _AllToAll.apply(x, tuple(moves), src.pop(), dst.pop())
+    return x if tuple(x.placements) == tuple(want) else x.redistribute(mesh, want)
+
+
+def _all_to_all_local(t: torch.Tensor, groups, sizes, src: int, dst: int) -> torch.Tensor:
+    """One rank's part of a shard's move from tensor dim ``src`` to ``dst``
+    over mesh dims of ``sizes`` (outer to inner, their process ``groups``):
+    ``t``, this rank's nested shard of ``src``, cut along ``dst`` into
+    prod(sizes) pieces in the same nested order, each piece sent to the
+    rank it belongs to by one functional all-to-all a mesh dim, the pieces
+    received joined along ``src`` in nested rank order.
+
+    On ("pod", "data") that is two exchanges of the whole local tensor
+    where one over the flattened group would do.  The nested form is kept
+    because a flattened group (``DeviceMesh._flatten``) registers itself on
+    the mesh, and from then on DTensor's own redistributions over those
+    axes switch to it: the step's schedule would change after the first
+    MoE layer had run (a traced step and the ranks' next steps disagree),
+    and every family's schedule on a mesh with pods with it.  Flattening
+    the batch axes when the mesh is made is ROADMAP §2's item."""
+    from torch.distributed import _functional_collectives as funcol
+
+    K, N = len(sizes), math.prod(sizes)
+    nd = t.dim()
+    x = t.movedim(dst, 0)
+    x = x.reshape(*sizes, x.shape[0] // N, *x.shape[1:])  # the destinations' coords first
+    for k in range(K):  # coord k of the destination becomes coord k of the source
+        y = x.movedim(k, 0).contiguous()
+        y = funcol.wait_tensor(funcol.all_to_all_single(y.flatten(), None, None, groups[k]))
+        x = y.view(x.movedim(k, 0).shape).movedim(0, k)
+    at = K + 1 + (src if src < dst else src - 1)  # src's axis after the coords and the piece
+    x = x.movedim(at, K).flatten(0, K)  # (src whole, piece of dst, the others)
+    order = [src, dst] + [i for i in range(nd) if i not in (src, dst)]
+    return x.permute([order.index(i) for i in range(nd)]).contiguous()
+
+
+class _AllToAll(torch.autograd.Function):
+    """A DTensor's shard over mesh dims ``dims`` moved from tensor dim
+    ``src`` to ``dst`` by functional all-to-alls (``_all_to_all_local``);
+    the backward moves the gradient back the same way."""
+
+    @staticmethod
+    def forward(ctx, x, dims: tuple, src: int, dst: int):
+        from torch.distributed.tensor import Shard
+
+        mesh = x.device_mesh
+        groups, sizes = [mesh.get_group(m) for m in dims], [mesh.size(m) for m in dims]
+        pls = [Shard(dst) if m in dims else pl for m, pl in enumerate(x.placements)]
+        ctx.args = (mesh, groups, sizes, src, dst, tuple(x.placements), tuple(pls), x.shape)
+        local = _all_to_all_local(x.to_local(), groups, sizes, src, dst)
+        return DTensor.from_local(local, mesh, pls, shape=x.shape,
+                                  stride=_contiguous_stride(x.shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, groups, sizes, src, dst, pls_in, pls_out, shape = ctx.args
+        if tuple(g.placements) != pls_out:
+            g = g.redistribute(mesh, pls_out)
+        local = _all_to_all_local(g.to_local(), groups, sizes, dst, src)
+        return (DTensor.from_local(local, mesh, pls_in, shape=shape,
+                                   stride=_contiguous_stride(shape)), None, None, None)
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def per_rank(fn, *args, out, grad=None):
+    """``fn(*args)`` on plain tensors.  Where an argument is a DTensor,
+    ``fn`` on each rank's local shards (``local_map``): every input as it
+    is placed, the outputs placed as ``out(*args)`` says and the inputs'
+    gradients as ``grad(*args)`` says (by default as the inputs).  The
+    two rules are called on DTensors only."""
+    mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)), None)
+    if mesh is None:
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+
+    return local_map(fn, out_placements=out(*args),
+                     in_placements=tuple(a.placements if isinstance(a, DTensor) else None
+                                         for a in args),
+                     in_grad_placements=grad(*args) if grad else None, device_mesh=mesh)(*args)
 
 
 def replicated(x: torch.Tensor) -> torch.Tensor:

@@ -485,6 +485,42 @@ def test_five_step_loss_trajectory_matches_jax(aggregation, num_pods):
             assert torch.equal(t[0], t[1])
 
 
+def test_six_steps_at_the_full_vocabulary_match_jax():
+    """At seamless-m4t-medium's own vocabulary (256,206 tokens, the head
+    padded to 256,256 columns at -1e9) and learning rate, reduced width:
+    six plain steps of the learnable stream against JAX's jitted step, and
+    the loss of the first step's batch once that step is applied (what
+    ``chip_smoke.py``'s training gate reads) equal to JAX's and below the
+    step's own loss."""
+    jcfg, tcfg = _cfgs(vocab_size=256206)
+    assert tcfg.padded_vocab == jcfg.padded_vocab == 256256
+    jp, tp = _params(jcfg)
+    sc = jdata.StreamConfig(jcfg.vocab_size, 32, 4)
+    tsc = ttrain.StreamConfig(tcfg.vocab_size, 32, 4)
+    want = []
+    with jax.set_mesh(_mesh()):
+        jstate = jsteps.init_train_state(jcfg, _j(jp))
+        fn = jax.jit(jsteps.build_train_step(jcfg, JRunPlan()))
+        for s in range(6):
+            jstate, m = fn(jstate, _jax_batch(jcfg, sc, s))
+            want.append(float(m["loss"]))
+            if s == 0:
+                want_seen = float(jencdec.forward_train(jstate["params"], jcfg,
+                                                        _jax_batch(jcfg, sc, 0))[0])
+    step = tsteps.build_train_step(tcfg, RunPlan())
+    state, got = tsteps.init_train_state(tcfg, tp), []
+    for s in range(6):
+        state, m = step(state, ttrain.make_batch(tcfg, tsc, s, None, "cpu"))
+        got.append(float(m["loss"]))
+        if s == 0:
+            with torch.no_grad():
+                seen = float(tencdec.forward_train(state["params"], tcfg,
+                                                   ttrain.make_batch(tcfg, tsc, 0, None, "cpu"))[0])
+    np.testing.assert_allclose(got, want, rtol=TRAJ_RTOL)
+    np.testing.assert_allclose(seen, want_seen, rtol=TRAJ_RTOL)
+    assert seen < got[0], (seen, got[0])
+
+
 def test_podded_step_launches_the_hop_once_a_leaf(monkeypatch):
     from repro_torch.kernels import ops
 

@@ -167,6 +167,14 @@ from repro.models import lm, nn
 tmp = sys.argv[1]
 cases = eval(open(f"{tmp}/cases.txt").read())
 
+def listed(node):  # dicts keyed 0 .. n - 1 back into lists (deepseek's first layers)
+    if not isinstance(node, dict):
+        return node
+    node = {k: listed(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
 def nest(flat):
     tree = {}
     for path, v in flat.items():
@@ -175,13 +183,14 @@ def nest(flat):
         for k in head:
             node = node.setdefault(k, {})
         node[last] = jnp.asarray(v)
-    return tree
+    return listed(tree)
 
 def flat(tree, prefix=""):
     out = {}
-    for k in sorted(tree):
-        v = tree[k]
-        out.update(flat(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: np.asarray(v)})
+    items = enumerate(tree) if isinstance(tree, list) else ((k, tree[k]) for k in sorted(tree))
+    for k, v in items:
+        out.update(flat(v, f"{prefix}{k}/") if isinstance(v, (dict, list))
+                   else {f"{prefix}{k}": np.asarray(v)})
     return out
 
 for cid, arch, shape, agg, remat, accum in cases:
@@ -210,27 +219,29 @@ for cid, arch, shape, agg, remat, accum in cases:
     in_sh = (named(sspecs), named(bspecs))
     fn = jax.jit(steps.build_train_step(cfg, plan), in_shardings=in_sh,
                  out_shardings=(in_sh[0], NamedSharding(mesh, P())), donate_argnums=(0,))
-    losses = []
+    losses, auxes = [], []
     with jax.set_mesh(mesh):
         state = jax.device_put(state, in_sh[0])
         for b in batches:
             state, m = fn(state, jax.device_put({k: jnp.asarray(v) for k, v in b.items()},
                                                 in_sh[1]))
             losses.append(float(m["loss"]))
+            auxes.append(float(m["aux"]))
             if len(losses) == 1:  # AdamW's m after the first step: 0.1 g
                 first_m = flat(state["opt"]["m"], "first_m/") if "m" in state["opt"] else {}
-    np.savez(f"{tmp}/{cid}_jax.npz", losses=np.asarray(losses), **flat(state), **first_m)
+    np.savez(f"{tmp}/{cid}_jax.npz", losses=np.asarray(losses), auxes=np.asarray(auxes),
+             **flat(state), **first_m)
 """ % {"steps": STEPS}
 
 
-def _jax_inputs(tmp: Path) -> None:
+def _jax_inputs(tmp: Path, ids=IDS, cases_in=CASES) -> None:
     """Each case's initial parameters (``launch/train``'s seed 0) and
     batches, as numpy for the reference."""
     from repro_torch.convert import params_to_numpy
     from repro_torch.models import lm
 
     cases = []
-    for cid, (arch, shape, agg, remat, accum) in zip(IDS, CASES):
+    for cid, (arch, shape, agg, remat, accum) in zip(ids, cases_in):
         cfg = _cfg(arch, remat)
         params = lm.init_params(torch.Generator().manual_seed(0), cfg)
         np.savez(tmp / f"{cid}_params.npz", **dict(zip(key_paths(params),
@@ -243,15 +254,45 @@ def _jax_inputs(tmp: Path) -> None:
     (tmp / "cases.txt").write_text(repr(cases))
 
 
+def start_jax(tmp: Path) -> subprocess.Popen:
+    """The reference's subprocess over the cases ``_jax_inputs`` wrote."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    return subprocess.Popen([sys.executable, "-c", JAX_CODE, str(tmp)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def assert_state_matches(got: dict, plain: dict, want: dict) -> None:
+    """A sharded run's losses and state (``got``, whole leaves) fp-tight to
+    the single-process run's (``plain``) and JAX's (``want``), AdamW's
+    weights to JAX under the module docstring's qualification."""
+    paths = key_paths(got["state"])
+    assert paths == key_paths(plain["state"])
+    np.testing.assert_allclose(got["losses"], want["losses"], **TIGHT)
+    np.testing.assert_allclose(got["losses"], plain["losses"], **TIGHT)
+    for path, a, b in zip(paths, leaves(got["state"]), leaves(plain["state"])):
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        a, b, w = a.float().numpy(), b.float().numpy(), want[path].astype(np.float32)
+        np.testing.assert_allclose(a, b, **TIGHT, err_msg=path)
+        if path.startswith(("params/", "opt/master/")):
+            # AdamW's weights: fp-tight to JAX wherever the single-process
+            # step is (ROADMAP §3, AdamW's first update), which is off at a
+            # few elements of tiny first-step gradient only
+            off = ~np.isclose(b, w, **TIGHT)
+            g1 = np.abs(want[f"first_m/{path.split('/', 1)[1].removeprefix('master/')}"]) / 0.1
+            assert off.sum() <= OFF_SHARE * off.size, (path, int(off.sum()), off.size)
+            assert (g1[off] < TINY_GRAD).all(), (path, g1[off])
+            np.testing.assert_allclose(a[~off], w[~off], **TIGHT, err_msg=path)
+        else:
+            np.testing.assert_allclose(a, w, **TIGHT, err_msg=path)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(the ranks' results, JAX's per case): the reference's subprocess
     runs while the ranks do."""
     tmp = tmp_path_factory.mktemp("sharded")
     _jax_inputs(tmp)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-    ref = subprocess.Popen([sys.executable, "-c", JAX_CODE, str(tmp)], env=env,
-                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    ref = start_jax(tmp)
     try:
         mp.start_processes(_rank, args=(str(tmp),), nprocs=WORLD, start_method="spawn",
                            join=True)
@@ -276,26 +317,7 @@ def plain():
 @pytest.mark.parametrize("cid", IDS)
 def test_sharded_step_matches_jax_and_the_single_process_step(runs, plain, cid):
     ranks, jax_runs = runs
-    got, want = ranks[cid], jax_runs[cid]
-    paths = key_paths(got["state"])
-    assert paths == key_paths(plain[cid]["state"])
-    np.testing.assert_allclose(got["losses"], want["losses"], **TIGHT)
-    np.testing.assert_allclose(got["losses"], plain[cid]["losses"], **TIGHT)
-    for path, a, b in zip(paths, leaves(got["state"]), leaves(plain[cid]["state"])):
-        assert a.dtype == b.dtype and a.shape == b.shape, path
-        a, b, w = a.float().numpy(), b.float().numpy(), want[path].astype(np.float32)
-        np.testing.assert_allclose(a, b, **TIGHT, err_msg=path)
-        if path.startswith(("params/", "opt/master/")):
-            # AdamW's weights: fp-tight to JAX wherever the single-process
-            # step is (ROADMAP §3, AdamW's first update), which is off at a
-            # few elements of tiny first-step gradient only
-            off = ~np.isclose(b, w, **TIGHT)
-            g1 = np.abs(want[f"first_m/{path.split('/', 1)[1].removeprefix('master/')}"]) / 0.1
-            assert off.sum() <= OFF_SHARE * off.size, (path, int(off.sum()), off.size)
-            assert (g1[off] < TINY_GRAD).all(), (path, g1[off])
-            np.testing.assert_allclose(a[~off], w[~off], **TIGHT, err_msg=path)
-        else:
-            np.testing.assert_allclose(a, w, **TIGHT, err_msg=path)
+    assert_state_matches(ranks[cid], plain[cid], jax_runs[cid])
 
 
 @pytest.mark.parametrize("cid", IDS)
@@ -382,8 +404,7 @@ def _fake_mesh(shape, axes=("pod", "data", "model")):
     return mesh_mod._mk(shape, axes, "cpu")
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "moonshot-v1-16b-a3b", "rwkv6-7b",
-                                  "jamba-1.5-large-398b", "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b", "seamless-m4t-medium"])
 def test_other_families_on_a_sharded_mesh_raise(arch):
     try:
         mesh = _fake_mesh((1, 2, 2))
