@@ -197,7 +197,7 @@ the CPU):
       16, dt_rank 512, f32 weights); every gate is also run once with a
       fault planted in the port at run time, which must fail it:
       a. f32, TF32 off, card against the CPU on the same weights and
-         inputs: rwkv6-7b at 2 layers, B = 2, S = 128 (two wkv chunks of
+         inputs: rwkv6-7b at 1 layer, B = 2, S = 128 (two wkv chunks of
          64), through ``lm_f32_card_vs_cpu`` under phase 4e a's bounds;
          jamba's ("mamba", "dense") layer alone through
          ``lm.apply_layer`` in train mode, its output and the gradients of
@@ -206,7 +206,7 @@ the CPU):
          the prefill's and every decode step's logits and the prefill's
          cache within LM_F32_REL, the tokens identical.  Planted (card side
          only): each of RECURRENT_F32_FAULTS;
-      b. rwkv6-7b at full width and depth (32 layers) through
+      b. rwkv6-7b at full width and RWKV_SERVE_LAYERS layers through
          ``launch/serve``'s functions (batch 4, prompt 32, 16 generated),
          the weights from one seeded init (``drawn_on_card``) with every
          constant-at-init leaf
@@ -214,12 +214,12 @@ the CPU):
          decode against the train forward in f32 within
          RWKV_F32_DECODE_REL of the largest logit, each of
          RWKV_DECODE_FAULTS planted in the wkv state update above it; the
-         same readings in bf16 (15.07 GB) recorded, not gated, and the
+         same readings in bf16 recorded, not gated, and the
          forward's own spread between two sequence lengths in each dtype;
          prefill ms, decode ms/token beside the weight-read
          bound, the init time, a decode step's idle share, device ops and
          top ops;
-      c. rwkv6-7b training at full width and 7 layers, bf16,
+      c. rwkv6-7b training at full width and RWKV_TRAIN_LAYERS layers, bf16,
          AdamW, remat, 6 steps of B 8, S 1024 through
          ``launch/train.train``, gated as 4e c (ms/step, tokens/s, MFU on
          6 N T without the wkv core's FLOPs, peak memory, one step's idle
@@ -254,13 +254,15 @@ the CPU):
          both dtypes; prefill ms, decode ms/token beside the bound of the
          bytes a decode step reads (the decoder, the head, the self and
          cross caches), a decode step's idle share and device ops;
-      c. bf16 training at full width and depth, AdamW, remat, B 4 (cut from
+      c. bf16 training at full width and SEAMLESS_TRAIN_LAYERS +
+         SEAMLESS_TRAIN_LAYERS layers, AdamW, remat, B 4 (cut from
          8 by the card's memory), S_src = S_tgt = 1024, 6 steps through
          ``launch/train.train``, gated as 4e c (ms/step, target tokens/s,
          MFU on ``model_flops``' enc-dec count, peak memory, one step's
          idle share and top ops); remat on against off at 2 + 2 layers
          (``remat_agreement``);
-      d. the podded ``totoro_tree_q8`` step at full depth, B 4, 2 pods, 3
+      d. the podded ``totoro_tree_q8`` step at SEAMLESS_POD_LAYERS +
+         SEAMLESS_POD_LAYERS layers, B 4, 2 pods, 3
          steps: one quantize and one dequantize launch per leaf a step (27
          + 27), both hop kernels bit-equal to ``ref`` on every leaf's rows,
          the gate failing on each of HOP_FAULTS, timed on the largest
@@ -289,6 +291,14 @@ the CPU):
       ranks on the one card (the constants' comment, SHARD_*), the
       collectives a step by op and mesh axis, the bytes the placed state
       and batch take on each rank, the peak memory a rank;
+   l. the MoE family's step sharded over the same mesh, on 4j's ranks:
+      deepseek-v2-lite-16b at full width (the constants' comment,
+      MOE_SHARD_*);
+   m. the encoder-decoder family's, on 4j's ranks after 4l:
+      seamless-m4t-medium at full width (ENCDEC_SHARD_*), the sequence-
+      parallel encoder, the cross-attention's heads over ``model`` and the
+      vocab-parallel head and loss, gated in f32 against one process with
+      three faults planted, and in bf16 over 3 steps;
    k. the dry-run (``repro_torch.launch.dryrun``, two subprocesses that
       never touch the card) of 4j
       b's own cell on a fake process group, held to what 4j measured
@@ -403,7 +413,7 @@ TRAIN_FIRST_FAULT = "the AdamW update's sign flipped"
 # d (and 4f d, 4g d): faults planted in a hop kernel's output, each of
 # which the hop's bit-equality gate must catch on one leaf's rows
 HOP_FAULTS = ("a lattice point a step off", "a dequantized value an ulp off")
-CKPT_LAYERS, CKPT_STEPS, CKPT_REPLICAS = 2, 2, 2
+CKPT_LAYERS, CKPT_STEPS, CKPT_REPLICAS = 1, 2, 2  # 1 layer, to pay for phase 4m
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 peak (NVIDIA data sheet, 700 W)
 # The MoE family (phase 4f): deepseek-v2-lite-16b at full width (MLA, 64
 # routed experts top-6 and 2 shared, one leading dense layer).  a: f32 at 2
@@ -444,20 +454,25 @@ MOE_TRAIN_LAYERS, MOE_REMAT_LAYERS = 3, 2
 REMAT_EMBED_REL = 2.0**-8
 # d: the podded q8 step at 2 layers, reckoned at ~55 GB (2 pods x 1.085e9
 # parameters x 14 B of bf16 weights and AdamW state, the pods' f32
-# gradients, one pod's B 4 activations); 3 layers would need ~76 GB
+# gradients, one pod's B 4 activations); 3 layers would need ~76 GB; its
+# weights drawn on the card
 MOE_POD_LAYERS = 2
 # The recurrent families (phase 4g): rwkv6-7b (RWKV-6: 32 layers of d 4096,
 # 64 wkv heads of 64, d_ff 14336, vocab 65,536; 7.53e9 parameters) and
 # jamba-1.5-large-398b's Mamba layer (d 8192, d_inner 16384, d_state 16,
 # dt_rank 512, f32 weights).  a: f32 (TF32 off) card against the CPU under
 # phase 4e a's bounds, each gate failed by one of RECURRENT_F32_FAULTS,
-# planted on the card's side: rwkv6-7b at 2 layers, jamba's ("mamba",
-# "dense") layer alone, jamba's reduced model through prefill and decode
+# planted on the card's side: rwkv6-7b at RWKV_F32_LAYERS layers, jamba's
+# ("mamba", "dense") layer alone, jamba's reduced model through prefill and
+# decode.  Depth cuts that pay for phase 4m (with it and without them the
+# whole script took 1,180.1 s on an H100 80GB HBM3 at 700 W, 4g 256.7 s of
+# it): a at 1 layer (was 2), b at RWKV_SERVE_LAYERS = 16 (was 32, the full
+# depth), c at 3 (was 7), d with its weights drawn on the card
 RWKV_ARCH, JAMBA_ARCH = "rwkv6-7b", "jamba-1.5-large-398b"
-RWKV_F32_LAYERS = 2
+RWKV_F32_LAYERS = 1
 RECURRENT_F32_FAULTS = ("wkv state not carried across chunks",
                         "scan state not carried across chunks", "ssm state not carried in decode")
-# b: serving at full depth, the weights from one seeded init with every
+# b: serving at RWKV_SERVE_LAYERS, the weights from one seeded init with every
 # leaf that is a constant at init (mix_*, decay_0, bonus_u, ln_*) redrawn
 # from RWKV_LEAF_SEED: at init decay_0 = -6 holds every decay at 0.9975 and
 # bonus_u = 0 drops the bonus term, which hides faults there.  Decode
@@ -472,20 +487,18 @@ RECURRENT_F32_FAULTS = ("wkv state not carried across chunks",
 # decode 0.144, its spread 0.51 and the decay fault 0.59, so bf16 cannot
 # be gated and is recorded.  RWKV_F32_DECODE_REL, set from that run: 2^-6,
 # 4.4x over the sound reading and 35x under the least fault
-RWKV_SERVE_LAYERS = 32
+RWKV_SERVE_LAYERS = 16
 RWKV_LEAF_SEED = 37
 RWKV_DECODE_FAULTS = ("k and v swapped in the state update",
                       "the token's kv left out of the state",
                       "the decay left out of the state update")
 RWKV_F32_DECODE_REL = 2.0**-6
-# c: bf16 training, AdamW, remat, at the deepest that peaks under ~70 GB:
-# reckoned from phase 4f c's 53.5 GB at 1.67e9 parameters as 6 layers (1.85e9),
-# which peaked at 59.2 GB on the card, about 6.2 GB a layer over 22 GB for
-# the embedding, the head and the logits, so 7 layers (2.07e9) at ~65 GB;
-# then remat on against off at 2 layers: every gradient leaf bit-equal but
-# the embedding table's, within REMAT_EMBED_REL of its largest
-RWKV_TRAIN_LAYERS, RWKV_REMAT_LAYERS = 7, 2
-# d: the podded q8 step at 2 layers (0.974e9 parameters a pod)
+# c: bf16 training, AdamW, remat, at RWKV_TRAIN_LAYERS (7 layers, the
+# deepest that peaked under ~70 GB, 66.2 GB, before phase 4m); then remat on
+# against off at 2 layers: every gradient leaf bit-equal but the embedding
+# table's, within REMAT_EMBED_REL of its largest
+RWKV_TRAIN_LAYERS, RWKV_REMAT_LAYERS = 3, 2
+# d: the podded q8 step at 2 layers (0.974e9 parameters a pod), drawn on the card
 RWKV_POD_LAYERS = 2
 # e: jamba's Mamba sublayer at full width, bf16 activations, f32 weights
 MAMBA_BATCH = 4
@@ -518,20 +531,25 @@ ENCDEC_F32_FAULTS = ("cross keys from the decoder's states", "causal encoder",
 SEAMLESS_F32_DECODE_REL = LM_F32_REL
 ENCDEC_DECODE_FAULTS = ("cross cache left zero after prefill",
                         "cross cache read from the wrong layer", "self-cache index off by one")
-# c: bf16 training at full width and depth, AdamW, remat, B =
+# c: bf16 training at full width, AdamW, remat, B =
 # SEAMLESS_BATCH, S_src = S_tgt = TRAIN_SEQ; remat on against off at 2 + 2
 # layers.  B is cut from TRAIN_BATCH's 8 to 4: at 8 the first step ran out
 # of the card's memory in the backward of the 256,256-column loss (31 GB
 # allocated, 32.6 GB reserved but free, 15.6 GiB more asked for), whose f32
 # copies of the (8, 1024, 256,256) logits are 8.4 GB each.  d: the podded
-# q8 step at full depth and the same B (2 pods of weights and AdamW state,
-# 27.4 GB, the pods' f32 gradients 7.8 GB, one pod's B 2 activations), 27 +
-# 27 hop launches a step.  The checkpoint at 2 + 2 layers (8.4 GB a
+# q8 step at SEAMLESS_POD_LAYERS + SEAMLESS_POD_LAYERS layers and the same
+# B, its weights drawn on the card, 27 + 27 hop launches a step; cut from
+# full depth (12 + 12) to pay for phase 4m: its 27 stacked leaves, its hop
+# launches and its largest leaf (the embedding, 2,050,048 rows of 2 pods)
+# are the same at any depth.  The checkpoint at 2 + 2 layers (8.4 GB a
 # replica, most of it the 256,256-row embedding and head with their AdamW
 # state; about 90 s of the phase) is left out: with it the whole script
 # took 941.4 s on an H100 80GB HBM3 at 700 W, past the 900 s at which a
 # phase is cut, and 4e e runs the same ckpt.py path on the card
-SEAMLESS_BATCH, SEAMLESS_REMAT_LAYERS, SEAMLESS_POD_LAYERS = 4, 2, 12
+SEAMLESS_BATCH, SEAMLESS_REMAT_LAYERS, SEAMLESS_POD_LAYERS = 4, 2, 2
+# c trains at SEAMLESS_TRAIN_LAYERS + SEAMLESS_TRAIN_LAYERS layers: cut from
+# full depth (12 + 12), as d, to pay for phase 4m
+SEAMLESS_TRAIN_LAYERS = 6
 # The podded step with one pod per rank (phase 4i): tinyllama-1.1b at full
 # width, RANK_LAYERS layers, RANK_PODS ranks of a gloo ``pod`` group (the
 # one card holds both: NCCL takes one rank a device), each with its pod's
@@ -600,6 +618,39 @@ MOE_SHARD_FAULTS = ("the expert all-to-all's return skipped",
                     "the router gradient's data reduction skipped",
                     "two ranks' expert shards swapped")
 MOE_SHARD_B_FAULT = MOE_SHARD_FAULTS[0]
+# The encoder-decoder family's step sharded inside a pod (phase 4m):
+# SEAMLESS_ARCH at full width on 4j's ranks and mesh (the same spawn, after
+# 4l), totoro_tree, at ENCDEC_SHARD_LAYERS encoder and ENCDEC_SHARD_LAYERS
+# decoder layers (0.60e9 parameters, 0.52e9 of them the embedding and the
+# head): the sequence-parallel encoder, the cross-attention's heads over
+# model, the vocab-parallel embedding, head and loss over the 256,256
+# padded columns.  The weights are drawn on the card (``drawn_on_card``)
+# and every norm leaf is redrawn from SEAMLESS_NORM_SEED (``seamless_draws``:
+# zeros at init would hide a swapped norm).  a: f32 (TF32 off), B
+# ENCDEC_SHARD_F32_BATCH, S ENCDEC_SHARD_F32_SEQ (source and target), one
+# sharded step against the same step in one process, which the ranks
+# compute in turn on the card (~9.6 GB with AdamW's state and the
+# gradients), each keeping its own shards of it on the host: 4j a's gate
+# (shard_readings' AdamW map); each of ENCDEC_SHARD_FAULTS, planted at run
+# time in every rank, must fail it.  b: bf16, B SEAMLESS_BATCH (one process
+# at B 8 runs out of memory in the loss, phase 4h c), S TRAIN_SEQ,
+# ENCDEC_SHARD_STEPS steps of launch/train.train(mesh=...), the losses
+# within ENCDEC_SHARD_BF16_LOSS_RTOL of the same steps in one process
+# (``encdec_shard_plain_losses``); then ENCDEC_SHARD_B_FAULT planted for
+# SHARD_B_FAULT_STEPS steps must read above it.  The first card run read
+# the sound losses 7.12e-6 apart and its first b fault, the
+# cross-attention's wo reduction dropped, only 5.06e-5 (at init the
+# cross-attention's output, a mean over 1,024 source frames, is small
+# beside the residual stream; a caught it at 0.488 of a leaf), so b plants
+# a fault in the target embedding's vocab-parallel lookup instead
+ENCDEC_SHARD_LAYERS, ENCDEC_SHARD_SEED = 2, 0
+ENCDEC_SHARD_F32_BATCH, ENCDEC_SHARD_F32_SEQ = 8, 128
+ENCDEC_SHARD_STEPS = 3
+ENCDEC_SHARD_BF16_LOSS_RTOL = 1e-4
+ENCDEC_SHARD_FAULTS = ("the cross-attention's wo reduction over model dropped",
+                       "the encoder output's gradient not reduced over model",
+                       "the padded columns unmasked on the last vocab shard")
+ENCDEC_SHARD_B_FAULT = "the target embedding's partial sum over model read as reduced"
 # The dry-run (phase 4k): ``python -m repro_torch.launch.dryrun`` on 4j b's
 # own cell, on a fake process group of SHARD_RANKS ranks, in a subprocess
 # that never touches the card.  Gates: a, its collective calls of one step
@@ -668,6 +719,31 @@ KERNELS = [
 ]
 COUNTED = ("tree_aggregate_groups", "qsgd_quantize", "qsgd_quantize_residual",
            "qsgd_dequantize", "apply_quantized_broadcast", "fused_update", "policy_update")
+
+
+PART_WALLS: dict = {}  # function name -> host seconds of each call (``timed_parts``)
+TIMED_PARTS = ("drive_lm", "lm_f32_card_vs_cpu", "flash_backward_on_card", "train_lm",
+               "train_podded", "checkpoint_resume", "remat_agreement", "serve_moe",
+               "moe_decode_f32", "moe_route_share", "mamba_layer_f32_card_vs_cpu",
+               "jamba_reduced_card_vs_cpu", "serve_rwkv", "mamba_chunk_loop_share",
+               "encdec_f32_card_vs_cpu", "serve_encdec", "shard_plain_losses",
+               "moe_shard_plain_losses", "encdec_shard_plain_losses", "drive_dryrun")
+
+
+def timed_parts(names=TIMED_PARTS) -> None:
+    """Each named function of this module records the host seconds of its
+    calls in PART_WALLS (the phases' callers look them up by name, so the
+    wrapped function is the one they call); the ``[walls]`` line prints
+    them, in call order, beside the phases'."""
+    g = globals()
+    for name in names:
+        def wrapped(*a, _fn=g[name], _name=name, **k):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                PART_WALLS.setdefault(_name, []).append(round(time.perf_counter() - t0, 1))
+        g[name] = wrapped
 
 
 def log(*a):
@@ -2085,7 +2161,8 @@ def f32_card_vs_cpu(torch) -> dict:
 
     cfg = configs.get_config("tinyllama-1.1b").replace(num_layers=2, dtype="float32",
                                                        param_dtype="float32")
-    params = lm.init_params(torch.Generator().manual_seed(2), cfg)
+    with drawn_on_card():  # then copied to the host: the same weights on both sides
+        params = lm.init_params(torch.Generator().manual_seed(2), cfg)
     batch = serve.make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator().manual_seed(3), "cpu")
     runs = {}
     for dev in ("cpu", "cuda"):
@@ -2248,7 +2325,8 @@ def lm_f32_card_vs_cpu(torch, arch: str, layers: int, seed: int, fault: str | No
 
     cfg = configs.get_config(arch).replace(num_layers=layers, dtype="float32",
                                            param_dtype="float32")
-    params = lm.init_params(torch.Generator().manual_seed(seed), cfg)
+    with drawn_on_card():  # then copied to the host: the same weights on both sides
+        params = lm.init_params(torch.Generator().manual_seed(seed), cfg)
     batch = train.make_batch(cfg, train.StreamConfig(cfg.vocab_size, TRAIN_F32_SEQ,
                                                      TRAIN_F32_BATCH), 0, None, "cpu")
     opt = optim.make_optimizer(cfg)
@@ -2582,8 +2660,9 @@ def first_step_drop(torch, cfg, global_batch: int, fault: str | None = None) -> 
 def train_lm(torch, smi: str, cfg, global_batch: int = TRAIN_BATCH) -> dict:
     """c (4e: tinyllama-1.1b at full width and depth; 4f: deepseek-v2-lite
     at full width, MOE_TRAIN_LAYERS layers; 4g: rwkv6-7b at full width,
-    RWKV_TRAIN_LAYERS layers; 4h: seamless-m4t-medium at full width and
-    depth, B SEAMLESS_BATCH), bf16, AdamW, remat on, through
+    RWKV_TRAIN_LAYERS layers; 4h: seamless-m4t-medium at full width,
+    SEAMLESS_TRAIN_LAYERS + SEAMLESS_TRAIN_LAYERS layers, B
+    SEAMLESS_BATCH), bf16, AdamW, remat on, through
     ``launch/train.train`` (its garbage collections timed, ``gc_during``):
     TRAIN_STEPS steps of B = ``global_batch``, S = TRAIN_SEQ, every loss
     finite (an MoE model's aux losses finite and positive); then one more
@@ -2873,8 +2952,9 @@ def drive_training(torch, smi: str, qz, ops, ref) -> dict:
         tiny = configs.get_config("tinyllama-1.1b")
         with drawn_on_card():
             out["c_tinyllama"] = train_lm(torch, smi, tiny)
-        out["d_podded_q8"] = train_podded(torch, qz, ops, ref, tiny, "largest")
-        with uncounted():
+        with drawn_on_card():  # as 4i's ranks draw: 4i holds its losses to these
+            out["d_podded_q8"] = train_podded(torch, qz, ops, ref, tiny, "largest")
+        with uncounted(), drawn_on_card():
             out["e_checkpoint"] = checkpoint_resume(torch, cut_depth(tiny, CKPT_LAYERS))
         torch.cuda.empty_cache()
         return out
@@ -3083,7 +3163,8 @@ def moe_decode_f32(torch) -> dict:
 
     cfg = configs.get_config(MOE_ARCH).replace(num_layers=MOE_F32_LAYERS, dtype="float32",
                                                param_dtype="float32")
-    params = lm.init_params(torch.Generator().manual_seed(22), cfg, device="cuda")
+    with drawn_on_card():
+        params = lm.init_params(torch.Generator().manual_seed(22), cfg, device="cuda")
     batch = serve.make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator().manual_seed(23), "cuda")
     out = moe_decode_check(torch, cfg, params, batch, MOE_F32_DECODE_REL, 0,
                            LM_BATCH * (LM_GEN - 1))
@@ -3167,8 +3248,9 @@ def drive_moe(torch, smi: str, qz, ops, ref) -> dict:
             torch.cuda.empty_cache()
             out["c_route"] = moe_route_share(torch, cfg)
         torch.cuda.empty_cache()
-        out["d_podded_q8"] = train_podded(torch, qz, ops, ref,
-                                          cfg.replace(num_layers=MOE_POD_LAYERS), "expert")
+        with drawn_on_card():
+            out["d_podded_q8"] = train_podded(torch, qz, ops, ref,
+                                              cfg.replace(num_layers=MOE_POD_LAYERS), "expert")
         torch.cuda.empty_cache()
         for tag in ("a_launches", "b_launches"):
             if out[tag] != dict.fromkeys(COUNTED, 0):
@@ -3229,7 +3311,9 @@ def mamba_layer_f32_card_vs_cpu(torch) -> dict:
 
     cfg = configs.get_config(JAMBA_ARCH).replace(dtype="float32")
     assert cfg.param_dtype == "float32"
-    params = lm.init_layer(torch.Generator().manual_seed(31), cfg, "mamba", "dense")
+    with drawn_on_card():
+        params = tree_map(lambda t: t.cpu(), lm.init_layer(torch.Generator().manual_seed(31), cfg,
+                                                           "mamba", "dense"))
     gen = torch.Generator().manual_seed(32)
     x = torch.randn(TRAIN_F32_BATCH, TRAIN_F32_SEQ, cfg.d_model, generator=gen)
     w = torch.randn(TRAIN_F32_BATCH, TRAIN_F32_SEQ, cfg.d_model, generator=gen)
@@ -3496,8 +3580,9 @@ def drive_recurrent(torch, smi: str, qz, ops, ref) -> dict:
         with uncounted():
             out["c_remat"] = remat_agreement(torch, RWKV_ARCH, RWKV_REMAT_LAYERS, 36)
         torch.cuda.empty_cache()
-        out["d_podded_q8"] = train_podded(torch, qz, ops, ref,
-                                          cfg.replace(num_layers=RWKV_POD_LAYERS), "largest")
+        with drawn_on_card():
+            out["d_podded_q8"] = train_podded(torch, qz, ops, ref,
+                                              cfg.replace(num_layers=RWKV_POD_LAYERS), "largest")
         torch.cuda.empty_cache()
         set_counts(dict.fromkeys(COUNTED, 0))
         out["e_mamba"] = mamba_chunk_loop_share(torch)
@@ -3591,7 +3676,8 @@ def encdec_f32_card_vs_cpu(torch) -> dict:
 
     cfg = cut_depth(configs.get_config(SEAMLESS_ARCH), SEAMLESS_F32_LAYERS).replace(
         dtype="float32", param_dtype="float32")
-    params = encdec.init_params(torch.Generator().manual_seed(40), cfg)
+    with drawn_on_card():  # then copied to the host: the same weights on both sides
+        params = encdec.init_params(torch.Generator().manual_seed(40), cfg)
     redrawn_norms(torch, params, SEAMLESS_NORM_SEED)
     gen, B = torch.Generator().manual_seed(42), TRAIN_F32_BATCH
     batch = {"embeds": torch.randn((B, SEAMLESS_SRC, cfg.d_model), generator=gen) * 0.3,
@@ -3658,7 +3744,8 @@ def serve_encdec(torch, smi: str) -> dict:
     cfg = configs.get_config(SEAMLESS_ARCH)
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
     t0 = time.perf_counter()
-    params = encdec.init_params(torch.Generator().manual_seed(43), cfg32, device="cuda")
+    with drawn_on_card():
+        params = encdec.init_params(torch.Generator().manual_seed(43), cfg32, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     batch = serve.make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator().manual_seed(44), "cuda")
@@ -3716,14 +3803,17 @@ def drive_encdec(torch, smi: str, qz, ops, ref) -> dict:
         torch.cuda.empty_cache()
         cfg = configs.get_config(SEAMLESS_ARCH)
         with drawn_on_card():
-            out["c_train"] = train_lm(torch, smi, cfg, SEAMLESS_BATCH)
+            out["c_train"] = train_lm(torch, smi, cut_depth(cfg, SEAMLESS_TRAIN_LAYERS),
+                                      SEAMLESS_BATCH)
         torch.cuda.empty_cache()
         with uncounted():
             out["c_remat"] = remat_agreement(torch, SEAMLESS_ARCH, SEAMLESS_REMAT_LAYERS, 45,
                                              SEAMLESS_BATCH)
         torch.cuda.empty_cache()
-        out["d_podded_q8"] = train_podded(torch, qz, ops, ref, cut_depth(cfg, SEAMLESS_POD_LAYERS),
-                                          "largest", SEAMLESS_BATCH)
+        with drawn_on_card():
+            out["d_podded_q8"] = train_podded(torch, qz, ops, ref,
+                                              cut_depth(cfg, SEAMLESS_POD_LAYERS), "largest",
+                                              SEAMLESS_BATCH)
         torch.cuda.empty_cache()
         for tag in ("a_launches", "b_launches"):
             if out[tag] != dict.fromkeys(COUNTED, 0):
@@ -4049,9 +4139,10 @@ def pod_rank(rank: int, tmp: str, layers: int, flags: dict) -> None:
         with gates.installed():
             set_counts(dict.fromkeys(COUNTED, 0))
             t0 = time.perf_counter()
-            run = train.train(cfg, plan, steps=POD_STEPS, seq_len=TRAIN_SEQ,
-                              global_batch=TRAIN_BATCH, device="cuda", mesh=mesh,
-                              log=lambda *a: None)
+            with drawn_on_card():  # as 4e d draws
+                run = train.train(cfg, plan, steps=POD_STEPS, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, device="cuda", mesh=mesh,
+                                  log=lambda *a: None)
             wall = time.perf_counter() - t0
             got = counts()
         peak = gates.peaks_gb()
@@ -4347,12 +4438,14 @@ def shard_gate(readings, want: dict, loss: float) -> dict:
     return out
 
 
-def sharded_bf16_run(torch, cfg, mesh, n_steps: int, fault) -> dict:
-    """b of phases 4j and 4l on one rank: ``n_steps`` bf16 steps of
-    ``launch/train.train(mesh=...)`` under totoro_tree (B TRAIN_BATCH, S
-    TRAIN_SEQ), every launch counter set to 0 first, the collectives logged
-    (``CollectiveLog``, ``wire_stats``), peak memory; then the same run's
-    first SHARD_B_FAULT_STEPS steps under ``fault`` (a context manager)."""
+def sharded_bf16_run(torch, cfg, mesh, n_steps: int, fault,
+                     global_batch: int = TRAIN_BATCH) -> dict:
+    """b of phases 4j, 4l and 4m on one rank: ``n_steps`` bf16 steps of
+    ``launch/train.train(mesh=...)`` under totoro_tree (B ``global_batch``,
+    S TRAIN_SEQ), every launch counter set to 0 first, the collectives
+    logged (``CollectiveLog``, ``wire_stats``), peak memory; then the same
+    run's first SHARD_B_FAULT_STEPS steps under ``fault`` (a context
+    manager)."""
     from repro_torch.config import RunPlan
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import train
@@ -4360,7 +4453,7 @@ def sharded_bf16_run(torch, cfg, mesh, n_steps: int, fault) -> dict:
     plan = RunPlan(aggregation="totoro_tree")
 
     def run(steps: int) -> dict:
-        return train.train(cfg, plan, steps=steps, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        return train.train(cfg, plan, steps=steps, seq_len=TRAIN_SEQ, global_batch=global_batch,
                            device="cuda", mesh=mesh, log=lambda *a: None)
 
     torch.cuda.empty_cache()
@@ -4505,6 +4598,12 @@ def shard_rank(rank: int, tmp: str, layers: int) -> None:
         moe = moe_shard_part(torch, rank, tmp, mesh)  # phase 4l, on the same ranks
         with open(os.path.join(tmp, f"moe{rank}.json"), "w") as f:
             json.dump(moe, f)
+        del moe
+        gc.collect()
+        torch.cuda.empty_cache()
+        enc = encdec_shard_part(torch, rank, tmp, mesh)  # phase 4m, on the same ranks
+        with open(os.path.join(tmp, f"encdec{rank}.json"), "w") as f:
+            json.dump(enc, f)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -4539,12 +4638,11 @@ def drive_shard_ranks(torch, smi: str, plain: dict) -> dict:
                     p.kill()
                     p.join()
         wall = time.perf_counter() - t0
-        ranks, moe_ranks = [], []
+        ranks, moe_ranks, encdec_ranks = [], [], []
         for r in range(SHARD_RANKS):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-            with open(os.path.join(tmp, f"moe{r}.json")) as f:
-                moe_ranks.append(json.load(f))
+            for name, got in (("rank", ranks), ("moe", moe_ranks), ("encdec", encdec_ranks)):
+                with open(os.path.join(tmp, f"{name}{r}.json")) as f:
+                    got.append(json.load(f))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4560,6 +4658,7 @@ def drive_shard_ranks(torch, smi: str, plain: dict) -> dict:
         "placed_bytes_per_rank": [r["placed_bytes"] for r in ranks],
         "collective_calls_rank0": ranks[0]["collective_calls"], "card": smi,
         "moe_ranks": moe_ranks,  # phase 4l's records (``moe_shard_outcome``)
+        "encdec_ranks": encdec_ranks,  # phase 4m's (``encdec_shard_outcome``)
     }
     ok = (out["a_sound_passes"] and all(out["a_faults_caught"].values())
           and out["b_loss_rel_max"] <= SHARD_BF16_LOSS_RTOL and out["b_losses_equal_across_ranks"]
@@ -4567,7 +4666,7 @@ def drive_shard_ranks(torch, smi: str, plain: dict) -> dict:
           and all(np.isfinite(out["b_losses"]))
           and all(r["launches"] == dict.fromkeys(COUNTED, 0) for r in ranks))
     if not ok:
-        raise SystemExit(f"phase 4j: {json.dumps({k: v for k, v in out.items() if k != 'moe_ranks'})}")
+        raise SystemExit(f"phase 4j: {json.dumps({k: v for k, v in out.items() if not k.endswith('_ranks')})}")
     return out
 
 
@@ -4612,7 +4711,7 @@ def log_shard_ranks(sh: dict, smi: str) -> None:
         f"s; card: {smi}")
     log(f"[4j sharded b] collectives a step (rank 0, op/mesh axis): "
         f"{json.dumps(sh['collectives_per_step'])}")
-    log(f"[4j sharded] {json.dumps({k: v for k, v in sh.items() if k not in ('collective_calls_rank0', 'moe_ranks')})}")
+    log(f"[4j sharded] {json.dumps({k: v for k, v in sh.items() if k not in ('collective_calls_rank0', 'moe_ranks', 'encdec_ranks')})}")
 
 
 @contextmanager
@@ -4707,20 +4806,52 @@ def moe_shard_readings(torch, state, want: dict, lr: float) -> tuple:
     return paths, torch.tensor(rows, dtype=torch.float64)
 
 
-def moe_shard_gate(paths, rows, loss: float, aux: float, want: dict, flips: int) -> dict:
-    """4l a's gate from every rank's readings (their element-wise max,
-    ``rows``) and flips (their sum): the loss and the aux loss within
-    TRAIN_LOSS_RTOL, each leaf's largest difference within TRAIN_GRAD_REL
-    of its largest magnitude, no routing flip."""
+def rows_gate(paths, rows, loss: float, want: dict) -> dict:
+    """4l a's and 4m a's gate from every rank's ``moe_shard_readings``
+    (their element-wise max, ``rows``): the loss within TRAIN_LOSS_RTOL and
+    each leaf's largest difference within TRAIN_GRAD_REL of its largest
+    magnitude."""
     rel = {p: float(r[0]) / max(float(r[1]), 1e-30) for p, r in zip(paths, rows)}
     out = {"loss_rel": abs(loss - want["loss"]) / abs(want["loss"]),
-           "aux_rel": abs(aux - want["aux"]) / abs(want["aux"]), "aux": aux,
-           "leaf_rel_max": max(rel.values()), "routing_flips": flips,
-           "leaf_rel_worst": max(rel, key=rel.get)}
-    out["passed"] = (out["loss_rel"] <= TRAIN_LOSS_RTOL and out["aux_rel"] <= TRAIN_LOSS_RTOL
-                     and out["leaf_rel_max"] <= TRAIN_GRAD_REL and flips == 0
+           "leaf_rel_max": max(rel.values()), "leaf_rel_worst": max(rel, key=rel.get)}
+    out["passed"] = out["loss_rel"] <= TRAIN_LOSS_RTOL and out["leaf_rel_max"] <= TRAIN_GRAD_REL
+    return out
+
+
+def moe_shard_gate(paths, rows, loss: float, aux: float, want: dict, flips: int) -> dict:
+    """4l a's gate: ``rows_gate``, the aux loss within TRAIN_LOSS_RTOL and
+    no routing flip (``flips``, the ranks' sum)."""
+    out = rows_gate(paths, rows, loss, want)
+    out.update(aux_rel=abs(aux - want["aux"]) / abs(want["aux"]), aux=aux, routing_flips=flips)
+    out["passed"] = (out["passed"] and out["aux_rel"] <= TRAIN_LOSS_RTOL and flips == 0
                      and want["aux"] > 0)
     return out
+
+
+def single_process_shards(torch, rank: int, mesh, state_sh, step_once) -> dict:
+    """4l a's and 4m a's reference on one of 4j's ranks: the ranks run
+    ``step_once()`` (the single-process step: its new state and a dict of
+    readings) one at a time under a barrier, each keeping its own shards
+    of the new state (``state_sh``'s placements) on the host.  Returns
+    {leaf path: this rank's shard, **readings}."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.ckpt import key_paths
+    from repro_torch.pytree import leaves
+
+    want = None
+    for turn in range(SHARD_RANKS):
+        if turn == rank:
+            state, readings = step_once()
+            pls = dict(zip(key_paths(state_sh), (sh.placements for sh in leaves(state_sh))))
+            want = {path: distribute_tensor(t, mesh, pls[path], src_data_rank=None)
+                    .to_local().cpu() for path, t in zip(key_paths(state), leaves(state))}
+            want.update(readings)
+            del state
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return want
 
 
 def moe_shard_part(torch, rank: int, tmp: str, mesh) -> dict:
@@ -4730,14 +4861,12 @@ def moe_shard_part(torch, rank: int, tmp: str, mesh) -> dict:
     b, the bf16 run through ``launch/train.train`` with its collectives
     logged, then MOE_SHARD_B_FAULT.  Returns the rank's record."""
     import torch.distributed as dist
-    from torch.distributed.tensor import distribute_tensor
 
     from repro_torch import configs
     from repro_torch.config import RunPlan, ShapeSpec
     from repro_torch.fl import steps
     from repro_torch.launch import specs, train
     from repro_torch.models import lm
-    from repro_torch.pytree import key_paths, leaves
 
     t0 = time.perf_counter()
     full = configs.get_config(MOE_ARCH)
@@ -4759,20 +4888,14 @@ def moe_shard_part(torch, rank: int, tmp: str, mesh) -> dict:
         g = idx.shape[0] // dp[1]
         return idx[dp[0] * g:(dp[0] + 1) * g]
 
-    want = None
-    for turn in range(SHARD_RANKS):  # the single-process step, one rank at a time
-        if turn == rank:
-            with RoutingRecorder() as rec:
-                state, metrics = steps.build_train_step(f32, plan)(
-                    steps.init_train_state(f32, params()), batch)
-            pls = dict(zip(key_paths(state_sh), (sh.placements for sh in leaves(state_sh))))
-            want = {path: distribute_tensor(t, mesh, pls[path], src_data_rank=None)
-                    .to_local().cpu() for path, t in zip(key_paths(state), leaves(state))}
-            want.update(loss=float(metrics["loss"]), aux=float(metrics["aux"]),
-                        idx=[mine(i) for i in rec.idx])
-            del state, metrics
-            torch.cuda.empty_cache()
-        dist.barrier()
+    def step_once():
+        with RoutingRecorder() as rec:
+            state, metrics = steps.build_train_step(f32, plan)(
+                steps.init_train_state(f32, params()), batch)
+        return state, {"loss": float(metrics["loss"]), "aux": float(metrics["aux"]),
+                       "idx": [mine(i) for i in rec.idx]}
+
+    want = single_process_shards(torch, rank, mesh, state_sh, step_once)
     want_s = time.perf_counter() - t0
     step = steps.build_train_step(f32, plan, mesh=mesh)
     gate = {}
@@ -4885,6 +5008,248 @@ def log_moe_shard(ml: dict, smi: str) -> None:
     log(f"[4l moe sharded b] collectives a step (rank 0, op/mesh axis): "
         f"{json.dumps(ml['collectives_per_step'])}")
     log(f"[4l moe sharded] {json.dumps(ml)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4m: the encoder-decoder family's step sharded over (data, model)
+
+
+@contextmanager
+def seamless_draws():
+    """For the block, ``encdec.init_params`` draws on the card
+    (``drawn_on_card``) and redraws every norm leaf of what it returns
+    from SEAMLESS_NORM_SEED (``redrawn_norms``); meta trees (the shapes
+    ``launch/specs`` reads) are left as they are."""
+    import torch
+
+    from repro_torch.models import encdec
+    from repro_torch.pytree import leaves
+
+    def make(init):
+        def drawn(gen, cfg, *, device="cpu"):
+            params = init(gen, cfg, device=device)
+            if not leaves(params)[0].is_meta:
+                redrawn_norms(torch, params, SEAMLESS_NORM_SEED)
+            return params
+        return drawn
+
+    with drawn_on_card(), planted(encdec, "init_params", make):
+        yield
+
+
+@contextmanager
+def encdec_shard_fault(kind: str):
+    """One of ENCDEC_SHARD_FAULTS planted in the port at run time (in a rank
+    of phase 4m): the cross-attention's output, a partial sum over
+    ``model``, read as already reduced; the gradient of the encoder's
+    output, a partial sum over ``model`` (each rank's cross k and v heads),
+    read as reduced, so each ``model`` rank keeps its own heads' share; the
+    logits' padded columns left unmasked on the ``model`` rank that holds
+    them (the last); ENCDEC_SHARD_B_FAULT: the target embedding's lookup, a
+    partial sum over ``model`` (each rank the rows of its vocab shard),
+    read as reduced."""
+    import torch
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.models import attention, encdec, lm, nn
+
+    def unreduced(t, axis):
+        names = t.device_mesh.mesh_dim_names
+        pls = [Replicate() if n == axis and isinstance(pl, Partial) else pl
+               for n, pl in zip(names, t.placements)]
+        return DTensor.from_local(t.to_local(), t.device_mesh, pls, shape=t.shape,
+                                  stride=t.stride())
+
+    if kind == ENCDEC_SHARD_FAULTS[0]:
+        def make(fwd):
+            def cross(*a, **k):
+                out, cache = fwd(*a, **k)
+                return (unreduced(out, "model") if isinstance(out, DTensor) else out), cache
+            return cross
+        ctx = planted(attention, "cross_attn_forward", make)
+    elif kind == ENCDEC_SHARD_FAULTS[1]:
+        class Unreduced(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x):
+                return x.view_as(x)
+
+            @staticmethod
+            def backward(ctx, g):
+                if not any(isinstance(pl, Partial) for pl in g.placements):
+                    raise RuntimeError("the encoder output's gradient is not a partial sum")
+                return unreduced(g, "model")
+
+        def make(encode):
+            def faulty(*a):
+                out = encode(*a)
+                return Unreduced.apply(out) if isinstance(out, DTensor) else out
+            return faulty
+        ctx = planted(encdec, "encode", make)
+    elif kind == ENCDEC_SHARD_FAULTS[2]:
+        def make(mask):
+            def faulty(cfg, logits):
+                out = mask(cfg, logits)
+                if not isinstance(logits, DTensor):
+                    return out
+                mesh = logits.device_mesh
+                last = mesh.get_local_rank("model") == mesh.size(
+                    mesh.mesh_dim_names.index("model")) - 1
+                local = (logits if last else out).to_local()
+                return DTensor.from_local(local, mesh, out.placements, shape=out.shape,
+                                          stride=out.stride())
+            return faulty
+        ctx = planted(encdec, "_mask_pad_vocab", make)
+    elif kind == ENCDEC_SHARD_B_FAULT:
+        def make_lookup(per_rank):
+            def faulty(fn, *a, **k):
+                out = per_rank(fn, *a, **k)
+                return unreduced(out, "model") if fn is lm._lookup_local else out
+            return faulty
+        ctx = planted(nn, "per_rank", make_lookup)
+    else:
+        raise ValueError(kind)
+    with ctx:
+        yield
+
+
+def encdec_shard_part(torch, rank: int, tmp: str, mesh) -> dict:
+    """Phase 4m on one of 4j's ranks (``shard_rank``), as 4l's
+    ``moe_shard_part``: a, the single-process f32 step computed by the
+    ranks in turn (``single_process_shards``), then the sharded step, sound
+    and under each of ENCDEC_SHARD_FAULTS (``rows_gate``); b, the bf16 run
+    through ``launch/train.train`` with its collectives logged, then
+    ENCDEC_SHARD_B_FAULT.  Returns the rank's record."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.config import RunPlan, ShapeSpec
+    from repro_torch.fl import steps
+    from repro_torch.launch import specs, train
+    from repro_torch.models import encdec
+
+    t0 = time.perf_counter()
+    full = configs.get_config(SEAMLESS_ARCH)
+    plan = RunPlan(aggregation="totoro_tree")
+    f32 = cut_depth(full, ENCDEC_SHARD_LAYERS).replace(dtype="float32", param_dtype="float32")
+    shape = ShapeSpec("4m a", "train", ENCDEC_SHARD_F32_SEQ, ENCDEC_SHARD_F32_BATCH)
+    state_sh, batch_sh = specs.cell_for(f32, shape, plan, mesh).in_shardings
+    batch = train.make_batch(f32, train.StreamConfig(f32.vocab_size, ENCDEC_SHARD_F32_SEQ,
+                                                     ENCDEC_SHARD_F32_BATCH), 0, None, "cuda")
+
+    def params():
+        with seamless_draws():
+            return encdec.init_params(torch.Generator().manual_seed(ENCDEC_SHARD_SEED), f32,
+                                      device="cuda")
+
+    def step_once():
+        state, metrics = steps.build_train_step(f32, plan)(steps.init_train_state(f32, params()),
+                                                           batch)
+        return state, {"loss": float(metrics["loss"])}
+
+    want = single_process_shards(torch, rank, mesh, state_sh, step_once)
+    want_s = time.perf_counter() - t0
+    step = steps.build_train_step(f32, plan, mesh=mesh)
+    gate = {}
+    for kind in ("sound",) + ENCDEC_SHARD_FAULTS:
+        with nullcontext() if kind == "sound" else encdec_shard_fault(kind):
+            state = specs.place(steps.init_train_state(f32, specs.place(params(),
+                                                                        state_sh["params"])),
+                                state_sh)
+            state, metrics = step(state, specs.place(batch, batch_sh))
+        paths, rows = moe_shard_readings(torch, state, want, f32.learning_rate)
+        dist.all_reduce(rows, op=dist.ReduceOp.MAX)  # a CPU tensor: gloo as it is
+        gate[kind] = rows_gate(paths, rows, float(metrics["loss"].full_tensor()), want)
+        del state, metrics
+        torch.cuda.empty_cache()
+    del want
+    gate_s = time.perf_counter() - t0
+
+    with seamless_draws():
+        b = sharded_bf16_run(torch, cut_depth(full, ENCDEC_SHARD_LAYERS), mesh,
+                             ENCDEC_SHARD_STEPS, encdec_shard_fault(ENCDEC_SHARD_B_FAULT),
+                             global_batch=SEAMLESS_BATCH)
+    return dict(b, rank=rank, gate=gate, want_s=want_s, gate_s=gate_s,
+                phase_s=time.perf_counter() - t0)
+
+
+def encdec_shard_plain_losses(torch) -> dict:
+    """Phase 4m b's reference: the same ENCDEC_SHARD_STEPS bf16 steps at
+    ENCDEC_SHARD_LAYERS + ENCDEC_SHARD_LAYERS layers in one process on the
+    card, the weights drawn as the ranks draw them (``seamless_draws``)."""
+    from repro_torch import configs
+    from repro_torch.config import RunPlan
+    from repro_torch.launch import train
+
+    cfg = cut_depth(configs.get_config(SEAMLESS_ARCH), ENCDEC_SHARD_LAYERS)
+    with uncounted(), seamless_draws():
+        run = train.train(cfg, RunPlan(), steps=ENCDEC_SHARD_STEPS, seq_len=TRAIN_SEQ,
+                          global_batch=SEAMLESS_BATCH, device="cuda", log=lambda *a: None)
+    out = {"losses": run["losses"], "step_ms": run["step_ms"],
+           "from": f"one process, {ENCDEC_SHARD_LAYERS} + {ENCDEC_SHARD_LAYERS} layers"}
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_shard_outcome(ranks: list, plain: dict, smi: str) -> dict:
+    """Phase 4m's record from the ranks' ``encdec_shard_part``: a's gate must
+    pass the sound run and fail each planted fault; b's losses within
+    ENCDEC_SHARD_BF16_LOSS_RTOL of ``plain``'s and equal across ranks, no
+    kernel launched, ENCDEC_SHARD_B_FAULT's above the bound."""
+    gate = ranks[0]["gate"]
+    out = {
+        "arch": SEAMLESS_ARCH, "mesh": dict(zip(SHARD_AXES, SHARD_MESH)), "ranks": SHARD_RANKS,
+        "aggregation": "totoro_tree", "layers": ranks[0]["layers"], "batch": SEAMLESS_BATCH,
+        "seq": TRAIN_SEQ, "steps": ENCDEC_SHARD_STEPS,
+        "a_f32_gate": gate, "a_sound_passes": gate["sound"]["passed"],
+        "a_faults_caught": {k: not gate[k]["passed"] for k in ENCDEC_SHARD_FAULTS},
+        "b_fault": ENCDEC_SHARD_B_FAULT, **sharded_bf16_readings(ranks, plain),
+        "plain_ms_per_step": float(np.mean(plain["step_ms"][1:])),
+        "want_s_per_rank": [r["want_s"] for r in ranks],
+        "gate_s_per_rank": [r["gate_s"] for r in ranks],
+        "phase_s_per_rank": [r["phase_s"] for r in ranks],
+        "plain_reference_s": plain.get("s"), "card": smi,
+    }
+    ok = (out["a_sound_passes"] and all(out["a_faults_caught"].values())
+          and out["b_loss_rel_max"] <= ENCDEC_SHARD_BF16_LOSS_RTOL
+          and out["b_losses_equal_across_ranks"]
+          and min(out["b_fault_loss_rel_max_per_rank"]) > ENCDEC_SHARD_BF16_LOSS_RTOL
+          and all(np.isfinite(out["b_losses"]))
+          and all(r["launches"] == dict.fromkeys(COUNTED, 0) for r in ranks))
+    if not ok:
+        raise SystemExit(f"phase 4m: {json.dumps(out)}")
+    return out
+
+
+def log_encdec_shard(es: dict, smi: str) -> None:
+    """Phase 4m's lines."""
+    a = es["a_f32_gate"]
+    log(f"[4m encdec sharded a] {es['arch']} full width, {ENCDEC_SHARD_LAYERS} + "
+        f"{ENCDEC_SHARD_LAYERS} layers f32, norms redrawn, mesh {json.dumps(es['mesh'])} over "
+        f"{es['ranks']} gloo ranks on the one card, totoro_tree, B={ENCDEC_SHARD_F32_BATCH} "
+        f"S_src=S_tgt={ENCDEC_SHARD_F32_SEQ}: one sharded step against the single-process step "
+        f"(the ranks in turn, each its shards; the weights after AdamW's first-step map), loss "
+        f"rel {a['sound']['loss_rel']:.3g}, leaves rel max {a['sound']['leaf_rel_max']:.3g} "
+        f"({a['sound']['leaf_rel_worst']}; bounds {TRAIN_LOSS_RTOL}, {TRAIN_GRAD_REL}); faults "
+        f"caught {json.dumps(es['a_faults_caught'])}: "
+        + "; ".join(f"{k}: loss rel {a[k]['loss_rel']:.3g}, leaves {a[k]['leaf_rel_max']:.3g} "
+                    f"({a[k]['leaf_rel_worst']})" for k in ENCDEC_SHARD_FAULTS))
+    log(f"[4m encdec sharded b] {es['layers']} + {es['layers']} layers bf16, B={es['batch']} "
+        f"S_src=S_tgt={es['seq']}, {es['steps']} steps: losses {es['b_losses']} against one "
+        f"process's {es['b_losses_plain']} (rel max {es['b_loss_rel_max']:.3g}, bound "
+        f"{ENCDEC_SHARD_BF16_LOSS_RTOL}); {es['b_fault']} for {SHARD_B_FAULT_STEPS} steps: losses "
+        f"{es['b_fault_losses']} (rel max a rank "
+        f"{[f'{x:.3g}' for x in es['b_fault_loss_rel_max_per_rank']]}); four ranks sharing one "
+        f"card, not a multi-card number: ms a step a rank (steps 2-{es['steps']}) "
+        f"{[round(x, 1) for x in es['ms_per_step_per_rank']]} (one process "
+        f"{es['plain_ms_per_step']:.1f}), the staged collectives (host clock) a step of all "
+        f"{es['steps']} {[round(x, 1) for x in es['wire_ms_per_step_per_rank']]}, their share of "
+        f"the steps' time {[round(x, 3) for x in es['wire_share_of_step']]}; peak memory a rank "
+        f"{[round(x, 2) for x in es['peak_mem_gb_per_rank']]} GB; phase a rank "
+        f"{[round(x, 1) for x in es['phase_s_per_rank']]} s; card: {smi}")
+    log(f"[4m encdec sharded b] collectives a step (rank 0, op/mesh axis): "
+        f"{json.dumps(es['collectives_per_step'])}")
+    log(f"[4m encdec sharded] {json.dumps(es)}")
 
 
 def dryrun_cmd(*args: str) -> list:
@@ -5015,6 +5380,7 @@ def main() -> int:
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
     marks = []  # (phase, host clock at its start): each phase's wall, logged at the end
+    timed_parts()
 
     from repro_torch.core import pathplan
     from repro_torch.kernels import _build, ops, ref
@@ -5503,18 +5869,26 @@ def main() -> int:
     marks.append(("4j", time.perf_counter()))
     # -- 4j. the dense family's step sharded over (data, model): tinyllama-1.1b --
     # -- 4l. the MoE family's, deepseek-v2-lite-16b, on the same spawned ranks --
+    # -- 4m. the encoder-decoder family's, seamless-m4t-medium, on them too ----
     plain = shard_plain_losses(torch)
     t0 = time.perf_counter()
     moe_plain = moe_shard_plain_losses(torch)
     moe_plain["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc_plain = encdec_shard_plain_losses(torch)
+    enc_plain["s"] = time.perf_counter() - t0
     sharded = drive_shard_ranks(torch, smi, plain)
-    moe_ranks = sharded.pop("moe_ranks")
-    # 4l's share of the spawn, by the ranks' own clocks (its one-process
-    # reference ran before the spawn, in 4j's wall)
-    marks.append(("4l", time.perf_counter() - max(r["phase_s"] for r in moe_ranks)))
+    moe_ranks, enc_ranks = sharded.pop("moe_ranks"), sharded.pop("encdec_ranks")
+    # 4l's and 4m's shares of the spawn, by the ranks' own clocks (their
+    # one-process references ran before the spawn, in 4j's wall)
+    t_end = time.perf_counter()
+    marks.append(("4l", t_end - max(m["phase_s"] + e["phase_s"]
+                                     for m, e in zip(moe_ranks, enc_ranks))))
+    marks.append(("4m", t_end - max(e["phase_s"] for e in enc_ranks)))
     log_shard_ranks(sharded, smi)
     moe_sharded = moe_shard_outcome(moe_ranks, moe_plain, smi)
     log_moe_shard(moe_sharded, smi)
+    log_encdec_shard(encdec_shard_outcome(enc_ranks, enc_plain, smi), smi)
 
     marks.append(("4k", time.perf_counter()))
     # -- 4k. the dry-run of 4j b's cell, held to 4j; the production mesh's ----
@@ -5659,7 +6033,7 @@ def main() -> int:
         raise SystemExit(f"kernels of the main paths launched no time there: {idle}")
     marks.append(("end", time.perf_counter()))
     log(f"[walls] s a phase: {json.dumps({a: round(tb - ta, 1) for (a, ta), (_, tb) in zip(marks, marks[1:])})}, "
-        f"{marks[-1][1] - marks[0][1]:.1f} s in all")
+        f"{marks[-1][1] - marks[0][1]:.1f} s in all; parts (s a call): {json.dumps(PART_WALLS)}")
     log(smi)
     log(json.dumps({"kernels": KERNELS}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -106,6 +106,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, aggregation=None, q
         "aggregation": plan.aggregation if spec.kind == "train" else None,
         "grad_accum": plan.grad_accum,
         "layers": cfg.num_layers,
+        **({"enc_layers": cfg.enc_layers} if cfg.is_encoder_decoder else {}),
         "seq_len": spec.seq_len,
         "global_batch": spec.global_batch,
         "params_total": n_total,
@@ -151,6 +152,18 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, aggregation=None, q
     return result
 
 
+def depth_overrides(arch: str, layers: int) -> dict | None:
+    """``--layers``' config overrides: ``num_layers``, and an
+    encoder-decoder's ``enc_layers`` as well (both stacks cut alike);
+    None for 0."""
+    from .. import configs
+
+    if not layers:
+        return None
+    enc = {"enc_layers": layers} if configs.get_config(arch).is_encoder_decoder else {}
+    return {"num_layers": layers, **enc}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -162,7 +175,8 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="append JSON results here")
     ap.add_argument("--mesh-shape", default=None,
                     help="e.g. 2x2 (data, model) or 2x2x2 (pod, data, model) in place of --mesh")
-    ap.add_argument("--layers", type=int, default=0, help="override num_layers")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="override num_layers (an encoder-decoder's enc_layers too)")
     ap.add_argument("--seq-len", type=int, default=0)
     ap.add_argument("--global-batch", type=int, default=0)
     ap.add_argument("--calls", action="store_true",
@@ -183,13 +197,13 @@ def main(argv=None):
     else:
         meshes = {"single": [(16, 16)], "multi": [(2, 16, 16)],
                   "both": [(16, 16), (2, 16, 16)]}[args.mesh]
-    overrides = {"num_layers": args.layers} if args.layers else None
     results, failures = [], []
     for arch, shape in cells:
         for ms in meshes:
             try:
                 results.append(run_cell(arch, shape, multi_pod=len(ms) == 3,
-                                        aggregation=args.aggregation, cfg_overrides=overrides,
+                                        aggregation=args.aggregation,
+                                        cfg_overrides=depth_overrides(arch, args.layers),
                                         mesh_shape=ms,
                                         seq_len=args.seq_len or None,
                                         global_batch=args.global_batch or None,

@@ -66,9 +66,12 @@ KV, k and v are repeated to every query head before the head split and
 the core runs at G = 1, as the reference's);
 the padded heads' mask is sliced the same way, so the padding stays
 exact; ``wo`` leaves a partial sum over ``tp``.  ``mla_forward`` runs
-the reference's MLA constraints on a mesh likewise (its docstring).
-Prefill and decode on a mesh raise ``NotImplementedError`` (ROADMAP §1,
-serving on a sharded mesh).
+the reference's MLA constraints on a mesh likewise (its docstring), and
+so does ``cross_attn_forward`` (the reference's has none: XLA places it
+by propagation), whose keys and values come from the encoder output that
+``encdec.encode`` hands over with its sequence already gathered, once a
+step.  Prefill and decode on a mesh raise ``NotImplementedError``
+(ROADMAP §1, serving on a sharded mesh).
 """
 from __future__ import annotations
 
@@ -594,19 +597,40 @@ def cross_attn_forward(p, cfg, x, *, enc_kv=None, enc_out=None):
     """x: (B, S_tgt, d) decoder states; ``enc_kv``: the cached {"k", "v"}
     (B, S_src, KV, hd), else both projected from ``enc_out`` (B, S_src, d).
 
-    Returns (out, {"k", "v"}) in every mode.
+    Returns (out, {"k", "v"}) in every mode.  A DTensor ``x`` (train mode
+    only: keys and values from ``enc_out``, more than one target token)
+    runs under ``gqa_forward``'s constraints: ``x`` with its sequence
+    gathered (``enc_out`` comes so from ``encdec.encode``), q, k and v
+    head-sharded over ``tp`` and batch-sharded over ``dp``, k and v
+    repeated to every query head first where ``tp`` does not divide the kv
+    heads, the core on each rank's shards; ``wo`` leaves a partial sum
+    over ``tp``.
     """
-    q = _project(x, p["wq"])
+    sharded = isinstance(x, nn.DTensor)
+    if sharded and (enc_kv is not None or x.shape[1] == 1):
+        raise NotImplementedError("prefill or decode on a sharded mesh: ROADMAP §1, serving on "
+                                  "a sharded mesh")
+    x = nn.constrain(x, ("dp", None, None))  # Megatron-SP: the sequence gathered
+    q = _project(x, nn.gather_fsdp(p["wq"]))
     if enc_kv is None:
-        k = _project(enc_out, p["wk"])
-        v = _project(enc_out, p["wv"])
+        k = _project(enc_out, nn.gather_fsdp(p["wk"]))
+        v = _project(enc_out, nn.gather_fsdp(p["wv"]))
     else:
         k, v = enc_kv["k"], enc_kv["v"]
     if x.shape[1] == 1:
         mask = torch.ones((x.shape[0], k.shape[1]), dtype=torch.bool, device=x.device)
         out = decode_attention(q, k, v, mask)
     else:
-        out = chunked_attention(q, k, v, causal=False, chunk_q=cfg.attn_chunk,
-                                chunk_kv=cfg.attn_chunk)
-    out = out.flatten(-2) @ p["wo"].to(x.dtype).flatten(0, 1)
+        kh, vh, G = k, v, cfg.num_heads // cfg.num_kv_heads
+        if sharded and G > 1 and cfg.num_kv_heads % nn.axis_size("tp"):
+            # kv heads that the tp axis does not divide: every query head's
+            # k and v before the head split, as gqa_forward's
+            kh, vh = (torch.repeat_interleave(t, G, dim=2) for t in (k, v))
+        heads = ("dp", None, "tp", None)
+        q, kh, vh = (nn.constrain(t, heads) for t in (q, kh, vh))
+        out = nn.per_rank(partial(chunked_attention, causal=False, chunk_q=cfg.attn_chunk,
+                                  chunk_kv=cfg.attn_chunk), q, kh, vh,
+                          out=lambda q, *_: (q.placements,))
+    # on a mesh a partial sum over tp (row-parallel wo), for the caller to reduce
+    out = out.flatten(-2) @ nn.gather_fsdp(p["wo"]).to(x.dtype).flatten(0, 1)
     return out, {"k": k, "v": v}

@@ -29,6 +29,22 @@ as the reference's).  ``param_specs`` is the sharding twin of
 ``init_params``; ``cache_shapes`` returns the cache's shapes (meta
 tensors) and ``cache_specs(cfg)`` its specs, where the reference's
 ``cache_shapes`` returns the pair.
+
+On a mesh (DTensor parameters and batch, ``fl/steps``' sharded step)
+the reference's constraints are wired in where it calls them, and the
+ones its XLA placement found by propagation are spelled out: every
+residual sum of both stacks sits at a sequence-parallel boundary
+(``lm._residual``: a mixer's or FFN's partial sum over ``tp`` is
+reduce-scattered over the sequence), so each layer's output is ``("dp",
+"sp", None)``; the encoder's normed output has its sequence gathered once,
+``("dp", None, None)``, for every decoder layer's cross-attention (whose
+gradient then sums over the layers before the gather's reduce-scatter);
+the target embedding is ``lm.embed_tokens``' vocab-parallel lookup; the
+head is gathered over its FSDP axes, the logits are ``("dp", None,
+"tp")`` with the padded columns masked on each vocab shard, and
+``lm.lm_loss`` takes its vocab-parallel form.  On plain tensors each of
+these is the single-device code.  Prefill and decode on a mesh raise
+(ROADMAP §1, serving on a sharded mesh).
 """
 from __future__ import annotations
 
@@ -113,14 +129,17 @@ def _layers(stack: dict) -> list:
 
 
 def _ffn(lp, cfg, x):
-    """x plus the SwiGLU FFN of ``rms_norm(x, norm2)``."""
-    return x + lm._ffn_sublayer(lp, cfg, x, "dense")[0]
+    """x plus the SwiGLU FFN of ``rms_norm(x, norm2)``, at a
+    sequence-parallel boundary (``lm._residual``)."""
+    return lm._residual(x, lm._ffn_sublayer(lp, cfg, x, "dense")[0])
 
 
 def _mask_pad_vocab(cfg, logits):
+    """The padded vocabulary columns at -1e9; on vocab-sharded logits each
+    rank masks the columns of its own shard."""
     if cfg.padded_vocab != cfg.vocab_size:
         vmask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
-        logits = logits.masked_fill(~vmask, MASKED_LOGIT)
+        logits = logits.masked_fill(~nn.distribute_like(vmask, logits, ("tp",)), MASKED_LOGIT)
     return logits
 
 
@@ -131,11 +150,14 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 def _enc_layer(lp, cfg, x, positions):
     h = rms_norm(x, lp["norm1"])
     out, _ = attn.gqa_forward(lp["self"], cfg, h, positions=positions, mode="train", causal=False)
-    return _ffn(lp, cfg, x + out)
+    return _ffn(lp, cfg, lm._residual(x, out))
 
 
 def encode(params, cfg, src_embeds):
-    """(B, S_src, d) frame embeddings -> the encoder's normed output."""
+    """(B, S_src, d) frame embeddings -> the encoder's normed output; on a
+    mesh each layer's output sequence-parallel, the normed output with its
+    sequence gathered, ``("dp", None, None)``, once for every decoder
+    layer's cross-attention."""
     x = src_embeds.to(cfg.adtype)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     for lp in _layers(params["enc"]):
@@ -143,7 +165,7 @@ def encode(params, cfg, src_embeds):
             x = nn.remat(lambda y, lp=lp: _enc_layer(lp, cfg, y, positions), x)
         else:
             x = _enc_layer(lp, cfg, x, positions)
-    return rms_norm(x, params["enc_norm"])
+    return nn.constrain(rms_norm(x, params["enc_norm"]), ("dp", None, None))
 
 
 def _dec_layer(lp, cfg, x, enc_out, *, positions, mode, cache=None, cache_index=None):
@@ -153,12 +175,12 @@ def _dec_layer(lp, cfg, x, enc_out, *, positions, mode, cache=None, cache_index=
     out, self_c = attn.gqa_forward(lp["self"], cfg, h, positions=positions, mode=mode,
                                    cache=cache["self"] if cache else None,
                                    cache_index=cache_index)
-    x = x + out
+    x = lm._residual(x, out)
     h = rms_norm(x, lp["norm_x"])
     out, cross_c = attn.cross_attn_forward(
         lp["cross"], cfg, h, enc_kv=cache["cross"] if (cache and mode == "decode") else None,
         enc_out=enc_out)
-    x = _ffn(lp, cfg, x + out)
+    x = _ffn(lp, cfg, lm._residual(x, out))
     return x, ({"self": self_c, "cross": cross_c} if mode in ("prefill", "decode") else None)
 
 
@@ -190,25 +212,31 @@ def decode_stack(params, cfg, tgt_x, *, mode, enc_out=None, cache=None, cache_in
 
 
 def _head(params, cfg, x):
-    x = rms_norm(x, params["final_norm"])
-    return x @ params["head"].to(cfg.adtype)
+    """The final norm and the head; on a mesh the sequence gathered first
+    and the head's FSDP shards, so the logits come vocab-sharded."""
+    x = nn.constrain(rms_norm(x, params["final_norm"]), ("dp", None, None))
+    return x @ nn.gather_fsdp(params["head"]).to(cfg.adtype)
 
 
 def forward(params, cfg, batch):
     """The train-mode logits (B, S_tgt, padded_vocab) in the activation
     dtype, the padded columns at -1e9.  batch: ``embeds`` (B, S_src, d),
-    ``tokens`` (B, S_tgt)."""
+    ``tokens`` (B, S_tgt).  On a mesh the target embedding is
+    ``lm.embed_tokens``' vocab-parallel lookup and the logits are
+    ``("dp", None, "tp")``."""
     enc_out = encode(params, cfg, batch["embeds"])
-    tgt = params["embed"].to(cfg.adtype)[batch["tokens"]]
+    tgt = lm.embed_tokens(params, cfg, batch["tokens"])
     x, _ = decode_stack(params, cfg, tgt, mode="train", enc_out=enc_out)
-    return _mask_pad_vocab(cfg, _head(params, cfg, x))
+    return nn.constrain(_mask_pad_vocab(cfg, _head(params, cfg, x)), ("dp", None, "tp"))
 
 
 def forward_train(params, cfg, batch):
     """batch: {'embeds': (B,S_src,d), 'tokens': (B,S_tgt), 'labels': (B,S_tgt)}.
-    Returns (loss, (loss, aux)); aux is a 0-d f32 zero (no aux loss)."""
+    Returns (loss, (loss, aux)); aux is a 0-d f32 zero (no aux loss), on a
+    mesh a replicated one, as the loss."""
     loss = lm.lm_loss(forward(params, cfg, batch), batch["labels"])
-    return loss, (loss, torch.zeros((), dtype=torch.float32, device=loss.device))
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss, (loss, nn.distribute_like(aux, loss, ()))
 
 
 def prefill(params, cfg, batch):

@@ -268,13 +268,28 @@ def test_cells_that_are_not_ported_fail_naming_their_roadmap_item(mp, shape, agg
 
 def test_command_line_lists_failures_and_exits_1(capsys):
     with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "seamless-m4t-medium", "--shape", "train_4k", "--mesh-shape",
+        dryrun.main(["--arch", "rwkv6-7b", "--shape", "train_4k", "--mesh-shape",
                      "2x4", "--layers", "1"])
     assert e.value.code == 1
     out = capsys.readouterr().out
     fails = json.loads(out[out.index("FAILURES:") + len("FAILURES:"):])
     assert [f["mesh"] for f in fails] == ["2x4"]
     assert "ROADMAP §1, the other families on sharded meshes" in fails[0]["error"]
+
+
+def test_layers_cuts_both_stacks_of_an_encoder_decoder(tmp_path):
+    """``--layers`` sets an encoder-decoder's ``enc_layers`` with its
+    ``num_layers``: seamless-m4t-medium at 1 + 1 layers, full width, on a
+    (data 2, model 2) fake mesh, its parameters those of the cut config."""
+    out = tmp_path / "r.json"
+    dryrun.main(["--arch", "seamless-m4t-medium", "--shape", "train_4k", "--mesh-shape", "2x2",
+                 "--layers", "1", "--seq-len", "64", "--global-batch", "4", "--out", str(out)])
+    (rec,) = json.loads(out.read_text())
+    assert (rec["layers"], rec["enc_layers"]) == (1, 1)
+    cut = configs.get_config("seamless-m4t-medium").replace(num_layers=1, enc_layers=1)
+    assert rec["params_total"] == encdec.count_params_analytic(cut)[0]
+    assert dryrun.depth_overrides("tinyllama-1.1b", 2) == {"num_layers": 2}
+    assert dryrun.depth_overrides("seamless-m4t-medium", 0) is None
 
 
 def test_production_mesh_runs_the_dense_cell_after_the_kv_head_repair(tmp_path):

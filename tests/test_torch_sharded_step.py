@@ -162,7 +162,7 @@ from repro import configs
 from repro.config import RunPlan
 from repro.fl import steps
 from repro.launch import specs
-from repro.models import lm, nn
+from repro.models import encdec, lm, nn
 
 tmp = sys.argv[1]
 cases = eval(open(f"{tmp}/cases.txt").read())
@@ -193,8 +193,8 @@ def flat(tree, prefix=""):
                    else {f"{prefix}{k}": np.asarray(v)})
     return out
 
-for cid, arch, shape, agg, remat, accum in cases:
-    cfg = configs.get_reduced(arch)
+for cid, arch, shape, agg, remat, accum, over in cases:
+    cfg = configs.get_reduced(arch).replace(**over)
     if remat:
         cfg = cfg.replace(remat=True, remat_policy=remat)
     plan = RunPlan(aggregation=agg, grad_accum=accum)
@@ -206,7 +206,8 @@ for cid, arch, shape, agg, remat, accum in cases:
                            sp="model", sizes=sizes)
     params = nest(dict(np.load(f"{tmp}/{cid}_params.npz")))
     batches = [dict(np.load(f"{tmp}/{cid}_batch{s}.npz")) for s in range(%(steps)d)]
-    pspecs = specs.fit_specs_tree(specs.resolve(lm.param_specs(cfg), multi_pod=multi_pod,
+    model = encdec if cfg.is_encoder_decoder else lm
+    pspecs = specs.fit_specs_tree(specs.resolve(model.param_specs(cfg), multi_pod=multi_pod,
                                                 pod_replicated=agg == "totoro_tree" and multi_pod),
                                   params, sizes)
     state = steps.init_train_state(cfg, params)
@@ -234,23 +235,28 @@ for cid, arch, shape, agg, remat, accum in cases:
 """ % {"steps": STEPS}
 
 
-def _jax_inputs(tmp: Path, ids=IDS, cases_in=CASES) -> None:
+def _jax_inputs(tmp: Path, ids=IDS, cases_in=CASES, overrides=None) -> None:
     """Each case's initial parameters (``launch/train``'s seed 0) and
-    batches, as numpy for the reference."""
+    batches, as numpy for the reference: an encoder-decoder's ``enc`` /
+    ``dec`` stacks and its ``embeds`` / ``tokens`` / ``labels`` batch
+    too.  ``overrides``: config fields set on every case's reduced config,
+    on both sides."""
     from repro_torch.convert import params_to_numpy
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
 
+    over = dict(overrides or {})
     cases = []
     for cid, (arch, shape, agg, remat, accum) in zip(ids, cases_in):
-        cfg = _cfg(arch, remat)
-        params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+        cfg = _cfg(arch, remat).replace(**over)
+        model = encdec if cfg.is_encoder_decoder else lm
+        params = model.init_params(torch.Generator().manual_seed(0), cfg)
         np.savez(tmp / f"{cid}_params.npz", **dict(zip(key_paths(params),
                                                        leaves(params_to_numpy(params)))))
         sc = train.StreamConfig(vocab_size=cfg.vocab_size, seq_len=SEQ, batch_per_shard=BATCH)
         for s in range(STEPS):
             b = train.make_batch(cfg, sc, s, None, "cpu")
             np.savez(tmp / f"{cid}_batch{s}.npz", **{k: v.numpy() for k, v in b.items()})
-        cases.append((cid, arch, shape, agg, remat, accum))
+        cases.append((cid, arch, shape, agg, remat, accum, over))
     (tmp / "cases.txt").write_text(repr(cases))
 
 
@@ -261,10 +267,15 @@ def start_jax(tmp: Path) -> subprocess.Popen:
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def assert_state_matches(got: dict, plain: dict, want: dict) -> None:
+def assert_state_matches(got: dict, plain: dict, want: dict, *,
+                         qualify_plain: bool = False, tiny_grad: float = TINY_GRAD) -> None:
     """A sharded run's losses and state (``got``, whole leaves) fp-tight to
     the single-process run's (``plain``) and JAX's (``want``), AdamW's
-    weights to JAX under the module docstring's qualification."""
+    weights to JAX under the module docstring's qualification, whose
+    first-step gradients lie under ``tiny_grad``; ``qualify_plain``: to
+    the single-process run's under the same qualification too (the
+    sharded step sums a gradient of ~1e-9 in another order than one
+    process)."""
     paths = key_paths(got["state"])
     assert paths == key_paths(plain["state"])
     np.testing.assert_allclose(got["losses"], want["losses"], **TIGHT)
@@ -272,16 +283,23 @@ def assert_state_matches(got: dict, plain: dict, want: dict) -> None:
     for path, a, b in zip(paths, leaves(got["state"]), leaves(plain["state"])):
         assert a.dtype == b.dtype and a.shape == b.shape, path
         a, b, w = a.float().numpy(), b.float().numpy(), want[path].astype(np.float32)
-        np.testing.assert_allclose(a, b, **TIGHT, err_msg=path)
-        if path.startswith(("params/", "opt/master/")):
+        adamw_weight = path.startswith(("params/", "opt/master/"))
+        if not (adamw_weight and qualify_plain):
+            np.testing.assert_allclose(a, b, **TIGHT, err_msg=path)
+        if adamw_weight:
             # AdamW's weights: fp-tight to JAX wherever the single-process
             # step is (ROADMAP §3, AdamW's first update), which is off at a
             # few elements of tiny first-step gradient only
-            off = ~np.isclose(b, w, **TIGHT)
             g1 = np.abs(want[f"first_m/{path.split('/', 1)[1].removeprefix('master/')}"]) / 0.1
-            assert off.sum() <= OFF_SHARE * off.size, (path, int(off.sum()), off.size)
-            assert (g1[off] < TINY_GRAD).all(), (path, g1[off])
-            np.testing.assert_allclose(a[~off], w[~off], **TIGHT, err_msg=path)
+            off = ~np.isclose(b, w, **TIGHT)
+            offs = [off]
+            if qualify_plain:  # each comparison off at such elements alone
+                offs += [~np.isclose(a, b, **TIGHT), ~np.isclose(a, w, **TIGHT)]
+            for o in offs:
+                assert o.sum() <= OFF_SHARE * o.size, (path, int(o.sum()), o.size)
+                assert (g1[o] < tiny_grad).all(), (path, g1[o])
+            if not qualify_plain:
+                np.testing.assert_allclose(a[~off], w[~off], **TIGHT, err_msg=path)
         else:
             np.testing.assert_allclose(a, w, **TIGHT, err_msg=path)
 
@@ -404,7 +422,7 @@ def _fake_mesh(shape, axes=("pod", "data", "model")):
     return mesh_mod._mk(shape, axes, "cpu")
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b", "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b"])
 def test_other_families_on_a_sharded_mesh_raise(arch):
     try:
         mesh = _fake_mesh((1, 2, 2))
