@@ -299,10 +299,15 @@ the CPU):
       parallel encoder, the cross-attention's heads over ``model`` and the
       vocab-parallel head and loss, gated in f32 against one process with
       three faults planted, and in bf16 over 3 steps;
-   k. the dry-run (``repro_torch.launch.dryrun``, two subprocesses that
+   n. the RWKV-6 family's, on 4j's ranks after 4m: rwkv6-7b at full width
+      (RWKV_SHARD_*), the sequence gathered once a sublayer for the token
+      shift, the channels and wkv heads over ``model``, the channel mix's
+      gate at one placement, gated in f32 against one process with three
+      faults planted, and in bf16 over 3 steps;
+   k. the dry-run (``repro_torch.launch.dryrun``, three subprocesses that
       never touch the card) of 4j
       b's own cell on a fake process group, held to what 4j measured
-      (DRYRUN_*); and the dry-run of
+      (DRYRUN_*); of 4n b's, its collectives held to 4n b's; and of
       tinyllama-1.1b's train_4k cell at DRYRUN_PROD_LAYERS layers on the
       256-rank production mesh, its record printed;
 5. times: each kernel's device time (a CUDA graph of calls between CUDA
@@ -332,6 +337,7 @@ import sys
 import time
 from contextlib import contextmanager, nullcontext
 from dataclasses import astuple
+from typing import Any, NamedTuple
 
 import numpy as np
 
@@ -636,7 +642,7 @@ MOE_SHARD_B_FAULT = MOE_SHARD_FAULTS[0]
 # at B 8 runs out of memory in the loss, phase 4h c), S TRAIN_SEQ,
 # ENCDEC_SHARD_STEPS steps of launch/train.train(mesh=...), the losses
 # within ENCDEC_SHARD_BF16_LOSS_RTOL of the same steps in one process
-# (``encdec_shard_plain_losses``); then ENCDEC_SHARD_B_FAULT planted for
+# (``family_shard_plain_losses``); then ENCDEC_SHARD_B_FAULT planted for
 # SHARD_B_FAULT_STEPS steps must read above it.  The first card run read
 # the sound losses 7.12e-6 apart and its first b fault, the
 # cross-attention's wo reduction dropped, only 5.06e-5 (at init the
@@ -651,6 +657,46 @@ ENCDEC_SHARD_FAULTS = ("the cross-attention's wo reduction over model dropped",
                        "the encoder output's gradient not reduced over model",
                        "the padded columns unmasked on the last vocab shard")
 ENCDEC_SHARD_B_FAULT = "the target embedding's partial sum over model read as reduced"
+# The RWKV-6 family's step sharded inside a pod (phase 4n): RWKV_ARCH at full
+# width (d 4096: 64 wkv heads of 64, 32 a model rank; d_ff 14,336; vocab
+# 65,536) on 4j's ranks and mesh (the same spawn, after 4m), totoro_tree, at
+# RWKV_SHARD_LAYERS layers (1.07e9 parameters, 0.54e9 of them the embedding
+# and the head): the sequence gathered once a sublayer for the token shift,
+# r, k, v, g and the wkv heads over model, the chunk loop on each rank's
+# heads, the channel mix's gate product reduce-scattered over its channels
+# and moved to the sequence-parallel residual by an all-to-all.  The weights
+# are drawn on the card and every leaf that is a constant at init is redrawn
+# from RWKV_LEAF_SEED (``rwkv_draws``: a zero bonus_u would hide a wrong
+# slice of it).  a: f32 (TF32 off), B RWKV_SHARD_F32_BATCH, S
+# RWKV_SHARD_F32_SEQ (two chunks of 64; the shift crosses the two sequence
+# shards), one sharded step against the same step in one process, which the
+# ranks compute in turn on the card, each keeping its own shards of it on
+# the host: 4l a's gate (``rows_gate``: the loss within TRAIN_LOSS_RTOL,
+# every leaf within RWKV_SHARD_GRAD_REL of its largest after AdamW's
+# first-step map); each of RWKV_SHARD_FAULTS, planted at run time in every
+# rank, must fail it.  RWKV_SHARD_GRAD_REL is RWKV's own spread, not 4l's
+# TRAIN_GRAD_REL: the first card run read the sound step 2.33e-4 of
+# ``opt/v/embed``'s largest, and the single-process step against itself
+# with its initial parameters moved one ulp up or down read up to 1.65e-4
+# on these weights (4.09e-3 on the constant-at-init ones: the group norm's
+# eps amplifies a head's near-zero output at the first tokens), the
+# sharded step within 1.56x that spread on every leaf above 1e-5; 1e-3 is
+# 6x the spread and 4.3x the sound reading, 330x under the least fault
+# (0.329).  b: bf16, B TRAIN_BATCH, S TRAIN_SEQ, RWKV_SHARD_STEPS steps of
+# launch/train.train(mesh=...), the losses within RWKV_SHARD_BF16_LOSS_RTOL
+# of the same steps in one process (``family_shard_plain_losses``, 4j b's
+# 1e-4); then RWKV_SHARD_B_FAULT planted for SHARD_B_FAULT_STEPS steps must
+# read above it; its collectives, call for call, are the dry-run's of the
+# same cell (phase 4k)
+RWKV_SHARD_LAYERS, RWKV_SHARD_SEED = 2, 0
+RWKV_SHARD_F32_BATCH, RWKV_SHARD_F32_SEQ = 8, 128
+RWKV_SHARD_STEPS = 3
+RWKV_SHARD_BF16_LOSS_RTOL = 1e-4
+RWKV_SHARD_GRAD_REL = 1e-3
+RWKV_SHARD_FAULTS = ("the shift done inside each sequence shard, with no gather",
+                     "the channel mix's kv partial sum read as reduced",
+                     "every rank taking rank 0's slice of bonus_u")
+RWKV_SHARD_B_FAULT = RWKV_SHARD_FAULTS[1]
 # The dry-run (phase 4k): ``python -m repro_torch.launch.dryrun`` on 4j b's
 # own cell, on a fake process group of SHARD_RANKS ranks, in a subprocess
 # that never touches the card.  Gates: a, its collective calls of one step
@@ -727,7 +773,7 @@ TIMED_PARTS = ("drive_lm", "lm_f32_card_vs_cpu", "flash_backward_on_card", "trai
                "moe_decode_f32", "moe_route_share", "mamba_layer_f32_card_vs_cpu",
                "jamba_reduced_card_vs_cpu", "serve_rwkv", "mamba_chunk_loop_share",
                "encdec_f32_card_vs_cpu", "serve_encdec", "shard_plain_losses",
-               "moe_shard_plain_losses", "encdec_shard_plain_losses", "drive_dryrun")
+               "moe_shard_plain_losses", "family_shard_plain_losses", "drive_dryrun")
 
 
 def timed_parts(names=TIMED_PARTS) -> None:
@@ -4601,9 +4647,15 @@ def shard_rank(rank: int, tmp: str, layers: int) -> None:
         del moe
         gc.collect()
         torch.cuda.empty_cache()
-        enc = encdec_shard_part(torch, rank, tmp, mesh)  # phase 4m, on the same ranks
+        enc = family_shard_part(torch, rank, mesh, ENCDEC_SHARD)  # phase 4m, the same ranks
         with open(os.path.join(tmp, f"encdec{rank}.json"), "w") as f:
             json.dump(enc, f)
+        del enc
+        gc.collect()
+        torch.cuda.empty_cache()
+        rw = family_shard_part(torch, rank, mesh, RWKV_SHARD)  # phase 4n, the same ranks
+        with open(os.path.join(tmp, f"rwkv{rank}.json"), "w") as f:
+            json.dump(rw, f)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -4638,9 +4690,10 @@ def drive_shard_ranks(torch, smi: str, plain: dict) -> dict:
                     p.kill()
                     p.join()
         wall = time.perf_counter() - t0
-        ranks, moe_ranks, encdec_ranks = [], [], []
+        ranks, moe_ranks, encdec_ranks, rwkv_ranks = [], [], [], []
         for r in range(SHARD_RANKS):
-            for name, got in (("rank", ranks), ("moe", moe_ranks), ("encdec", encdec_ranks)):
+            for name, got in (("rank", ranks), ("moe", moe_ranks), ("encdec", encdec_ranks),
+                              ("rwkv", rwkv_ranks)):
                 with open(os.path.join(tmp, f"{name}{r}.json")) as f:
                     got.append(json.load(f))
     finally:
@@ -4658,7 +4711,8 @@ def drive_shard_ranks(torch, smi: str, plain: dict) -> dict:
         "placed_bytes_per_rank": [r["placed_bytes"] for r in ranks],
         "collective_calls_rank0": ranks[0]["collective_calls"], "card": smi,
         "moe_ranks": moe_ranks,  # phase 4l's records (``moe_shard_outcome``)
-        "encdec_ranks": encdec_ranks,  # phase 4m's (``encdec_shard_outcome``)
+        "encdec_ranks": encdec_ranks,  # phase 4m's (``family_shard_outcome``)
+        "rwkv_ranks": rwkv_ranks,  # phase 4n's
     }
     ok = (out["a_sound_passes"] and all(out["a_faults_caught"].values())
           and out["b_loss_rel_max"] <= SHARD_BF16_LOSS_RTOL and out["b_losses_equal_across_ranks"]
@@ -4711,7 +4765,7 @@ def log_shard_ranks(sh: dict, smi: str) -> None:
         f"s; card: {smi}")
     log(f"[4j sharded b] collectives a step (rank 0, op/mesh axis): "
         f"{json.dumps(sh['collectives_per_step'])}")
-    log(f"[4j sharded] {json.dumps({k: v for k, v in sh.items() if k not in ('collective_calls_rank0', 'moe_ranks', 'encdec_ranks')})}")
+    log(f"[4j sharded] {json.dumps({k: v for k, v in sh.items() if k not in ('collective_calls_rank0', 'moe_ranks', 'encdec_ranks', 'rwkv_ranks')})}")
 
 
 @contextmanager
@@ -4806,15 +4860,15 @@ def moe_shard_readings(torch, state, want: dict, lr: float) -> tuple:
     return paths, torch.tensor(rows, dtype=torch.float64)
 
 
-def rows_gate(paths, rows, loss: float, want: dict) -> dict:
-    """4l a's and 4m a's gate from every rank's ``moe_shard_readings``
-    (their element-wise max, ``rows``): the loss within TRAIN_LOSS_RTOL and
-    each leaf's largest difference within TRAIN_GRAD_REL of its largest
-    magnitude."""
+def rows_gate(paths, rows, loss: float, want: dict, grad_rel: float = TRAIN_GRAD_REL) -> dict:
+    """4l a's, 4m a's and 4n a's gate from every rank's
+    ``moe_shard_readings`` (their element-wise max, ``rows``): the loss
+    within TRAIN_LOSS_RTOL and each leaf's largest difference within
+    ``grad_rel`` of its largest magnitude."""
     rel = {p: float(r[0]) / max(float(r[1]), 1e-30) for p, r in zip(paths, rows)}
     out = {"loss_rel": abs(loss - want["loss"]) / abs(want["loss"]),
            "leaf_rel_max": max(rel.values()), "leaf_rel_worst": max(rel, key=rel.get)}
-    out["passed"] = out["loss_rel"] <= TRAIN_LOSS_RTOL and out["leaf_rel_max"] <= TRAIN_GRAD_REL
+    out["passed"] = out["loss_rel"] <= TRAIN_LOSS_RTOL and out["leaf_rel_max"] <= grad_rel
     return out
 
 
@@ -5015,26 +5069,32 @@ def log_moe_shard(ml: dict, smi: str) -> None:
 
 
 @contextmanager
-def seamless_draws():
-    """For the block, ``encdec.init_params`` draws on the card
-    (``drawn_on_card``) and redraws every norm leaf of what it returns
-    from SEAMLESS_NORM_SEED (``redrawn_norms``); meta trees (the shapes
-    ``launch/specs`` reads) are left as they are."""
-    import torch
-
-    from repro_torch.models import encdec
+def drawn_and_redrawn(model, redraw):
+    """For the block, ``model.init_params`` draws on the card
+    (``drawn_on_card``) and hands what it returns to ``redraw`` (in place);
+    meta trees (the shapes ``launch/specs`` reads) are left as they are."""
     from repro_torch.pytree import leaves
 
     def make(init):
         def drawn(gen, cfg, *, device="cpu"):
             params = init(gen, cfg, device=device)
             if not leaves(params)[0].is_meta:
-                redrawn_norms(torch, params, SEAMLESS_NORM_SEED)
+                redraw(params)
             return params
         return drawn
 
-    with drawn_on_card(), planted(encdec, "init_params", make):
+    with drawn_on_card(), planted(model, "init_params", make):
         yield
+
+
+def seamless_draws():
+    """``drawn_and_redrawn`` for ``encdec``, every norm leaf redrawn from
+    SEAMLESS_NORM_SEED (``redrawn_norms``)."""
+    import torch
+
+    from repro_torch.models import encdec
+
+    return drawn_and_redrawn(encdec, lambda p: redrawn_norms(torch, p, SEAMLESS_NORM_SEED))
 
 
 @contextmanager
@@ -5112,34 +5172,141 @@ def encdec_shard_fault(kind: str):
         yield
 
 
-def encdec_shard_part(torch, rank: int, tmp: str, mesh) -> dict:
-    """Phase 4m on one of 4j's ranks (``shard_rank``), as 4l's
-    ``moe_shard_part``: a, the single-process f32 step computed by the
-    ranks in turn (``single_process_shards``), then the sharded step, sound
-    and under each of ENCDEC_SHARD_FAULTS (``rows_gate``); b, the bf16 run
-    through ``launch/train.train`` with its collectives logged, then
-    ENCDEC_SHARD_B_FAULT.  Returns the rank's record."""
+# ---------------------------------------------------------------------------
+# phase 4n: the RWKV-6 family's step sharded over (data, model)
+
+
+def rwkv_draws():
+    """``drawn_and_redrawn`` for ``lm``, every RWKV leaf that is a constant at
+    init redrawn from RWKV_LEAF_SEED (``randomised_rwkv_leaves``)."""
+    import torch
+
+    from repro_torch.models import lm
+
+    return drawn_and_redrawn(lm, lambda p: randomised_rwkv_leaves(torch, p, RWKV_LEAF_SEED))
+
+
+@contextmanager
+def rwkv_shard_fault(kind: str):
+    """One of RWKV_SHARD_FAULTS planted in the port at run time (in a rank
+    of phase 4n): the token shift of each sequence shard on its own (each
+    shard's first token shifted against zeros, not the previous shard's
+    last token: what a shift without the sequence gather computes); the
+    channel mix's ``k @ w_v``, a partial sum over ``model``, read as
+    reduced (the constraints of ``models/rwkv`` reading it, through a
+    stand-in for its ``nn``); every ``model`` rank's slice of ``bonus_u``
+    rank 0's."""
+    import types
+
+    import torch
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.models import nn, rwkv
+
+    def unreduced(t, axis):
+        names = t.device_mesh.mesh_dim_names
+        pls = [Replicate() if n == axis and isinstance(pl, Partial) else pl
+               for n, pl in zip(names, t.placements)]
+        return DTensor.from_local(t.to_local(), t.device_mesh, pls, shape=t.shape,
+                                  stride=t.stride())
+
+    def model_size(t):
+        return t.device_mesh.size(t.device_mesh.mesh_dim_names.index("model"))
+
+    if kind == RWKV_SHARD_FAULTS[0]:
+        def make(shifted):
+            def faulty(x, cache):
+                xs = shifted(x, cache)
+                if not isinstance(xs, DTensor):
+                    return xs
+                S = xs.shape[1]
+                keep = torch.arange(S, device=xs.device) % (S // model_size(xs)) != 0
+                return xs * nn.distribute_like(keep.to(xs.dtype)[None, :, None], xs,
+                                               (None, None, None))
+            return faulty
+        ctx = planted(rwkv, "_shifted", make)
+    elif kind == RWKV_SHARD_FAULTS[1]:
+        def constrain(t, dims):
+            if isinstance(t, DTensor) and any(isinstance(pl, Partial) for pl in t.placements):
+                t = unreduced(t, "model")
+            return nn.constrain(t, dims)
+        stand_in = types.SimpleNamespace(**dict(vars(nn), constrain=constrain))
+        ctx = planted(rwkv, "nn", lambda _: stand_in)
+    elif kind == RWKV_SHARD_FAULTS[2]:
+        def make(heads):
+            def faulty(r, k, v, lw, p, chunk, state0):
+                u = p["bonus_u"]
+                if isinstance(u, DTensor):
+                    whole = u.to_local()  # replicated: every rank holds it whole
+                    first = whole[: whole.shape[0] // model_size(u)]
+                    u = DTensor.from_local(first.repeat(model_size(u)), u.device_mesh,
+                                           u.placements, shape=u.shape, stride=u.stride())
+                return heads(r, k, v, lw, dict(p, bonus_u=u), chunk, state0)
+            return faulty
+        ctx = planted(rwkv, "_placed_heads_wkv", make)
+    else:
+        raise ValueError(kind)
+    with ctx:
+        yield
+
+
+class FamilyShard(NamedTuple):
+    """A family's phase on 4j's ranks after 4l (4m, 4n): its constants (the
+    comments above them), how its weights are drawn (``draws``, a context)
+    and how each fault is planted (``fault(kind)``, a context)."""
+
+    tag: str  # the phase
+    name: str  # the log lines' word for the family
+    arch: str
+    model: str  # the models module whose ``init_params`` draws the weights
+    depth: str  # the depth in words, for the log lines
+    redrawn: str  # what ``draws`` redraws, for the log lines
+    seq_name: str
+    layers: int
+    seed: int
+    f32_batch: int
+    f32_seq: int
+    steps: int
+    batch: int  # b's global batch
+    bf16_rtol: float
+    grad_rel: float  # a's leaf bound (``rows_gate``)
+    faults: tuple
+    b_fault: str
+    draws: Any
+    fault: Any
+    needs: str | None  # an op/axis that b's collectives must hold
+
+
+def family_shard_part(torch, rank: int, mesh, fam: FamilyShard) -> dict:
+    """Phase ``fam.tag`` on one of 4j's ranks (``shard_rank``): a, the
+    single-process f32 step computed by the ranks in turn
+    (``single_process_shards``), then the sharded step, sound and under each
+    of ``fam.faults`` (``rows_gate``); b, the bf16 run through
+    ``launch/train.train`` with its collectives logged, then ``fam.b_fault``.
+    Returns the rank's record."""
+    import importlib
+
     import torch.distributed as dist
 
     from repro_torch import configs
     from repro_torch.config import RunPlan, ShapeSpec
     from repro_torch.fl import steps
     from repro_torch.launch import specs, train
-    from repro_torch.models import encdec
 
+    model = importlib.import_module(f"repro_torch.models.{fam.model}")
     t0 = time.perf_counter()
-    full = configs.get_config(SEAMLESS_ARCH)
+    full = configs.get_config(fam.arch)
     plan = RunPlan(aggregation="totoro_tree")
-    f32 = cut_depth(full, ENCDEC_SHARD_LAYERS).replace(dtype="float32", param_dtype="float32")
-    shape = ShapeSpec("4m a", "train", ENCDEC_SHARD_F32_SEQ, ENCDEC_SHARD_F32_BATCH)
+    f32 = cut_depth(full, fam.layers).replace(dtype="float32", param_dtype="float32")
+    shape = ShapeSpec(f"{fam.tag} a", "train", fam.f32_seq, fam.f32_batch)
     state_sh, batch_sh = specs.cell_for(f32, shape, plan, mesh).in_shardings
-    batch = train.make_batch(f32, train.StreamConfig(f32.vocab_size, ENCDEC_SHARD_F32_SEQ,
-                                                     ENCDEC_SHARD_F32_BATCH), 0, None, "cuda")
+    batch = train.make_batch(f32, train.StreamConfig(f32.vocab_size, fam.f32_seq,
+                                                     fam.f32_batch), 0, None, "cuda")
 
     def params():
-        with seamless_draws():
-            return encdec.init_params(torch.Generator().manual_seed(ENCDEC_SHARD_SEED), f32,
-                                      device="cuda")
+        with fam.draws():
+            return model.init_params(torch.Generator().manual_seed(fam.seed), f32,
+                                     device="cuda")
 
     def step_once():
         state, metrics = steps.build_train_step(f32, plan)(steps.init_train_state(f32, params()),
@@ -5150,111 +5317,140 @@ def encdec_shard_part(torch, rank: int, tmp: str, mesh) -> dict:
     want_s = time.perf_counter() - t0
     step = steps.build_train_step(f32, plan, mesh=mesh)
     gate = {}
-    for kind in ("sound",) + ENCDEC_SHARD_FAULTS:
-        with nullcontext() if kind == "sound" else encdec_shard_fault(kind):
+    for kind in ("sound",) + fam.faults:
+        with nullcontext() if kind == "sound" else fam.fault(kind):
             state = specs.place(steps.init_train_state(f32, specs.place(params(),
                                                                         state_sh["params"])),
                                 state_sh)
             state, metrics = step(state, specs.place(batch, batch_sh))
         paths, rows = moe_shard_readings(torch, state, want, f32.learning_rate)
         dist.all_reduce(rows, op=dist.ReduceOp.MAX)  # a CPU tensor: gloo as it is
-        gate[kind] = rows_gate(paths, rows, float(metrics["loss"].full_tensor()), want)
+        gate[kind] = rows_gate(paths, rows, float(metrics["loss"].full_tensor()), want,
+                               fam.grad_rel)
         del state, metrics
         torch.cuda.empty_cache()
     del want
     gate_s = time.perf_counter() - t0
 
-    with seamless_draws():
-        b = sharded_bf16_run(torch, cut_depth(full, ENCDEC_SHARD_LAYERS), mesh,
-                             ENCDEC_SHARD_STEPS, encdec_shard_fault(ENCDEC_SHARD_B_FAULT),
-                             global_batch=SEAMLESS_BATCH)
+    with fam.draws():
+        b = sharded_bf16_run(torch, cut_depth(full, fam.layers), mesh, fam.steps,
+                             fam.fault(fam.b_fault), global_batch=fam.batch)
     return dict(b, rank=rank, gate=gate, want_s=want_s, gate_s=gate_s,
                 phase_s=time.perf_counter() - t0)
 
 
-def encdec_shard_plain_losses(torch) -> dict:
-    """Phase 4m b's reference: the same ENCDEC_SHARD_STEPS bf16 steps at
-    ENCDEC_SHARD_LAYERS + ENCDEC_SHARD_LAYERS layers in one process on the
-    card, the weights drawn as the ranks draw them (``seamless_draws``)."""
+def family_shard_plain_losses(torch, fam: FamilyShard) -> dict:
+    """Phase ``fam.tag`` b's reference: the same bf16 steps in one process on
+    the card, the weights drawn as the ranks draw them (``fam.draws``)."""
     from repro_torch import configs
     from repro_torch.config import RunPlan
     from repro_torch.launch import train
 
-    cfg = cut_depth(configs.get_config(SEAMLESS_ARCH), ENCDEC_SHARD_LAYERS)
-    with uncounted(), seamless_draws():
-        run = train.train(cfg, RunPlan(), steps=ENCDEC_SHARD_STEPS, seq_len=TRAIN_SEQ,
-                          global_batch=SEAMLESS_BATCH, device="cuda", log=lambda *a: None)
-    out = {"losses": run["losses"], "step_ms": run["step_ms"],
-           "from": f"one process, {ENCDEC_SHARD_LAYERS} + {ENCDEC_SHARD_LAYERS} layers"}
+    cfg = cut_depth(configs.get_config(fam.arch), fam.layers)
+    t0 = time.perf_counter()
+    with uncounted(), fam.draws():
+        run = train.train(cfg, RunPlan(), steps=fam.steps, seq_len=TRAIN_SEQ,
+                          global_batch=fam.batch, device="cuda", log=lambda *a: None)
+    out = {"losses": run["losses"], "step_ms": run["step_ms"], "from": f"one process, {fam.depth}",
+           "s": time.perf_counter() - t0}
     del run
     torch.cuda.empty_cache()
     return out
 
 
-def encdec_shard_outcome(ranks: list, plain: dict, smi: str) -> dict:
-    """Phase 4m's record from the ranks' ``encdec_shard_part``: a's gate must
-    pass the sound run and fail each planted fault; b's losses within
-    ENCDEC_SHARD_BF16_LOSS_RTOL of ``plain``'s and equal across ranks, no
-    kernel launched, ENCDEC_SHARD_B_FAULT's above the bound."""
+def family_shard_outcome(ranks: list, plain: dict, smi: str, fam: FamilyShard) -> dict:
+    """Phase ``fam.tag``'s record from the ranks' ``family_shard_part``: a's
+    gate must pass the sound run and fail each planted fault; b's losses
+    within ``fam.bf16_rtol`` of ``plain``'s and equal across ranks, no
+    kernel launched, ``fam.b_fault``'s above the bound, ``fam.needs`` among
+    b's collectives.  Phase 4k holds 4n b's collectives to the dry-run's."""
     gate = ranks[0]["gate"]
     out = {
-        "arch": SEAMLESS_ARCH, "mesh": dict(zip(SHARD_AXES, SHARD_MESH)), "ranks": SHARD_RANKS,
-        "aggregation": "totoro_tree", "layers": ranks[0]["layers"], "batch": SEAMLESS_BATCH,
-        "seq": TRAIN_SEQ, "steps": ENCDEC_SHARD_STEPS,
+        "arch": fam.arch, "mesh": dict(zip(SHARD_AXES, SHARD_MESH)), "ranks": SHARD_RANKS,
+        "aggregation": "totoro_tree", "layers": ranks[0]["layers"], "batch": fam.batch,
+        "seq": TRAIN_SEQ, "steps": fam.steps,
         "a_f32_gate": gate, "a_sound_passes": gate["sound"]["passed"],
-        "a_faults_caught": {k: not gate[k]["passed"] for k in ENCDEC_SHARD_FAULTS},
-        "b_fault": ENCDEC_SHARD_B_FAULT, **sharded_bf16_readings(ranks, plain),
+        "a_faults_caught": {k: not gate[k]["passed"] for k in fam.faults},
+        "b_fault": fam.b_fault, **sharded_bf16_readings(ranks, plain),
         "plain_ms_per_step": float(np.mean(plain["step_ms"][1:])),
         "want_s_per_rank": [r["want_s"] for r in ranks],
         "gate_s_per_rank": [r["gate_s"] for r in ranks],
         "phase_s_per_rank": [r["phase_s"] for r in ranks],
-        "plain_reference_s": plain.get("s"), "card": smi,
+        "plain_reference_s": plain["s"], "card": smi,
+        "collective_calls_rank0": ranks[0]["collective_calls"],
     }
     ok = (out["a_sound_passes"] and all(out["a_faults_caught"].values())
-          and out["b_loss_rel_max"] <= ENCDEC_SHARD_BF16_LOSS_RTOL
-          and out["b_losses_equal_across_ranks"]
-          and min(out["b_fault_loss_rel_max_per_rank"]) > ENCDEC_SHARD_BF16_LOSS_RTOL
+          and out["b_loss_rel_max"] <= fam.bf16_rtol and out["b_losses_equal_across_ranks"]
+          and min(out["b_fault_loss_rel_max_per_rank"]) > fam.bf16_rtol
           and all(np.isfinite(out["b_losses"]))
+          and (fam.needs is None or fam.needs in out["collectives_per_step"])
           and all(r["launches"] == dict.fromkeys(COUNTED, 0) for r in ranks))
     if not ok:
-        raise SystemExit(f"phase 4m: {json.dumps(out)}")
+        raise SystemExit(f"phase {fam.tag}: {json.dumps({k: v for k, v in out.items() if k != 'collective_calls_rank0'})}")
     return out
 
 
-def log_encdec_shard(es: dict, smi: str) -> None:
-    """Phase 4m's lines."""
-    a = es["a_f32_gate"]
-    log(f"[4m encdec sharded a] {es['arch']} full width, {ENCDEC_SHARD_LAYERS} + "
-        f"{ENCDEC_SHARD_LAYERS} layers f32, norms redrawn, mesh {json.dumps(es['mesh'])} over "
-        f"{es['ranks']} gloo ranks on the one card, totoro_tree, B={ENCDEC_SHARD_F32_BATCH} "
-        f"S_src=S_tgt={ENCDEC_SHARD_F32_SEQ}: one sharded step against the single-process step "
-        f"(the ranks in turn, each its shards; the weights after AdamW's first-step map), loss "
-        f"rel {a['sound']['loss_rel']:.3g}, leaves rel max {a['sound']['leaf_rel_max']:.3g} "
-        f"({a['sound']['leaf_rel_worst']}; bounds {TRAIN_LOSS_RTOL}, {TRAIN_GRAD_REL}); faults "
-        f"caught {json.dumps(es['a_faults_caught'])}: "
+def log_family_shard(rec: dict, smi: str, fam: FamilyShard) -> None:
+    """Phase ``fam.tag``'s lines."""
+    a, head = rec["a_f32_gate"], f"[{fam.tag} {fam.name} sharded"
+    log(f"{head} a] {rec['arch']} full width, {fam.depth} f32, {fam.redrawn}, mesh "
+        f"{json.dumps(rec['mesh'])} over {rec['ranks']} gloo ranks on the one card, totoro_tree, "
+        f"B={fam.f32_batch} {fam.seq_name}={fam.f32_seq}: one sharded step against the "
+        f"single-process step (the ranks in turn, each its shards; the weights after AdamW's "
+        f"first-step map), loss rel {a['sound']['loss_rel']:.3g}, leaves rel max "
+        f"{a['sound']['leaf_rel_max']:.3g} ({a['sound']['leaf_rel_worst']}; bounds "
+        f"{TRAIN_LOSS_RTOL}, {fam.grad_rel}); faults caught {json.dumps(rec['a_faults_caught'])}: "
         + "; ".join(f"{k}: loss rel {a[k]['loss_rel']:.3g}, leaves {a[k]['leaf_rel_max']:.3g} "
-                    f"({a[k]['leaf_rel_worst']})" for k in ENCDEC_SHARD_FAULTS))
-    log(f"[4m encdec sharded b] {es['layers']} + {es['layers']} layers bf16, B={es['batch']} "
-        f"S_src=S_tgt={es['seq']}, {es['steps']} steps: losses {es['b_losses']} against one "
-        f"process's {es['b_losses_plain']} (rel max {es['b_loss_rel_max']:.3g}, bound "
-        f"{ENCDEC_SHARD_BF16_LOSS_RTOL}); {es['b_fault']} for {SHARD_B_FAULT_STEPS} steps: losses "
-        f"{es['b_fault_losses']} (rel max a rank "
-        f"{[f'{x:.3g}' for x in es['b_fault_loss_rel_max_per_rank']]}); four ranks sharing one "
-        f"card, not a multi-card number: ms a step a rank (steps 2-{es['steps']}) "
-        f"{[round(x, 1) for x in es['ms_per_step_per_rank']]} (one process "
-        f"{es['plain_ms_per_step']:.1f}), the staged collectives (host clock) a step of all "
-        f"{es['steps']} {[round(x, 1) for x in es['wire_ms_per_step_per_rank']]}, their share of "
-        f"the steps' time {[round(x, 3) for x in es['wire_share_of_step']]}; peak memory a rank "
-        f"{[round(x, 2) for x in es['peak_mem_gb_per_rank']]} GB; phase a rank "
-        f"{[round(x, 1) for x in es['phase_s_per_rank']]} s; card: {smi}")
-    log(f"[4m encdec sharded b] collectives a step (rank 0, op/mesh axis): "
-        f"{json.dumps(es['collectives_per_step'])}")
-    log(f"[4m encdec sharded] {json.dumps(es)}")
+                    f"({a[k]['leaf_rel_worst']})" for k in fam.faults))
+    log(f"{head} b] {fam.depth} bf16, B={rec['batch']} {fam.seq_name}={rec['seq']}, "
+        f"{rec['steps']} steps: losses {rec['b_losses']} against one process's "
+        f"{rec['b_losses_plain']} (rel max {rec['b_loss_rel_max']:.3g}, bound {fam.bf16_rtol}); "
+        f"{rec['b_fault']} for {SHARD_B_FAULT_STEPS} steps: losses {rec['b_fault_losses']} (rel "
+        f"max a rank {[f'{x:.3g}' for x in rec['b_fault_loss_rel_max_per_rank']]}); four ranks "
+        f"sharing one card, not a multi-card number: ms a step a rank (steps 2-{rec['steps']}) "
+        f"{[round(x, 1) for x in rec['ms_per_step_per_rank']]} (one process "
+        f"{rec['plain_ms_per_step']:.1f}), the staged collectives (host clock) a step of all "
+        f"{rec['steps']} {[round(x, 1) for x in rec['wire_ms_per_step_per_rank']]}, their share of "
+        f"the steps' time {[round(x, 3) for x in rec['wire_share_of_step']]}; peak memory a rank "
+        f"{[round(x, 2) for x in rec['peak_mem_gb_per_rank']]} GB; phase a rank "
+        f"{[round(x, 1) for x in rec['phase_s_per_rank']]} s; card: {smi}")
+    log(f"{head} b] collectives a step (rank 0, op/mesh axis): "
+        f"{json.dumps(rec['collectives_per_step'])}")
+    log(f"{head}] {json.dumps({k: v for k, v in rec.items() if k != 'collective_calls_rank0'})}")
 
 
-def dryrun_cmd(*args: str) -> list:
-    return [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", SHARD_ARCH,
+ENCDEC_SHARD = FamilyShard(
+    tag="4m", name="encdec", arch=SEAMLESS_ARCH, model="encdec",
+    depth=f"{ENCDEC_SHARD_LAYERS} + {ENCDEC_SHARD_LAYERS} layers", redrawn="norms redrawn",
+    seq_name="S_src=S_tgt", layers=ENCDEC_SHARD_LAYERS, seed=ENCDEC_SHARD_SEED,
+    f32_batch=ENCDEC_SHARD_F32_BATCH, f32_seq=ENCDEC_SHARD_F32_SEQ, steps=ENCDEC_SHARD_STEPS,
+    batch=SEAMLESS_BATCH, bf16_rtol=ENCDEC_SHARD_BF16_LOSS_RTOL, grad_rel=TRAIN_GRAD_REL,
+    faults=ENCDEC_SHARD_FAULTS, b_fault=ENCDEC_SHARD_B_FAULT, draws=seamless_draws,
+    fault=encdec_shard_fault, needs=None)
+RWKV_SHARD = FamilyShard(
+    tag="4n", name="rwkv", arch=RWKV_ARCH, model="lm", depth=f"{RWKV_SHARD_LAYERS} layers",
+    redrawn="the constant-at-init leaves redrawn", seq_name="S", layers=RWKV_SHARD_LAYERS,
+    seed=RWKV_SHARD_SEED, f32_batch=RWKV_SHARD_F32_BATCH, f32_seq=RWKV_SHARD_F32_SEQ,
+    steps=RWKV_SHARD_STEPS, batch=TRAIN_BATCH, bf16_rtol=RWKV_SHARD_BF16_LOSS_RTOL,
+    grad_rel=RWKV_SHARD_GRAD_REL, faults=RWKV_SHARD_FAULTS, b_fault=RWKV_SHARD_B_FAULT,
+    draws=rwkv_draws, fault=rwkv_shard_fault, needs="all_to_all_single/model")
+
+
+def dryrun_cmd(*args: str, arch: str = SHARD_ARCH) -> list:
+    return [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
             "--shape", "train_4k", *args]
+
+
+def schedule_equal(rec: dict, card_calls: list, steps: int) -> tuple:
+    """A b run's log holds its steps' collectives in order, each step's
+    alike: the dry-run's one step (``rec``, run with ``--calls``), repeated
+    ``steps`` times, must be ``card_calls`` call for call (op, mesh axis,
+    bytes), which holds the per-op totals too.  Returns (equal, the index
+    of the first call that differs or None)."""
+    want = [list(c) for c in rec["collectives"]["calls"]] * steps
+    first_diff = next((i for i, (a, b) in enumerate(zip(want, card_calls)) if a != b),
+                      None if len(want) == len(card_calls) else min(len(want), len(card_calls)))
+    return card_calls == want, first_diff
 
 
 def dryrun_gates(rec: dict, sh: dict) -> dict:
@@ -5262,13 +5458,7 @@ def dryrun_gates(rec: dict, sh: dict) -> dict:
     b's cell and 4j's output ``sh``."""
     from repro_torch import configs
 
-    # 4j b's log holds its steps' collectives in order, each step's alike: the
-    # dry-run's one step, repeated, must be it call for call (op, mesh axis,
-    # bytes), which holds the per-op totals too
-    want = [list(c) for c in rec["collectives"]["calls"]] * sh["steps"]
-    card_calls = sh["collective_calls_rank0"]
-    first_diff = next((i for i, (a, b) in enumerate(zip(want, card_calls)) if a != b),
-                      None if len(want) == len(card_calls) else min(len(want), len(card_calls)))
+    equal, first_diff = schedule_equal(rec, sh["collective_calls_rank0"], sh["steps"])
     arg = rec["memory"]["argument_bytes_per_dev"]
     placed = [r["allocated"] for r in sh["placed_bytes_per_rank"]]
     requested = [r["requested"] for r in sh["placed_bytes_per_rank"]]
@@ -5276,7 +5466,7 @@ def dryrun_gates(rec: dict, sh: dict) -> dict:
     cfg = cut_depth(configs.get_config(SHARD_ARCH), sh["layers"])
     mf = model_flops(cfg, sh["batch"] * sh["seq"], sh["seq"])
     return {
-        "a_schedule_equal": card_calls == want,
+        "a_schedule_equal": equal,
         "a_calls_first_difference": first_diff,
         "b_argument_bytes": arg, "b_placed_allocated_per_rank": placed,
         "b_placed_requested_per_rank": requested,
@@ -5291,12 +5481,14 @@ def dryrun_gates(rec: dict, sh: dict) -> dict:
     }
 
 
-def drive_dryrun(smi: str, sh: dict) -> dict:
-    """Phase 4k: the dry-run of 4j b's cell (``--calls``) and of the
-    production mesh's at DRYRUN_PROD_LAYERS layers, two subprocesses at once
-    with no card visible, read against 4j's output ``sh``; gates a-c must
-    pass on the sound record and each of DRYRUN_FAULTS, planted in a copy
-    of it, must fail its gate."""
+def drive_dryrun(smi: str, sh: dict, rw: dict) -> dict:
+    """Phase 4k: the dry-run of 4j b's cell (``--calls``), of 4n b's
+    (``--calls``) and of the production mesh's at DRYRUN_PROD_LAYERS
+    layers, three subprocesses at once with no card visible, read against
+    4j's output ``sh`` and 4n's ``rw``; gates a-c must pass on the sound
+    record and each of DRYRUN_FAULTS, planted in a copy of it, must fail
+    its gate; 4n b's collectives must equal its cell's dry-run's call for
+    call, and fail with the fault of a dropped call."""
     import shutil
     import tempfile
 
@@ -5307,6 +5499,10 @@ def drive_dryrun(smi: str, sh: dict) -> dict:
                            str(sh["layers"]), "--seq-len", str(sh["seq"]), "--global-batch",
                            str(sh["batch"]), "--aggregation", sh["aggregation"], "--calls",
                            "--out", os.path.join(tmp, "cell.json")),
+        "rwkv": dryrun_cmd("--mesh-shape", "x".join(map(str, SHARD_MESH)), "--layers",
+                           str(rw["layers"]), "--seq-len", str(rw["seq"]), "--global-batch",
+                           str(rw["batch"]), "--aggregation", rw["aggregation"], "--calls",
+                           "--out", os.path.join(tmp, "rwkv.json"), arch=RWKV_ARCH),
         "production": dryrun_cmd("--mesh", "single", "--layers", str(DRYRUN_PROD_LAYERS),
                                  "--out", os.path.join(tmp, "production.json")),
     }
@@ -5326,6 +5522,8 @@ def drive_dryrun(smi: str, sh: dict) -> dict:
             rec = json.load(f)[0]
         with open(os.path.join(tmp, "production.json")) as f:
             prod = json.load(f)[0]
+        with open(os.path.join(tmp, "rwkv.json")) as f:
+            rw_rec = json.load(f)[0]
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -5342,12 +5540,21 @@ def drive_dryrun(smi: str, sh: dict) -> dict:
         "largest_state_leaf"]
     faults = {DRYRUN_FAULTS[0]: not dryrun_gates(dropped, sh)["a_schedule_equal"],
               DRYRUN_FAULTS[1]: not dryrun_gates(doubled, sh)["b_passes"]}
+    rw_equal, rw_first = schedule_equal(rw_rec, rw["collective_calls_rank0"], rw["steps"])
+    rw_dropped = json.loads(json.dumps(rw_rec))
+    rw_dropped["collectives"]["calls"].pop(0)
+    rwkv = {"cell": {k: v for k, v in rw_rec.items() if k != "collectives"},
+            "cell_collectives": {k: v for k, v in rw_rec["collectives"].items() if k != "calls"},
+            "schedule_equal_4n_b": rw_equal, "calls_first_difference": rw_first,
+            "fault_caught": {DRYRUN_FAULTS[0]: not schedule_equal(
+                rw_dropped, rw["collective_calls_rank0"], rw["steps"])[0]}}
     out = {"cell": {k: v for k, v in rec.items() if k != "collectives"},
            "cell_collectives": {k: v for k, v in rec["collectives"].items() if k != "calls"},
-           "gates": gates, "faults_caught": faults, "production": prod, "wall_s": wall,
-           "card": smi}
+           "gates": gates, "faults_caught": faults, "rwkv": rwkv, "production": prod,
+           "wall_s": wall, "card": smi}
     ok = (gates["a_schedule_equal"] and gates["b_passes"] and gates["c_passes"]
-          and all(faults.values()) and prod["cost"]["flops_per_dev"] > 0)
+          and all(faults.values()) and prod["cost"]["flops_per_dev"] > 0
+          and rw_equal and all(rwkv["fault_caught"].values()))
     if not ok:
         raise SystemExit(f"phase 4k: {json.dumps(out)}")
     return out
@@ -5368,6 +5575,13 @@ def log_dryrun(dr: dict, smi: str) -> None:
         f"(bound ±{DRYRUN_PEAK_REL}); d, flops a device x {dr['cell']['chips']} over model_flops "
         f"{g['d_ratio']:.4f} (not gated); faults caught {json.dumps(dr['faults_caught'])}; "
         f"wall {dr['wall_s']:.1f} s; card: {smi}")
+    rw = dr["rwkv"]
+    log(f"[4k dryrun] 4n b's cell ({rw['cell']['arch']}, {rw['cell']['layers']} layers, "
+        f"{rw['cell']['mesh']}): collectives of one step, repeated, equal to 4n b's calls on rank "
+        f"0: {rw['schedule_equal_4n_b']} (first difference at {rw['calls_first_difference']}), "
+        f"{json.dumps(rw['cell_collectives'])}; a dropped call caught "
+        f"{json.dumps(rw['fault_caught'])}; peak {rw['cell']['memory']['peak_bytes_per_dev']} "
+        f"bytes a device; card: {smi}")
     log(f"[4k dryrun] {json.dumps({k: v for k, v in dr.items() if k != 'production'})}")
     log(f"[4k dryrun] production 16x16, {DRYRUN_PROD_LAYERS} layers: "
         f"{json.dumps(dr['production'])}")
@@ -5870,29 +6084,36 @@ def main() -> int:
     # -- 4j. the dense family's step sharded over (data, model): tinyllama-1.1b --
     # -- 4l. the MoE family's, deepseek-v2-lite-16b, on the same spawned ranks --
     # -- 4m. the encoder-decoder family's, seamless-m4t-medium, on them too ----
+    # -- 4n. the RWKV-6 family's, rwkv6-7b, on them after 4m ------------------
     plain = shard_plain_losses(torch)
     t0 = time.perf_counter()
     moe_plain = moe_shard_plain_losses(torch)
     moe_plain["s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    enc_plain = encdec_shard_plain_losses(torch)
-    enc_plain["s"] = time.perf_counter() - t0
+    enc_plain = family_shard_plain_losses(torch, ENCDEC_SHARD)
+    rw_plain = family_shard_plain_losses(torch, RWKV_SHARD)
     sharded = drive_shard_ranks(torch, smi, plain)
-    moe_ranks, enc_ranks = sharded.pop("moe_ranks"), sharded.pop("encdec_ranks")
-    # 4l's and 4m's shares of the spawn, by the ranks' own clocks (their
-    # one-process references ran before the spawn, in 4j's wall)
+    moe_ranks, enc_ranks, rw_ranks = (sharded.pop(k) for k in ("moe_ranks", "encdec_ranks",
+                                                               "rwkv_ranks"))
+    # 4l's, 4m's and 4n's shares of the spawn, by the ranks' own clocks
+    # (their one-process references ran before the spawn, in 4j's wall)
     t_end = time.perf_counter()
-    marks.append(("4l", t_end - max(m["phase_s"] + e["phase_s"]
-                                     for m, e in zip(moe_ranks, enc_ranks))))
-    marks.append(("4m", t_end - max(e["phase_s"] for e in enc_ranks)))
+    marks.append(("4l", t_end - max(m["phase_s"] + e["phase_s"] + n["phase_s"]
+                                     for m, e, n in zip(moe_ranks, enc_ranks, rw_ranks))))
+    marks.append(("4m", t_end - max(e["phase_s"] + n["phase_s"]
+                                     for e, n in zip(enc_ranks, rw_ranks))))
+    marks.append(("4n", t_end - max(n["phase_s"] for n in rw_ranks)))
     log_shard_ranks(sharded, smi)
     moe_sharded = moe_shard_outcome(moe_ranks, moe_plain, smi)
     log_moe_shard(moe_sharded, smi)
-    log_encdec_shard(encdec_shard_outcome(enc_ranks, enc_plain, smi), smi)
+    log_family_shard(family_shard_outcome(enc_ranks, enc_plain, smi, ENCDEC_SHARD), smi,
+                     ENCDEC_SHARD)
+    rw_sharded = family_shard_outcome(rw_ranks, rw_plain, smi, RWKV_SHARD)
+    log_family_shard(rw_sharded, smi, RWKV_SHARD)
 
     marks.append(("4k", time.perf_counter()))
-    # -- 4k. the dry-run of 4j b's cell, held to 4j; the production mesh's ----
-    log_dryrun(drive_dryrun(smi, sharded), smi)
+    # -- 4k. the dry-run of 4j b's cell, held to 4j, and of 4n b's; the --------
+    # -- production mesh's ---------------------------------------------------
+    log_dryrun(drive_dryrun(smi, sharded, rw_sharded), smi)
 
     marks.append(("5", time.perf_counter()))
     # -- 5. times -------------------------------------------------------------

@@ -30,21 +30,23 @@ whose ``data`` or ``model`` axis is larger than 1 raises
 ``NotImplementedError`` (ROADMAP §1, the q8 hop inside a sharded pod).
 
 ``xla_auto`` and ``totoro_tree`` on a mesh with any axis larger than 1
-give the sharded step (``_sharded_step``), for the dense, the MoE and the
-encoder-decoder families (``sharded_family``: every layer GQA or MLA with
-a dense or an MoE FFN, ``first_dense`` layers or not; or an
-encoder-decoder, whose stacks are GQA self-attention, cross-attention and
-dense SwiGLU; the recurrent families raise ``NotImplementedError``,
-ROADMAP §1).  Its state and batch are DTensors
+give the sharded step (``_sharded_step``), for the dense, the MoE, the
+RWKV-6 and the encoder-decoder families (``sharded_family``: every layer
+GQA or MLA with a dense or an MoE FFN, ``first_dense`` layers or not;
+every layer RWKV-6 time and channel mixing; or an encoder-decoder, whose
+stacks are GQA self-attention, cross-attention and dense SwiGLU; jamba,
+whose pattern has Mamba layers, raises ``NotImplementedError``, ROADMAP
+§1).  Its state and batch are DTensors
 placed by ``launch/specs.build_cell``'s shardings (``specs.place``): the
 parameters FSDP over ``("pod", "data")`` and TP over ``model`` under
 ``xla_auto``, replicated across pods and FSDP over ``data`` under
 ``totoro_tree``; the batch over ``("pod", "data")``.  The forward runs on
 DTensors with ``nn.constrain`` wired in where the reference calls it
-(``models/nn``, ``attention``, ``moe``, ``lm``, ``encdec``), so each collective is
-one of its redistributions: every weight gathered over its FSDP axes
-where it is used (``nn.gather_fsdp``), the attention core and the
-vocab-parallel loss on each rank's shards (``local_map``), an MoE layer's
+(``models/nn``, ``attention``, ``moe``, ``rwkv``, ``lm``, ``encdec``), so each
+collective is one of its redistributions: every weight gathered over its
+FSDP axes where it is used (``nn.gather_fsdp``), the attention core, the
+wkv chunk loop and the vocab-parallel loss on each rank's shards
+(``local_map``), an MoE layer's
 tokens routed by the rank that holds their group and moved to and from
 the experts over ``tp`` by all-to-alls over the batch axes.  Each
 gradient comes back under its parameter's placements
@@ -298,13 +300,15 @@ def runs_sharded(plan, mesh) -> bool:
 def sharded_family(cfg) -> bool:
     """Whether the sharded step runs ``cfg``: a decoder whose layers are
     GQA or MLA with a dense or an MoE FFN, ``first_dense`` layers or not
-    (the dense and the MoE families), or an encoder-decoder
-    (``models/encdec``: its stacks are always GQA self-attention,
-    cross-attention and a dense SwiGLU)."""
+    (the dense and the MoE families), or RWKV-6 time and channel mixing
+    (``models/rwkv``), or an encoder-decoder (``models/encdec``: its
+    stacks are always GQA self-attention, cross-attention and a dense
+    SwiGLU).  A pattern with Mamba layers (jamba) is not run."""
     if cfg.is_encoder_decoder:
         return True
-    return set(lm.layer_pattern(cfg)) <= {(m, f) for m in ("attn", "mla")
-                                          for f in ("dense", "moe")}
+    pattern = set(lm.layer_pattern(cfg))
+    return pattern == {("rwkv", "rwkv_cm")} or pattern <= {(m, f) for m in ("attn", "mla")
+                                                            for f in ("dense", "moe")}
 
 
 def _sharded_step(cfg, plan, opt, mesh):

@@ -26,10 +26,45 @@ decay is data dependent (Finch): ``w_t = exp(-exp(w0 + tanh(x W_a) W_b))``.
 ``channel_mix_specs`` are the sharding twins of the two inits; the cache's
 specs come from ``rwkv_cache_specs(cfg)``, beside ``rwkv_cache_shape``
 (the reference's returns both).
+
+On a mesh (a DTensor ``x``, train mode only: the sharded train step of
+``fl/steps``) both mixers run the same code, whose ``nn.constrain``,
+``nn.gather_fsdp`` and ``nn.per_rank`` calls are the identity on plain
+tensors:
+
+- the input, the sequence-parallel residual ``("dp", "sp", None)``, is
+  gathered over the sequence once a sublayer, to ``("dp", None, None)``,
+  before the token shift, which needs each sequence shard's first token's
+  predecessor; the shift's zeros are placed as the batch is;
+- the time mix's r, k, v and g are ``("dp", None, "tp")`` (the
+  reference's constraints), every weight gathered over its FSDP axes; the
+  decay LoRA runs per rank (``_placed_decay_lora``): ``tanh(x A)`` whole
+  on each ``tp`` rank, ``@ B`` channel-sharded, so ``lw`` is too;
+- the chunk loop and the group norm run on each rank's whole heads
+  through ``nn.per_rank`` (``_heads_wkv``), with the rank's slices of
+  ``bonus_u``, ``ln_scale`` and ``ln_bias``; their gradients are partial
+  sums over ``dp``.  Where ``tp`` does not divide the heads (a reduced
+  config's 2 heads on 4 ``model`` ranks: half a head each), r, k, v and
+  ``lw`` are gathered to whole heads and every ``model`` rank runs every
+  head, then takes its channel slice back before ``* g``: the reference's
+  math (its constraint splits the channels; XLA runs the head's
+  contraction over the split); ``w_o`` leaves a partial sum over ``tp``;
+- the channel mix's key is ``("dp", None, "tp")`` (the reference's
+  constraint) and ``k @ w_v`` a partial sum over ``tp``.  Its gate's
+  product sits at one placement: ``kv`` is reduce-scattered over its
+  channels to meet ``sigmoid(x w_r)`` at ``("dp", None, "tp")``, and the
+  product moves to the sequence-parallel ``("dp", "sp", None)`` by an
+  all-to-all over ``tp`` (``nn.constrain``'s own, ``nn._AllToAll``).
+
+Prefill and decode on a mesh raise ``NotImplementedError`` (ROADMAP §1,
+serving on a sharded mesh).
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
+from torch.distributed.tensor import Partial, Shard
 
 from ..pytree import tree_map
 from . import nn
@@ -108,10 +143,17 @@ def _mix(x, xs, m):
 
 def _shifted(x, cache):
     """The token-shifted input: the cache's last token (zeros without a
-    cache) before ``x``'s first."""
+    cache, placed as ``x``'s batch on a mesh) before ``x``'s first."""
     B, S, d = x.shape
-    prev = cache["shift"] if cache is not None else x.new_zeros((B, d))
+    prev = cache["shift"] if cache is not None else nn.distribute_like(
+        torch.zeros((B, d), dtype=x.dtype, device=x.device), x, ("dp", None))
     return _shift(x, prev) if S > 1 else prev[:, None, :]
+
+
+def _serving_on_a_mesh(x, mode: str) -> None:
+    if isinstance(x, nn.DTensor) and mode != "train":
+        raise NotImplementedError(f"{mode} on a sharded mesh: ROADMAP §1, serving on a sharded "
+                                  f"mesh")
 
 
 def _wkv_chunk(r, k, v, lw, u, state):
@@ -157,47 +199,133 @@ def _wkv_step(r, k, v, w, u, state):
     return o, w[..., None] * state + kv
 
 
+def _heads_wkv(r, k, v, lw, u, scale, bias, *, chunk, state=None):
+    """The wkv recurrence and the per-head group norm on one device's (on a
+    mesh, one rank's) channels, whole heads of HEAD_DIM: r, k, v, lw (B,
+    S, d'); u, scale, bias (d',).  Each chunk of ``chunk`` tokens runs
+    through ``nn.remat``; ``state`` (B, d' / HEAD_DIM, hd, hd) f32 or zeros.
+    Returns (the normed output (B, S, d') in r's dtype, the last state)."""
+    B, S, dl = r.shape
+    H = dl // HEAD_DIM
+    r, k, v, lw = (t.reshape(B, S, H, HEAD_DIM) for t in (r, k, v, lw))
+    u = u.reshape(H, HEAD_DIM).float()
+    if state is None:
+        state = torch.zeros((B, H, HEAD_DIM, HEAD_DIM), dtype=torch.float32, device=r.device)
+    outs = []
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        o, state = nn.remat(_wkv_chunk, r[:, sl], k[:, sl], v[:, sl], lw[:, sl], u, state)
+        outs.append(o)
+    out = torch.cat(outs, dim=1).reshape(B, S, dl)
+    return nn.group_norm(out, scale, bias, groups=H), state
+
+
+def _split_dims(t, dim: int) -> set:
+    """The mesh dims on which DTensor ``t`` is sharded along its ``dim``."""
+    return {i for i, pl in enumerate(t.placements) if isinstance(pl, Shard) and pl.dim == dim}
+
+
+def _partial_on(pls, dims) -> tuple:
+    """Placements ``pls`` with partial sums on the mesh dims ``dims``: the
+    gradient of an input that each rank used on its own share of a split
+    it does not carry."""
+    return tuple(Partial() if i in dims else pl for i, pl in enumerate(pls))
+
+
+def _decay_lora(xw, a, b):
+    """The Finch decay's LoRA in f32: ``tanh(xw A) B``."""
+    return (torch.tanh(xw @ a) @ b).float()
+
+
+def _placed_decay_lora(xw, a, b):
+    """``_decay_lora`` on plain tensors, or on each rank's shards of
+    DTensors (``nn.per_rank``): ``xw`` batch-sharded over ``dp``, A whole,
+    B's columns over ``tp``, so the output is batch- and channel-sharded
+    and each input's gradient a partial sum over the splits it does not
+    carry.  (Left to DTensor, the backward of ``tanh`` reduce-scatters its
+    partial gradient over the sequence, and the product after it has no
+    sharding strategy on a (pod, data, model) mesh.)"""
+    def out(x, _, b):
+        return (tuple(Shard(2) if isinstance(pb, Shard) else px
+                      for px, pb in zip(x.placements, b.placements)),)
+
+    def grad(x, a, b):
+        rows, cols = _split_dims(x, 0), _split_dims(b, 1)
+        return (_partial_on(x.placements, cols), _partial_on(a.placements, rows | cols),
+                _partial_on(b.placements, rows))
+
+    return nn.per_rank(_decay_lora, xw, a, b, out=out, grad=grad)
+
+
+def _placed_heads_wkv(r, k, v, lw, p, chunk: int, state0):
+    """``_heads_wkv`` on plain tensors, or on each rank's heads of DTensors
+    (``nn.per_rank``; module docstring): the rank's slices of the bonus and
+    the norm's scale and bias, or every head on every ``model`` rank where
+    ``tp`` does not divide the heads."""
+    vecs = [p[n] for n in ("bonus_u", "ln_scale", "ln_bias")]
+    if isinstance(r, nn.DTensor):
+        if (r.shape[-1] // HEAD_DIM) % nn.axis_size("tp"):
+            # heads that the tp axis does not divide: whole heads gathered,
+            # every head run on every model rank
+            r, k, v, lw = (nn.constrain(t, ("dp", None, None)) for t in (r, k, v, lw))
+        else:
+            vecs = [nn.constrain(t, ("tp",)) for t in vecs]
+    B, S, d = r.shape
+
+    def out(r, *_):
+        state = nn.layout(r.device_mesh, ("dp", "tp", None, None),
+                          (B, d // HEAD_DIM, HEAD_DIM, HEAD_DIM))
+        return (r.placements, state)
+
+    def grad(*args):  # each rank's own rows of the vectors' uses: partial sums over dp
+        rows = _split_dims(args[0], 0)
+        return tuple(a.placements if i < 4 else _partial_on(a.placements, rows)
+                     for i, a in enumerate(args))
+
+    return nn.per_rank(partial(_heads_wkv, chunk=chunk, state=state0), r, k, v, lw, *vecs,
+                       out=out, grad=grad)
+
+
 def time_mix_forward(p, cfg, x, *, mode, cache=None):
     """x: (B, S, d). cache: {'shift': (B, d), 'state': (B, H, hd, hd) f32}.
 
     Returns (out, new_cache).  Decode writes the token's shift and state
-    into ``cache`` and returns it.
+    into ``cache`` and returns it.  A DTensor ``x`` (train mode only) runs
+    under the module docstring's placements; ``out`` is then a partial sum
+    over ``tp``.
     """
+    _serving_on_a_mesh(x, mode)
+    x = nn.constrain(x, ("dp", None, None))  # the sequence gathered, for the shift
     B, S, d = x.shape
     H = num_heads(cfg)
     xs = _shifted(x, cache)
     xr, xk, xv, xw, xg = (_mix(x, xs, p[f"mix_{n}"]) for n in "rkvwg")
 
     def w(name):
-        return p[name].to(x.dtype)
+        return nn.gather_fsdp(p[name]).to(x.dtype)
 
-    r, k, v = xr @ w("w_r"), xk @ w("w_k"), xv @ w("w_v")
-    g = nn.silu(xg @ w("w_g"))
+    heads = ("dp", None, "tp")
+    r, k, v = (nn.constrain(a @ w(n), heads) for a, n in ((xr, "w_r"), (xk, "w_k"), (xv, "w_v")))
+    g = nn.silu(nn.constrain(xg @ w("w_g"), heads))
     # data-dependent decay (Finch): lw = -exp(w0 + tanh(xw A) B)  (log w, <= 0)
-    dec = (torch.tanh(xw @ w("decay_a")) @ w("decay_b")).float()
-    lw = -torch.exp(p["decay_0"] + dec)  # (B, S, d) f32
-
-    r, k, v, lw = (t.reshape(B, S, H, HEAD_DIM) for t in (r, k, v, lw))
-    u = p["bonus_u"].reshape(H, HEAD_DIM).float()
-    state0 = (cache["state"].float() if cache is not None
-              else torch.zeros((B, H, HEAD_DIM, HEAD_DIM), dtype=torch.float32, device=x.device))
+    dec = _placed_decay_lora(xw, w("decay_a"), w("decay_b"))
+    lw = -torch.exp(nn.constrain(p["decay_0"], ("tp",)) + dec)  # (B, S, d) f32
+    state0 = cache["state"].float() if cache is not None else None
 
     if mode == "decode":
+        r, k, v, lw = (t.reshape(B, S, H, HEAD_DIM) for t in (r, k, v, lw))
+        u = p["bonus_u"].reshape(H, HEAD_DIM).float()
+        if state0 is None:
+            state0 = torch.zeros((B, H, HEAD_DIM, HEAD_DIM), dtype=torch.float32, device=x.device)
         o, state_new = _wkv_step(*(t[:, 0].float() for t in (r, k, v)), torch.exp(lw[:, 0]), u,
                                  state0)
         out = o.reshape(B, 1, d).to(x.dtype)
+        out = nn.group_norm(out, p["ln_scale"], p["ln_bias"], groups=H)
     else:
-        chunk = nn.chunk_len(cfg, S)
-        outs, state_new = [], state0
-        for c0 in range(0, S, chunk):
-            sl = slice(c0, c0 + chunk)
-            o, state_new = nn.remat(_wkv_chunk, r[:, sl], k[:, sl], v[:, sl], lw[:, sl], u,
-                                    state_new)
-            outs.append(o)
-        out = torch.cat(outs, dim=1).reshape(B, S, d)
+        out, state_new = _placed_heads_wkv(r, k, v, lw, p, nn.chunk_len(cfg, S), state0)
+        out = nn.constrain(out, heads)  # where every rank ran every head: its channels back
 
-    out = nn.group_norm(out, p["ln_scale"], p["ln_bias"], groups=H)
-    out = (out * g) @ w("w_o")
+    out = (out * g) @ w("w_o")  # on a mesh a partial sum over tp, for the caller to reduce
     if mode == "decode":
         cache["shift"].copy_(x[:, -1])
         cache["state"].copy_(state_new)
@@ -207,13 +335,22 @@ def time_mix_forward(p, cfg, x, *, mode, cache=None):
 
 def channel_mix_forward(p, cfg, x, *, mode, cache=None):
     """x: (B, S, d). cache: {'shift': (B, d)}.  Returns (out, new_cache);
-    decode writes the token's shift into ``cache`` and returns it."""
+    decode writes the token's shift into ``cache`` and returns it.  A
+    DTensor ``x`` (train mode only) runs under the module docstring's
+    placements; ``out`` is then sequence-parallel, ``("dp", "sp", None)``."""
+    _serving_on_a_mesh(x, mode)
+    x = nn.constrain(x, ("dp", None, None))  # the sequence gathered, for the shift
     xs = _shifted(x, cache)
     xk = _mix(x, xs, p["mix_k"])
     xr = _mix(x, xs, p["mix_r"])
-    k = torch.square(torch.relu(xk @ p["w_k"].to(x.dtype)))
-    kv = k @ p["w_v"].to(x.dtype)
-    out = torch.sigmoid(xr @ p["w_r"].to(x.dtype)) * kv
+    k = nn.constrain(xk @ nn.gather_fsdp(p["w_k"]).to(x.dtype), ("dp", None, "tp"))
+    k = torch.square(torch.relu(k))
+    kv = k @ nn.gather_fsdp(p["w_v"]).to(x.dtype)  # on a mesh a partial sum over tp
+    rr = torch.sigmoid(xr @ nn.gather_fsdp(p["w_r"]).to(x.dtype))  # ("dp", None, "tp")
+    # the gate's product at one placement: kv reduce-scattered over its
+    # channels to meet the gate, the product moved to the residual's
+    # sequence-parallel placement by an all-to-all over tp
+    out = nn.constrain(rr * nn.constrain(kv, ("dp", None, "tp")), ("dp", "sp", None))
     if mode == "decode":
         cache["shift"].copy_(x[:, -1])
         return out, cache

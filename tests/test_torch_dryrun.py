@@ -41,6 +41,9 @@ import dryrun_vs_reference as vs_ref  # noqa: E402
 pytestmark = pytest.mark.xdist_group("test_torch_dryrun")
 
 LAYERS = 2  # tinyllama-1.1b at full width, cut to two layers on the test meshes
+# the family the sharded step does not run yet (Mamba layers), at the depth
+# of its one pattern block
+JAMBA, JAMBA_LAYERS = "jamba-1.5-large-398b", 8
 # XLA's output_size_in_bytes also counts the output tuple's table, 8 bytes a
 # leaf (the state's and the two metrics)
 TUPLE_BYTES_A_LEAF = 8
@@ -258,18 +261,19 @@ def test_model_parallel_flops_add_the_repeated_kv_products(sizes):
     (False, "train_4k", "xla_auto", "the other families on sharded meshes"),
 ])
 def test_cells_that_are_not_ported_fail_naming_their_roadmap_item(mp, shape, agg, item):
-    arch = "rwkv6-7b" if item.startswith("the other") else "tinyllama-1.1b"
+    other = item.startswith("the other")  # jamba: one pattern block of 8 layers
+    arch = JAMBA if other else "tinyllama-1.1b"
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1, {item}"):
         dryrun.run_cell(arch, shape, multi_pod=mp, aggregation=agg, quiet=True,
-                        cfg_overrides={"num_layers": LAYERS},
+                        cfg_overrides={"num_layers": JAMBA_LAYERS if other else LAYERS},
                         mesh_shape=(2, 2, 2) if mp else (2, 4))
     assert not dist.is_initialized()
 
 
 def test_command_line_lists_failures_and_exits_1(capsys):
     with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "rwkv6-7b", "--shape", "train_4k", "--mesh-shape",
-                     "2x4", "--layers", "1"])
+        dryrun.main(["--arch", JAMBA, "--shape", "train_4k", "--mesh-shape",
+                     "2x4", "--layers", str(JAMBA_LAYERS)])
     assert e.value.code == 1
     out = capsys.readouterr().out
     fails = json.loads(out[out.index("FAILURES:") + len("FAILURES:"):])
@@ -313,6 +317,32 @@ def test_production_mesh_runs_the_dense_cell_after_the_kv_head_repair(tmp_path):
     assert rec["cost"]["flops_per_dev"] > 0 and rec["collectives"]["total_bytes_per_dev"] > 0
     assert set(rec["collectives"]["bytes_by_kind"]) <= {"all-gather", "reduce-scatter",
                                                        "all-reduce", "all-to-all"}
+    assert not dist.is_initialized()
+
+
+def test_rwkv_train_cells_trace_on_both_production_meshes(tmp_path):
+    """rwkv6-7b's train_4k cell, now that the sharded step runs RWKV-6, on
+    the 256- and the 512-rank mesh through the command line (full width,
+    1 layer, S 512): a record each, no failure; the channel mix's gate
+    product moved by all-to-all over ``model`` among its collectives."""
+    out = tmp_path / "r.json"
+    dryrun.main(["--arch", "rwkv6-7b", "--shape", "train_4k", "--mesh", "both", "--layers", "1",
+                 "--seq-len", "512", "--out", str(out)])
+    recs = json.loads(out.read_text())
+    assert [(r["mesh"], r["chips"]) for r in recs] == [("16x16", 256), ("2x16x16", 512)]
+    for r in recs:
+        assert (r["aggregation"], r["layers"], r["seq_len"]) == ("totoro_tree", 1, 512)
+        assert "all_to_all_single/model" in r["collectives"]["by_op_axis"]
+        assert r["cost"]["flops_per_dev"] > 0 and r["memory"]["peak_bytes_per_dev"] > 0
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
+def test_rwkv_serving_cells_stay_failures(shape):
+    """rwkv6-7b's serving cells still fail naming their ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="ROADMAP §1, serving on a sharded mesh"):
+        dryrun.run_cell("rwkv6-7b", shape, multi_pod=False, quiet=True,
+                        cfg_overrides={"num_layers": 1}, mesh_shape=(2, 4))
     assert not dist.is_initialized()
 
 

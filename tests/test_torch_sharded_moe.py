@@ -224,18 +224,17 @@ def test_moe_layers_reach_the_expert_all_to_all_in_forward_and_backward(runs):
 
 
 def test_families_that_remain_raise_on_a_sharded_mesh():
-    """The sharded step now takes both MoE configs and the
-    encoder-decoder; the recurrent families still raise naming their
-    ROADMAP item."""
+    """The sharded step now takes both MoE configs, the encoder-decoder
+    and RWKV-6; jamba (Mamba layers) still raises naming its ROADMAP
+    item."""
     from repro_torch import configs
     from repro_torch.config import RunPlan
     from repro_torch.fl import steps
 
-    for arch in (DS, MS, "seamless-m4t-medium"):
+    for arch in (DS, MS, "seamless-m4t-medium", "rwkv6-7b"):
         assert steps.sharded_family(configs.get_reduced(arch))
         assert steps.sharded_family(configs.get_config(arch))
-    for arch in ("rwkv6-7b", "jamba-1.5-large-398b"):
-        assert not steps.sharded_family(configs.get_config(arch))
+    assert not steps.sharded_family(configs.get_config("jamba-1.5-large-398b"))
     try:
         mesh = dense._fake_mesh((1, 2, 2))
         for arch in (DS, MS):
