@@ -304,10 +304,19 @@ the CPU):
       shift, the channels and wkv heads over ``model``, the channel mix's
       gate at one placement, gated in f32 against one process with three
       faults planted, and in bf16 over 3 steps;
-   k. the dry-run (``repro_torch.launch.dryrun``, three subprocesses that
+   o. jamba's, on 4j's ranks after 4n: jamba-1.5-large-398b at full width
+      cut to one attention and one Mamba layer with 4 of its 16 experts
+      (JAMBA_SHARD_*), a and b on a (data 1, model 4) mesh of the ranks:
+      Mamba's channels over ``model``, ``in_proj``'s halves made alike by
+      an all-to-all of its stored shard, the chunk loop on each rank's
+      channels, gated in f32 against one process with three faults
+      planted, and in bf16 over 3 steps; c, the Mamba sublayer alone on
+      4j's (data 2, model 2) mesh against one process, a fault planted;
+   k. the dry-run (``repro_torch.launch.dryrun``, four subprocesses that
       never touch the card) of 4j
       b's own cell on a fake process group, held to what 4j measured
-      (DRYRUN_*); of 4n b's, its collectives held to 4n b's; and of
+      (DRYRUN_*); of 4n b's and 4o b's, their collectives held to the b
+      runs'; and of
       tinyllama-1.1b's train_4k cell at DRYRUN_PROD_LAYERS layers on the
       256-rank production mesh, its record printed;
 5. times: each kernel's device time (a CUDA graph of calls between CUDA
@@ -587,8 +596,8 @@ RANK_TIMEOUT_S = 600
 # same steps in one process: the card read 1.15e-5 at these 4 layers (two
 # runs, 5.59e-6 at 12), so 1e-4 is about 9x that; then SHARD_B_FAULT planted
 # for SHARD_B_FAULT_STEPS steps of the same run must read above the bound
-# (the gradient fault shows from the second step's loss on); the ranks are
-# killed after SHARD_TIMEOUT_S
+# (the gradient fault shows from the second step's loss on); the ranks, which
+# run 4l-4o after 4j, are killed after SHARD_TIMEOUT_S
 SHARD_ARCH, SHARD_RANKS, SHARD_MESH, SHARD_AXES = "tinyllama-1.1b", 4, (2, 2), ("data", "model")
 SHARD_F32_LAYERS, SHARD_F32_BATCH, SHARD_F32_SEQ = 2, 4, 128
 SHARD_LAYERS, SHARD_STEPS = 4, 3
@@ -596,7 +605,7 @@ SHARD_BF16_LOSS_RTOL = 1e-4
 SHARD_FAULTS = ("wo's model reduction dropped", "the data gradient reduction skipped",
                 "one data shard a copy of the other")
 SHARD_B_FAULT, SHARD_B_FAULT_STEPS = SHARD_FAULTS[1], 2
-SHARD_TIMEOUT_S = 600
+SHARD_TIMEOUT_S = 900
 # The MoE family's step sharded inside a pod (phase 4l): MOE_ARCH at full
 # width on 4j's ranks and mesh (the same spawn, after 4j), totoro_tree, at
 # MOE_SHARD_LAYERS layers: the dense first layer (MLA) and one MoE layer
@@ -627,8 +636,9 @@ MOE_SHARD_B_FAULT = MOE_SHARD_FAULTS[0]
 # The encoder-decoder family's step sharded inside a pod (phase 4m):
 # SEAMLESS_ARCH at full width on 4j's ranks and mesh (the same spawn, after
 # 4l), totoro_tree, at ENCDEC_SHARD_LAYERS encoder and ENCDEC_SHARD_LAYERS
-# decoder layers (0.60e9 parameters, 0.52e9 of them the embedding and the
-# head): the sequence-parallel encoder, the cross-attention's heads over
+# decoder layer (0.56e9 parameters, 0.52e9 of them the embedding and the
+# head; 2 + 2 layers until 4o's time was paid for): the sequence-parallel
+# encoder, the cross-attention's heads over
 # model, the vocab-parallel embedding, head and loss over the 256,256
 # padded columns.  The weights are drawn on the card (``drawn_on_card``)
 # and every norm leaf is redrawn from SEAMLESS_NORM_SEED (``seamless_draws``:
@@ -649,7 +659,7 @@ MOE_SHARD_B_FAULT = MOE_SHARD_FAULTS[0]
 # cross-attention's output, a mean over 1,024 source frames, is small
 # beside the residual stream; a caught it at 0.488 of a leaf), so b plants
 # a fault in the target embedding's vocab-parallel lookup instead
-ENCDEC_SHARD_LAYERS, ENCDEC_SHARD_SEED = 2, 0
+ENCDEC_SHARD_LAYERS, ENCDEC_SHARD_SEED = 1, 0
 ENCDEC_SHARD_F32_BATCH, ENCDEC_SHARD_F32_SEQ = 8, 128
 ENCDEC_SHARD_STEPS = 3
 ENCDEC_SHARD_BF16_LOSS_RTOL = 1e-4
@@ -660,8 +670,8 @@ ENCDEC_SHARD_B_FAULT = "the target embedding's partial sum over model read as re
 # The RWKV-6 family's step sharded inside a pod (phase 4n): RWKV_ARCH at full
 # width (d 4096: 64 wkv heads of 64, 32 a model rank; d_ff 14,336; vocab
 # 65,536) on 4j's ranks and mesh (the same spawn, after 4m), totoro_tree, at
-# RWKV_SHARD_LAYERS layers (1.07e9 parameters, 0.54e9 of them the embedding
-# and the head): the sequence gathered once a sublayer for the token shift,
+# RWKV_SHARD_LAYERS layer (0.76e9 parameters, 0.54e9 of them the embedding
+# and the head; 2 layers until 4o's time was paid for): the sequence gathered once a sublayer for the token shift,
 # r, k, v, g and the wkv heads over model, the chunk loop on each rank's
 # heads, the channel mix's gate product reduce-scattered over its channels
 # and moved to the sequence-parallel residual by an all-to-all.  The weights
@@ -675,10 +685,10 @@ ENCDEC_SHARD_B_FAULT = "the target embedding's partial sum over model read as re
 # every leaf within RWKV_SHARD_GRAD_REL of its largest after AdamW's
 # first-step map); each of RWKV_SHARD_FAULTS, planted at run time in every
 # rank, must fail it.  RWKV_SHARD_GRAD_REL is RWKV's own spread, not 4l's
-# TRAIN_GRAD_REL: the first card run read the sound step 2.33e-4 of
-# ``opt/v/embed``'s largest, and the single-process step against itself
-# with its initial parameters moved one ulp up or down read up to 1.65e-4
-# on these weights (4.09e-3 on the constant-at-init ones: the group norm's
+# TRAIN_GRAD_REL: the first card run (at 2 layers) read the sound step
+# 2.33e-4 of ``opt/v/embed``'s largest, and the single-process step against
+# itself with its initial parameters moved one ulp up or down read up to
+# 1.65e-4 on these weights (4.09e-3 on the constant-at-init ones: the group norm's
 # eps amplifies a head's near-zero output at the first tokens), the
 # sharded step within 1.56x that spread on every leaf above 1e-5; 1e-3 is
 # 6x the spread and 4.3x the sound reading, 330x under the least fault
@@ -688,7 +698,7 @@ ENCDEC_SHARD_B_FAULT = "the target embedding's partial sum over model read as re
 # 1e-4); then RWKV_SHARD_B_FAULT planted for SHARD_B_FAULT_STEPS steps must
 # read above it; its collectives, call for call, are the dry-run's of the
 # same cell (phase 4k)
-RWKV_SHARD_LAYERS, RWKV_SHARD_SEED = 2, 0
+RWKV_SHARD_LAYERS, RWKV_SHARD_SEED = 1, 0
 RWKV_SHARD_F32_BATCH, RWKV_SHARD_F32_SEQ = 8, 128
 RWKV_SHARD_STEPS = 3
 RWKV_SHARD_BF16_LOSS_RTOL = 1e-4
@@ -697,6 +707,55 @@ RWKV_SHARD_FAULTS = ("the shift done inside each sequence shard, with no gather"
                      "the channel mix's kv partial sum read as reduced",
                      "every rank taking rank 0's slice of bonus_u")
 RWKV_SHARD_B_FAULT = RWKV_SHARD_FAULTS[1]
+# jamba's step sharded inside a pod (phase 4o): JAMBA_ARCH at full width (d
+# 8192, 64 heads / 8 kv heads of 128, d_ff = moe_d_ff 24,576, d_inner 16,384,
+# d_state 16, dt_rank 512, vocab 65,536; f32 weights, bf16 activations,
+# adafactor) on 4j's ranks after 4n, totoro_tree, cut by JAMBA_SHARD_CUT to
+# one ("attn", "dense") and one ("mamba", "moe") layer with 4 of its 16
+# experts (top-2 kept): 4.67e9 parameters, 18.7 GB, one expert a rank.  a and
+# b run on a (data 1, model 4) mesh of the same ranks (JAMBA_SHARD_MESH),
+# where no weight is gathered over data and the staged wire carries the
+# activations and in_proj's halves (on 4j's (2, 2) every FSDP gather of
+# these f32 weights would cross it: about 20 GB a rank a step).  The weights
+# are drawn on the card and every Mamba leaf that is a constant at init is
+# redrawn from JAMBA_LEAF_SEED (``jamba_draws``: a D of ones and alike
+# A_log rows would hide a wrong channel slice).  a: f32 (TF32 off), B
+# JAMBA_SHARD_F32_BATCH, S JAMBA_SHARD_F32_SEQ (two chunks of 64), one
+# sharded step against the same step in one process (about 56 GB with the
+# update's new weights), which the ranks compute in turn before they place
+# their shards, each keeping its own shards of it on the host: 4l a's gate
+# (``rows_gate``; adafactor's weights compared as they are: its first update
+# has no moments to map); each of JAMBA_SHARD_FAULTS, planted at run time in
+# every rank, must fail it.  b: bf16, B TRAIN_BATCH, S TRAIN_SEQ,
+# JAMBA_SHARD_STEPS steps of launch/train.train(mesh=...), the losses within
+# JAMBA_SHARD_BF16_LOSS_RTOL of the same steps in one process; then
+# JAMBA_SHARD_B_FAULT planted for SHARD_B_FAULT_STEPS steps must read above
+# it; its collectives, call for call, are the dry-run's of the same cell
+# (phase 4k).  JAMBA_SHARD_BF16_LOSS_RTOL is jamba's own spread, not 4j b's
+# 1e-4: the first card runs read the sound losses 3.2e-6, 7.2e-6 and
+# 1.53e-4 from one process's, and one process against itself with its
+# initial weights moved one ulp up or down read [2.0e-6, 2.2e-5, 6.9e-5]
+# and [3.4e-6, 3.9e-5, 1.19e-4] (adafactor's first update of the leaves it
+# does not factor is a sign, and a token routed another way moves its
+# expert's capacity slots); 3e-4 is 2.5x that spread and 2.0x the sound
+# reading, 2.6x under the fault's 7.86e-4 (its second step).  c: the Mamba
+# sublayer alone (``rms_norm``, ``mamba_forward``, ``lm._residual``) at full
+# width on 4j's (data 2, model 2) mesh, f32, B
+# MAMBA_SHARD_BATCH, S MAMBA_SHARD_SEQ, its weights placed by
+# ``mamba_specs``: its output and the gradients of a fixed random
+# projection of it (every parameter and the input) against one process,
+# each within TRAIN_GRAD_REL of its largest and the projection within
+# TRAIN_LOSS_RTOL; JAMBA_SHARD_FAULTS[0] planted must fail it
+JAMBA_SHARD_CUT = {"num_layers": 2, "attn_every": 2, "moe_every": 2, "moe_num_experts": 4}
+JAMBA_SHARD_MESH, JAMBA_SHARD_SEED, JAMBA_LEAF_SEED = (1, 4), 0, 43
+JAMBA_SHARD_F32_BATCH, JAMBA_SHARD_F32_SEQ = 8, 128
+JAMBA_SHARD_STEPS = 3
+JAMBA_SHARD_BF16_LOSS_RTOL = 3e-4
+JAMBA_SHARD_FAULTS = ("the split done on each rank's local xz shard",
+                      "x_proj's partial sum over model read as reduced",
+                      "every rank taking rank 0's slice of A_log and D")
+JAMBA_SHARD_B_FAULT = JAMBA_SHARD_FAULTS[1]
+MAMBA_SHARD_BATCH, MAMBA_SHARD_SEQ, MAMBA_SHARD_SEED = 8, 128, 47
 # The dry-run (phase 4k): ``python -m repro_torch.launch.dryrun`` on 4j b's
 # own cell, on a fake process group of SHARD_RANKS ranks, in a subprocess
 # that never touches the card.  Gates: a, its collective calls of one step
@@ -3478,6 +3537,33 @@ def randomised_rwkv_leaves(torch, params, seed: int) -> None:
                 t.copy_(1.0 + 0.3 * torch.randn(t.shape, generator=gen))
 
 
+def randomised_mamba_leaves(torch, params, seed: int, prefix: str = "") -> None:
+    """Every Mamba leaf of ``params`` that is a constant at init redrawn in
+    place, as tests/test_torch_ssm.py does: ``conv_b`` 0.3 N(0, 1); ``D`` 1
+    + 0.5 N(0, 1); ``dt_b`` -3 + N(0, 1); ``A_log`` the log of U(0.5, 16),
+    rows of distinct values (at init every row is log(1 .. d_state)).  Each
+    leaf draws from a generator of ``seed`` and its path in the whole tree
+    (``prefix``: the path of ``params`` in it), so a tree redrawn whole and
+    one redrawn entry by entry (``drawn_and_redrawn`` on a mesh) agree."""
+    import zlib
+
+    from repro_torch.pytree import key_paths, leaves
+
+    with torch.no_grad():
+        for path, t in zip(key_paths(params), leaves(params)):
+            name = path.rsplit("/", 1)[-1]
+            gen = torch.Generator().manual_seed(seed * 1_000_003
+                                                + zlib.crc32(f"{prefix}{path}".encode()))
+            if name == "conv_b":
+                t.copy_(0.3 * torch.randn(t.shape, generator=gen))
+            elif name == "D":
+                t.copy_(1.0 + 0.5 * torch.randn(t.shape, generator=gen))
+            elif name == "dt_b":
+                t.copy_(-3.0 + torch.randn(t.shape, generator=gen))
+            elif name == "A_log":
+                t.copy_(torch.log(0.5 + 15.5 * torch.rand(t.shape, generator=gen)))
+
+
 def rwkv_decode_readings(torch, cfg, params, batch) -> dict:
     """Decode against the train forward (``decode_vs_forward``) as a share
     of the largest logit: the sound run, each of RWKV_DECODE_FAULTS planted
@@ -4656,6 +4742,17 @@ def shard_rank(rank: int, tmp: str, layers: int) -> None:
         rw = family_shard_part(torch, rank, mesh, RWKV_SHARD)  # phase 4n, the same ranks
         with open(os.path.join(tmp, f"rwkv{rank}.json"), "w") as f:
             json.dump(rw, f)
+        del rw
+        gc.collect()
+        torch.cuda.empty_cache()
+        # phase 4o, the same ranks: a and b on a (data 1, model 4) mesh of them, c on 4j's
+        jb = family_shard_part(torch, rank, mesh_mod._mk(JAMBA_SHARD_MESH, SHARD_AXES, "cuda"),
+                               JAMBA_SHARD)
+        gc.collect()
+        torch.cuda.empty_cache()
+        jb["c"] = mamba_sublayer_part(torch, rank, mesh)
+        with open(os.path.join(tmp, f"jamba{rank}.json"), "w") as f:
+            json.dump(jb, f)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -4690,10 +4787,10 @@ def drive_shard_ranks(torch, smi: str, plain: dict) -> dict:
                     p.kill()
                     p.join()
         wall = time.perf_counter() - t0
-        ranks, moe_ranks, encdec_ranks, rwkv_ranks = [], [], [], []
+        ranks, moe_ranks, encdec_ranks, rwkv_ranks, jamba_ranks = [], [], [], [], []
         for r in range(SHARD_RANKS):
             for name, got in (("rank", ranks), ("moe", moe_ranks), ("encdec", encdec_ranks),
-                              ("rwkv", rwkv_ranks)):
+                              ("rwkv", rwkv_ranks), ("jamba", jamba_ranks)):
                 with open(os.path.join(tmp, f"{name}{r}.json")) as f:
                     got.append(json.load(f))
     finally:
@@ -4713,6 +4810,7 @@ def drive_shard_ranks(torch, smi: str, plain: dict) -> dict:
         "moe_ranks": moe_ranks,  # phase 4l's records (``moe_shard_outcome``)
         "encdec_ranks": encdec_ranks,  # phase 4m's (``family_shard_outcome``)
         "rwkv_ranks": rwkv_ranks,  # phase 4n's
+        "jamba_ranks": jamba_ranks,  # phase 4o's, c's under "c"
     }
     ok = (out["a_sound_passes"] and all(out["a_faults_caught"].values())
           and out["b_loss_rel_max"] <= SHARD_BF16_LOSS_RTOL and out["b_losses_equal_across_ranks"]
@@ -4840,7 +4938,8 @@ def moe_shard_readings(torch, state, want: dict, lr: float) -> tuple:
     """4l a on one rank: ``shard_readings`` against this rank's own shards
     of the single-process state (``want``: leaf path -> the local shard, on
     the host): each leaf's largest difference and its largest magnitude on
-    this rank.  Returns (paths, a (leaves, 2) f64 tensor)."""
+    this rank; the AdamW map where the state has AdamW's moments.  Returns
+    (paths, a (leaves, 2) f64 tensor)."""
     from repro_torch.ckpt import key_paths
     from repro_torch.pytree import leaves
 
@@ -4848,15 +4947,18 @@ def moe_shard_readings(torch, state, want: dict, lr: float) -> tuple:
     local = dict(zip(paths, (t.to_local() for t in leaves(state))))
     rows = []
     for path in paths:
-        w = want[path].to(local[path].device).double()
+        w = want[path].to(local[path].device)
         mag = float(w.abs().max()) if w.numel() else 0.0
-        if path.startswith(("params/", "opt/master/")):
-            leaf = path.split("/", 1)[1].removeprefix("master/")
-            m, v = f"opt/m/{leaf}", f"opt/v/{leaf}"
-            w = w - lr * (_adam_direction(local[m], local[v])
-                          - _adam_direction(want[m].to(w.device), want[v].to(w.device)))
-        d = (local[path].double() - w).abs()
+        leaf = path.split("/", 1)[1].removeprefix("master/")
+        m, v = f"opt/m/{leaf}", f"opt/v/{leaf}"
+        if path.startswith(("params/", "opt/master/")) and m in local:  # AdamW's weights
+            w = w.double() - lr * (_adam_direction(local[m], local[v])
+                                   - _adam_direction(want[m].to(w.device), want[v].to(w.device)))
+            d = (local[path].double() - w).abs()
+        else:  # in the leaf's own dtype: two close values' difference is exact
+            d = (local[path] - w.to(local[path].dtype)).abs()
         rows.append((float(d.max()) if d.numel() else 0.0, mag))
+        del w, d
     return paths, torch.tensor(rows, dtype=torch.float64)
 
 
@@ -5071,15 +5173,23 @@ def log_moe_shard(ml: dict, smi: str) -> None:
 @contextmanager
 def drawn_and_redrawn(model, redraw):
     """For the block, ``model.init_params`` draws on the card
-    (``drawn_on_card``) and hands what it returns to ``redraw`` (in place);
-    meta trees (the shapes ``launch/specs`` reads) are left as they are."""
+    (``drawn_on_card``) and hands what it returns to ``redraw(tree,
+    prefix)`` (in place; ``prefix`` the tree's path in the whole, "" for
+    the whole); meta trees (the shapes ``launch/specs`` reads) are left as
+    they are.  Drawn entry by entry onto a mesh (``place``), each entry is
+    redrawn before it is placed."""
     from repro_torch.pytree import leaves
 
     def make(init):
-        def drawn(gen, cfg, *, device="cpu"):
+        def drawn(gen, cfg, *, device="cpu", place=None):
+            if place is not None:
+                def put(tree, path):
+                    redraw(tree, "".join(f"{k}/" for k in path))
+                    return place(tree, path)
+                return init(gen, cfg, device=device, place=put)
             params = init(gen, cfg, device=device)
             if not leaves(params)[0].is_meta:
-                redraw(params)
+                redraw(params, "")
             return params
         return drawn
 
@@ -5094,7 +5204,7 @@ def seamless_draws():
 
     from repro_torch.models import encdec
 
-    return drawn_and_redrawn(encdec, lambda p: redrawn_norms(torch, p, SEAMLESS_NORM_SEED))
+    return drawn_and_redrawn(encdec, lambda p, _: redrawn_norms(torch, p, SEAMLESS_NORM_SEED))
 
 
 @contextmanager
@@ -5183,7 +5293,9 @@ def rwkv_draws():
 
     from repro_torch.models import lm
 
-    return drawn_and_redrawn(lm, lambda p: randomised_rwkv_leaves(torch, p, RWKV_LEAF_SEED))
+    # every redrawn leaf lies in RWKV's one pattern position: redrawn entry by
+    # entry or whole, one generator's draws in the same order
+    return drawn_and_redrawn(lm, lambda p, _: randomised_rwkv_leaves(torch, p, RWKV_LEAF_SEED))
 
 
 @contextmanager
@@ -5251,9 +5363,9 @@ def rwkv_shard_fault(kind: str):
 
 
 class FamilyShard(NamedTuple):
-    """A family's phase on 4j's ranks after 4l (4m, 4n): its constants (the
-    comments above them), how its weights are drawn (``draws``, a context)
-    and how each fault is planted (``fault(kind)``, a context)."""
+    """A family's phase on 4j's ranks after 4l (4m, 4n, 4o): its constants
+    (the comments above them), how its weights are drawn (``draws``, a
+    context) and how each fault is planted (``fault(kind)``, a context)."""
 
     tag: str  # the phase
     name: str  # the log lines' word for the family
@@ -5275,6 +5387,16 @@ class FamilyShard(NamedTuple):
     draws: Any
     fault: Any
     needs: str | None  # an op/axis that b's collectives must hold
+    mesh: tuple = SHARD_MESH  # a's and b's (data, model) mesh of the 4 ranks
+    cut: dict = {}  # config fields set beside the depth
+
+
+def family_cfg(fam: FamilyShard):
+    """The phase's config: the family's at full width, cut to ``fam.layers``
+    and by ``fam.cut``."""
+    from repro_torch import configs
+
+    return cut_depth(configs.get_config(fam.arch), fam.layers).replace(**fam.cut)
 
 
 def family_shard_part(torch, rank: int, mesh, fam: FamilyShard) -> dict:
@@ -5288,25 +5410,26 @@ def family_shard_part(torch, rank: int, mesh, fam: FamilyShard) -> dict:
 
     import torch.distributed as dist
 
-    from repro_torch import configs
     from repro_torch.config import RunPlan, ShapeSpec
     from repro_torch.fl import steps
     from repro_torch.launch import specs, train
 
     model = importlib.import_module(f"repro_torch.models.{fam.model}")
     t0 = time.perf_counter()
-    full = configs.get_config(fam.arch)
+    cfg = family_cfg(fam)
     plan = RunPlan(aggregation="totoro_tree")
-    f32 = cut_depth(full, fam.layers).replace(dtype="float32", param_dtype="float32")
+    f32 = cfg.replace(dtype="float32", param_dtype="float32")
     shape = ShapeSpec(f"{fam.tag} a", "train", fam.f32_seq, fam.f32_batch)
     state_sh, batch_sh = specs.cell_for(f32, shape, plan, mesh).in_shardings
     batch = train.make_batch(f32, train.StreamConfig(f32.vocab_size, fam.f32_seq,
                                                      fam.f32_batch), 0, None, "cuda")
 
-    def params():
+    def params(shardings=None):  # whole, or each entry placed as it is drawn
         with fam.draws():
-            return model.init_params(torch.Generator().manual_seed(fam.seed), f32,
-                                     device="cuda")
+            gen = torch.Generator().manual_seed(fam.seed)
+            if shardings is None:
+                return model.init_params(gen, f32, device="cuda")
+            return train.init_placed(model, gen, f32, shardings, device="cuda")
 
     def step_once():
         state, metrics = steps.build_train_step(f32, plan)(steps.init_train_state(f32, params()),
@@ -5319,10 +5442,9 @@ def family_shard_part(torch, rank: int, mesh, fam: FamilyShard) -> dict:
     gate = {}
     for kind in ("sound",) + fam.faults:
         with nullcontext() if kind == "sound" else fam.fault(kind):
-            state = specs.place(steps.init_train_state(f32, specs.place(params(),
-                                                                        state_sh["params"])),
-                                state_sh)
+            state = specs.place(steps.init_train_state(f32, params(state_sh["params"])), state_sh)
             state, metrics = step(state, specs.place(batch, batch_sh))
+        torch.cuda.empty_cache()  # the step's gradients back to the card the ranks share
         paths, rows = moe_shard_readings(torch, state, want, f32.learning_rate)
         dist.all_reduce(rows, op=dist.ReduceOp.MAX)  # a CPU tensor: gloo as it is
         gate[kind] = rows_gate(paths, rows, float(metrics["loss"].full_tensor()), want,
@@ -5333,8 +5455,8 @@ def family_shard_part(torch, rank: int, mesh, fam: FamilyShard) -> dict:
     gate_s = time.perf_counter() - t0
 
     with fam.draws():
-        b = sharded_bf16_run(torch, cut_depth(full, fam.layers), mesh, fam.steps,
-                             fam.fault(fam.b_fault), global_batch=fam.batch)
+        b = sharded_bf16_run(torch, cfg, mesh, fam.steps, fam.fault(fam.b_fault),
+                             global_batch=fam.batch)
     return dict(b, rank=rank, gate=gate, want_s=want_s, gate_s=gate_s,
                 phase_s=time.perf_counter() - t0)
 
@@ -5342,11 +5464,10 @@ def family_shard_part(torch, rank: int, mesh, fam: FamilyShard) -> dict:
 def family_shard_plain_losses(torch, fam: FamilyShard) -> dict:
     """Phase ``fam.tag`` b's reference: the same bf16 steps in one process on
     the card, the weights drawn as the ranks draw them (``fam.draws``)."""
-    from repro_torch import configs
     from repro_torch.config import RunPlan
     from repro_torch.launch import train
 
-    cfg = cut_depth(configs.get_config(fam.arch), fam.layers)
+    cfg = family_cfg(fam)
     t0 = time.perf_counter()
     with uncounted(), fam.draws():
         run = train.train(cfg, RunPlan(), steps=fam.steps, seq_len=TRAIN_SEQ,
@@ -5363,11 +5484,13 @@ def family_shard_outcome(ranks: list, plain: dict, smi: str, fam: FamilyShard) -
     gate must pass the sound run and fail each planted fault; b's losses
     within ``fam.bf16_rtol`` of ``plain``'s and equal across ranks, no
     kernel launched, ``fam.b_fault``'s above the bound, ``fam.needs`` among
-    b's collectives.  Phase 4k holds 4n b's collectives to the dry-run's."""
+    b's collectives.  Phase 4k holds 4n b's and 4o b's collectives to the
+    dry-run's."""
     gate = ranks[0]["gate"]
     out = {
-        "arch": fam.arch, "mesh": dict(zip(SHARD_AXES, SHARD_MESH)), "ranks": SHARD_RANKS,
-        "aggregation": "totoro_tree", "layers": ranks[0]["layers"], "batch": fam.batch,
+        "arch": fam.arch, "mesh": dict(zip(SHARD_AXES, fam.mesh)), "ranks": SHARD_RANKS,
+        "aggregation": "totoro_tree", "layers": ranks[0]["layers"], "cut": fam.cut,
+        "batch": fam.batch,
         "seq": TRAIN_SEQ, "steps": fam.steps,
         "a_f32_gate": gate, "a_sound_passes": gate["sound"]["passed"],
         "a_faults_caught": {k: not gate[k]["passed"] for k in fam.faults},
@@ -5436,6 +5559,202 @@ RWKV_SHARD = FamilyShard(
     draws=rwkv_draws, fault=rwkv_shard_fault, needs="all_to_all_single/model")
 
 
+# ---------------------------------------------------------------------------
+# phase 4o: jamba's step sharded over (data, model)
+
+
+def jamba_draws():
+    """``drawn_and_redrawn`` for ``lm``, every Mamba leaf that is a constant
+    at init redrawn from JAMBA_LEAF_SEED (``randomised_mamba_leaves``)."""
+    import torch
+
+    from repro_torch.models import lm
+
+    return drawn_and_redrawn(lm, lambda p, prefix: randomised_mamba_leaves(torch, p,
+                                                                            JAMBA_LEAF_SEED,
+                                                                            prefix))
+
+
+@contextmanager
+def jamba_shard_fault(kind: str):
+    """One of JAMBA_SHARD_FAULTS planted in the port at run time (in a rank
+    of phase 4o): ``in_proj`` gathered without ``ssm._HalvesAlike``, so
+    that each rank splits its own shard of the ``[x | z]`` concatenation;
+    ``x @ x_proj``, a partial sum over ``model``, read as reduced (the
+    constraints of ``models/ssm`` reading it, through a stand-in for its
+    ``nn``); the chunk loop on every ``model`` rank given ``model`` rank 0's
+    slice of ``A`` (from ``A_log``) and ``D``."""
+    import types
+
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.models import nn, ssm
+
+    def unreduced(t, axis):
+        names = t.device_mesh.mesh_dim_names
+        pls = [Replicate() if n == axis and isinstance(pl, Partial) else pl
+               for n, pl in zip(names, t.placements)]
+        return DTensor.from_local(t.to_local(), t.device_mesh, pls, shape=t.shape,
+                                  stride=t.stride())
+
+    if kind == JAMBA_SHARD_FAULTS[0]:
+        def make(in_proj):
+            def faulty(w, di):
+                return (nn.gather_fsdp(w), True) if isinstance(w, DTensor) else in_proj(w, di)
+            return faulty
+        ctx = planted(ssm, "_in_proj", make)
+    elif kind == JAMBA_SHARD_FAULTS[1]:
+        def constrain(t, dims):
+            if isinstance(t, DTensor) and any(isinstance(pl, Partial) for pl in t.placements):
+                t = unreduced(t, "model")
+            return nn.constrain(t, dims)
+        stand_in = types.SimpleNamespace(**dict(vars(nn), constrain=constrain))
+        ctx = planted(ssm, "nn", lambda _: stand_in)
+    elif kind == JAMBA_SHARD_FAULTS[2]:
+        def first_slice(t):  # model rank 0's rows of t on every model rank
+            mesh = t.device_mesh
+            whole = t.full_tensor()
+            rows = whole.shape[0] // mesh.size(mesh.mesh_dim_names.index("model"))
+            return DTensor.from_local(whole[:rows], mesh, t.placements, shape=t.shape,
+                                      stride=t.stride())
+
+        def make(scan):
+            def faulty(dt, A, Bm, Cm, x, D, **kw):
+                if isinstance(A, DTensor):
+                    A, D = first_slice(A), first_slice(D)
+                return scan(dt, A, Bm, Cm, x, D, **kw)
+            return faulty
+        ctx = planted(ssm, "_placed_scan", make)
+    else:
+        raise ValueError(kind)
+    with ctx:
+        yield
+
+
+def mamba_sublayer_part(torch, rank: int, mesh) -> dict:
+    """Phase 4o c on one of 4j's ranks, on 4j's (data 2, model 2) mesh: the
+    Mamba sublayer (``rms_norm``, ``ssm.mamba_forward``, ``lm._residual``)
+    at full width in f32, its weights (``norm1`` and the mixer's, the
+    constant-at-init leaves redrawn) placed by ``mamba_specs``, the input
+    and a fixed random projection of the output sequence-parallel: the
+    output, the projection and the gradients of every parameter and of the
+    input against the same sublayer in one process (each rank runs it
+    itself and reads its own shards), sound and under
+    JAMBA_SHARD_FAULTS[0].  Returns the rank's record."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch import configs, optim
+    from repro_torch.launch import specs
+    from repro_torch.models import lm, nn, ssm
+    from repro_torch.pytree import key_paths, leaves, tree_map, unflatten_like
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config(JAMBA_ARCH).replace(dtype="float32")
+    with drawn_on_card():
+        layer = lm.init_layer(torch.Generator().manual_seed(MAMBA_SHARD_SEED), cfg, "mamba",
+                              "dense")
+    params = {"norm1": layer["norm1"].cuda(), "mixer": tree_map(lambda t: t.cuda(),
+                                                                layer["mixer"])}
+    del layer
+    randomised_mamba_leaves(torch, params, JAMBA_LEAF_SEED)
+    gen = torch.Generator().manual_seed(MAMBA_SHARD_SEED + 1)
+    shape = (MAMBA_SHARD_BATCH, MAMBA_SHARD_SEQ, cfg.d_model)
+    x, w = (torch.randn(shape, generator=gen).cuda() for _ in range(2))
+
+    def run(p, x, w):
+        p = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        x = x.detach().requires_grad_(True)
+        out = lm._residual(x, ssm.mamba_forward(p["mixer"], cfg, nn.rms_norm(x, p["norm1"]),
+                                                mode="train")[0])
+        proj = nn.replicated(torch.sum(out * w))
+        g = torch.autograd.grad(proj, [x] + leaves(p))
+        grads = [optim.placed_like(a, b) for a, b in zip(g, [x] + leaves(p))]
+        return {"out": out.detach(), "proj": proj.detach(),
+                "grads": {"x": grads[0], "params": unflatten_like(p, grads[1:])}}
+
+    nn.set_activation_axes()
+    want = run(params, x, w)
+    want_leaves = dict(zip(key_paths(want), leaves(want)))
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    pspecs = specs.fit_specs_tree(nn.resolve_specs({"norm1": nn.P(None),
+                                                    "mixer": ssm.mamba_specs(cfg)},
+                                                   multi_pod=False), params, sizes)
+    placed = specs.place(params, nn.shardings_for(pspecs, mesh))
+    sp = nn.named_sharding(mesh, nn.P("data", "model", None))
+    xs, ws = specs.place(x, sp), specs.place(w, sp)
+    nn.set_activation_axes(**nn.mesh_activation_axes(sizes))
+    gate = {}
+    for kind in ("sound", JAMBA_SHARD_FAULTS[0]):
+        with nullcontext() if kind == "sound" else jamba_shard_fault(kind):
+            got = run(placed, xs, ws)
+        rows = []
+        for path, t in zip(key_paths(got), leaves(got)):
+            ref = want_leaves[path]
+            mine = distribute_tensor(ref, t.device_mesh, t.placements,
+                                     src_data_rank=None).to_local().double()
+            d = (t.to_local().double() - mine).abs()
+            rows.append((float(d.max()) if d.numel() else 0.0,
+                         float(mine.abs().max()) if mine.numel() else 0.0))
+        rows = torch.tensor(rows, dtype=torch.float64)
+        dist.all_reduce(rows, op=dist.ReduceOp.MAX)  # a CPU tensor: gloo as it is
+        rel = {p: float(r[0]) / max(float(r[1]), 1e-30) for p, r in zip(key_paths(got), rows)}
+        proj_rel = rel.pop("proj")
+        gate[kind] = {"proj_rel": proj_rel, "out_rel": rel["out"],
+                      "leaf_rel_max": max(rel.values()), "leaf_rel_worst": max(rel, key=rel.get)}
+        gate[kind]["passed"] = (proj_rel <= TRAIN_LOSS_RTOL
+                                and gate[kind]["leaf_rel_max"] <= TRAIN_GRAD_REL)
+        del got
+    nn.set_activation_axes()
+    n_params = sum(int(t.numel()) for t in leaves(params))
+    del want, want_leaves, placed, params
+    torch.cuda.empty_cache()
+    return {"rank": rank, "gate": gate, "params": n_params, "phase_s": time.perf_counter() - t0}
+
+
+def mamba_sublayer_outcome(ranks: list, smi: str) -> dict:
+    """Phase 4o c's record from the ranks' ``mamba_sublayer_part``: the
+    sound run passes, JAMBA_SHARD_FAULTS[0] fails."""
+    gate = ranks[0]["gate"]
+    out = {"arch": JAMBA_ARCH, "mesh": dict(zip(SHARD_AXES, SHARD_MESH)), "ranks": SHARD_RANKS,
+           "batch": MAMBA_SHARD_BATCH, "seq": MAMBA_SHARD_SEQ, "params": ranks[0]["params"],
+           "gate": gate, "sound_passes": gate["sound"]["passed"],
+           "fault_caught": not gate[JAMBA_SHARD_FAULTS[0]]["passed"],
+           "phase_s_per_rank": [r["phase_s"] for r in ranks], "card": smi}
+    if not (out["sound_passes"] and out["fault_caught"]):
+        raise SystemExit(f"phase 4o c: {json.dumps(out)}")
+    return out
+
+
+def log_mamba_sublayer(rec: dict, smi: str) -> None:
+    """Phase 4o c's line."""
+    g = rec["gate"]
+    log(f"[4o jamba sharded c] the Mamba sublayer alone ({rec['params']:,} parameters, f32) "
+        f"on {json.dumps(rec['mesh'])} over {rec['ranks']} gloo ranks on the one card, B="
+        f"{rec['batch']} S={rec['seq']}, against one process: projection rel "
+        f"{g['sound']['proj_rel']:.3g} (bound {TRAIN_LOSS_RTOL}), output rel "
+        f"{g['sound']['out_rel']:.3g}, output and gradients rel max "
+        f"{g['sound']['leaf_rel_max']:.3g} ({g['sound']['leaf_rel_worst']}; bound "
+        f"{TRAIN_GRAD_REL}); {JAMBA_SHARD_FAULTS[0]}: caught {rec['fault_caught']}, rel max "
+        f"{g[JAMBA_SHARD_FAULTS[0]]['leaf_rel_max']:.3g} "
+        f"({g[JAMBA_SHARD_FAULTS[0]]['leaf_rel_worst']}); four ranks sharing one card; phase a "
+        f"rank {[round(x, 1) for x in rec['phase_s_per_rank']]} s; card: {smi}")
+    log(f"[4o jamba sharded c] {json.dumps(rec)}")
+
+
+JAMBA_SHARD = FamilyShard(
+    tag="4o", name="jamba", arch=JAMBA_ARCH, model="lm",
+    depth=f"{JAMBA_SHARD_CUT['num_layers']} layers (attention + dense, Mamba + MoE of "
+          f"{JAMBA_SHARD_CUT['moe_num_experts']} experts)",
+    redrawn="the Mamba constant-at-init leaves redrawn", seq_name="S",
+    layers=JAMBA_SHARD_CUT["num_layers"], seed=JAMBA_SHARD_SEED,
+    f32_batch=JAMBA_SHARD_F32_BATCH, f32_seq=JAMBA_SHARD_F32_SEQ, steps=JAMBA_SHARD_STEPS,
+    batch=TRAIN_BATCH, bf16_rtol=JAMBA_SHARD_BF16_LOSS_RTOL, grad_rel=TRAIN_GRAD_REL,
+    faults=JAMBA_SHARD_FAULTS, b_fault=JAMBA_SHARD_B_FAULT, draws=jamba_draws,
+    fault=jamba_shard_fault, needs="all_to_all_single/model", mesh=JAMBA_SHARD_MESH,
+    cut=JAMBA_SHARD_CUT)
+
+
 def dryrun_cmd(*args: str, arch: str = SHARD_ARCH) -> list:
     return [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
             "--shape", "train_4k", *args]
@@ -5481,14 +5800,46 @@ def dryrun_gates(rec: dict, sh: dict) -> dict:
     }
 
 
-def drive_dryrun(smi: str, sh: dict, rw: dict) -> dict:
+def cut_dryrun_cmd(rec: dict, out: str) -> list:
+    """The dry-run of a b run's cell whose config is cut beyond its depth
+    (``rec``: ``family_shard_outcome``'s record, its ``cut``), through
+    ``dryrun.run_cell``'s ``cfg_overrides``, one microbatch as the run's,
+    the collectives recorded, the record written to ``out``."""
+    code = ("import json, sys\n"
+            "from repro_torch.launch import dryrun\n"
+            "a = json.loads(sys.argv[1])\n"
+            "rec = dryrun.run_cell(a['arch'], 'train_4k', multi_pod=False, quiet=True, "
+            "aggregation=a['aggregation'], cfg_overrides=a['cut'], mesh_shape=a['mesh'], "
+            "seq_len=a['seq'], global_batch=a['batch'], grad_accum=1, calls=True)\n"
+            "json.dump([rec], open(sys.argv[2], 'w'))\n")
+    args = {"arch": rec["arch"], "aggregation": rec["aggregation"], "cut": rec["cut"],
+            "mesh": list(rec["mesh"].values()), "seq": rec["seq"], "batch": rec["batch"]}
+    return [sys.executable, "-c", code, json.dumps(args), out]
+
+
+def cell_schedule(cell: dict, b: dict) -> dict:
+    """A b run's collectives (``b``: ``family_shard_outcome``'s record)
+    against its cell's dry-run record ``cell``, call for call, and the
+    same with the dry-run's first call dropped, which must differ."""
+    equal, first = schedule_equal(cell, b["collective_calls_rank0"], b["steps"])
+    dropped = json.loads(json.dumps(cell))
+    dropped["collectives"]["calls"].pop(0)
+    return {"cell": {k: v for k, v in cell.items() if k != "collectives"},
+            "cell_collectives": {k: v for k, v in cell["collectives"].items() if k != "calls"},
+            "schedule_equal_b": equal, "calls_first_difference": first,
+            "fault_caught": {DRYRUN_FAULTS[0]: not schedule_equal(
+                dropped, b["collective_calls_rank0"], b["steps"])[0]}}
+
+
+def drive_dryrun(smi: str, sh: dict, rw: dict, jb: dict) -> dict:
     """Phase 4k: the dry-run of 4j b's cell (``--calls``), of 4n b's
-    (``--calls``) and of the production mesh's at DRYRUN_PROD_LAYERS
-    layers, three subprocesses at once with no card visible, read against
-    4j's output ``sh`` and 4n's ``rw``; gates a-c must pass on the sound
-    record and each of DRYRUN_FAULTS, planted in a copy of it, must fail
-    its gate; 4n b's collectives must equal its cell's dry-run's call for
-    call, and fail with the fault of a dropped call."""
+    (``--calls``), of 4o b's (``cut_dryrun_cmd``) and of the production
+    mesh's at DRYRUN_PROD_LAYERS layers, four subprocesses at once with no
+    card visible, read against 4j's output ``sh``, 4n's ``rw`` and 4o's
+    ``jb``; gates a-c must pass on the sound record and each of
+    DRYRUN_FAULTS, planted in a copy of it, must fail its gate; 4n b's and
+    4o b's collectives must equal their cells' dry-runs' call for call,
+    and fail with the fault of a dropped call."""
     import shutil
     import tempfile
 
@@ -5503,6 +5854,7 @@ def drive_dryrun(smi: str, sh: dict, rw: dict) -> dict:
                            str(rw["layers"]), "--seq-len", str(rw["seq"]), "--global-batch",
                            str(rw["batch"]), "--aggregation", rw["aggregation"], "--calls",
                            "--out", os.path.join(tmp, "rwkv.json"), arch=RWKV_ARCH),
+        "jamba": cut_dryrun_cmd(jb, os.path.join(tmp, "jamba.json")),
         "production": dryrun_cmd("--mesh", "single", "--layers", str(DRYRUN_PROD_LAYERS),
                                  "--out", os.path.join(tmp, "production.json")),
     }
@@ -5524,6 +5876,8 @@ def drive_dryrun(smi: str, sh: dict, rw: dict) -> dict:
             prod = json.load(f)[0]
         with open(os.path.join(tmp, "rwkv.json")) as f:
             rw_rec = json.load(f)[0]
+        with open(os.path.join(tmp, "jamba.json")) as f:
+            jb_rec = json.load(f)[0]
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -5540,21 +5894,15 @@ def drive_dryrun(smi: str, sh: dict, rw: dict) -> dict:
         "largest_state_leaf"]
     faults = {DRYRUN_FAULTS[0]: not dryrun_gates(dropped, sh)["a_schedule_equal"],
               DRYRUN_FAULTS[1]: not dryrun_gates(doubled, sh)["b_passes"]}
-    rw_equal, rw_first = schedule_equal(rw_rec, rw["collective_calls_rank0"], rw["steps"])
-    rw_dropped = json.loads(json.dumps(rw_rec))
-    rw_dropped["collectives"]["calls"].pop(0)
-    rwkv = {"cell": {k: v for k, v in rw_rec.items() if k != "collectives"},
-            "cell_collectives": {k: v for k, v in rw_rec["collectives"].items() if k != "calls"},
-            "schedule_equal_4n_b": rw_equal, "calls_first_difference": rw_first,
-            "fault_caught": {DRYRUN_FAULTS[0]: not schedule_equal(
-                rw_dropped, rw["collective_calls_rank0"], rw["steps"])[0]}}
+    rwkv, jamba = cell_schedule(rw_rec, rw), cell_schedule(jb_rec, jb)
     out = {"cell": {k: v for k, v in rec.items() if k != "collectives"},
            "cell_collectives": {k: v for k, v in rec["collectives"].items() if k != "calls"},
-           "gates": gates, "faults_caught": faults, "rwkv": rwkv, "production": prod,
-           "wall_s": wall, "card": smi}
+           "gates": gates, "faults_caught": faults, "rwkv": rwkv, "jamba": jamba,
+           "production": prod, "wall_s": wall, "card": smi}
     ok = (gates["a_schedule_equal"] and gates["b_passes"] and gates["c_passes"]
           and all(faults.values()) and prod["cost"]["flops_per_dev"] > 0
-          and rw_equal and all(rwkv["fault_caught"].values()))
+          and all(r["schedule_equal_b"] and all(r["fault_caught"].values())
+                  for r in (rwkv, jamba)))
     if not ok:
         raise SystemExit(f"phase 4k: {json.dumps(out)}")
     return out
@@ -5575,13 +5923,13 @@ def log_dryrun(dr: dict, smi: str) -> None:
         f"(bound ±{DRYRUN_PEAK_REL}); d, flops a device x {dr['cell']['chips']} over model_flops "
         f"{g['d_ratio']:.4f} (not gated); faults caught {json.dumps(dr['faults_caught'])}; "
         f"wall {dr['wall_s']:.1f} s; card: {smi}")
-    rw = dr["rwkv"]
-    log(f"[4k dryrun] 4n b's cell ({rw['cell']['arch']}, {rw['cell']['layers']} layers, "
-        f"{rw['cell']['mesh']}): collectives of one step, repeated, equal to 4n b's calls on rank "
-        f"0: {rw['schedule_equal_4n_b']} (first difference at {rw['calls_first_difference']}), "
-        f"{json.dumps(rw['cell_collectives'])}; a dropped call caught "
-        f"{json.dumps(rw['fault_caught'])}; peak {rw['cell']['memory']['peak_bytes_per_dev']} "
-        f"bytes a device; card: {smi}")
+    for tag, rw in (("4n", dr["rwkv"]), ("4o", dr["jamba"])):
+        log(f"[4k dryrun] {tag} b's cell ({rw['cell']['arch']}, {rw['cell']['layers']} layers, "
+            f"{rw['cell']['mesh']}): collectives of one step, repeated, equal to {tag} b's calls "
+            f"on rank 0: {rw['schedule_equal_b']} (first difference at "
+            f"{rw['calls_first_difference']}), {json.dumps(rw['cell_collectives'])}; a dropped "
+            f"call caught {json.dumps(rw['fault_caught'])}; peak "
+            f"{rw['cell']['memory']['peak_bytes_per_dev']} bytes a device; card: {smi}")
     log(f"[4k dryrun] {json.dumps({k: v for k, v in dr.items() if k != 'production'})}")
     log(f"[4k dryrun] production 16x16, {DRYRUN_PROD_LAYERS} layers: "
         f"{json.dumps(dr['production'])}")
@@ -6085,23 +6433,24 @@ def main() -> int:
     # -- 4l. the MoE family's, deepseek-v2-lite-16b, on the same spawned ranks --
     # -- 4m. the encoder-decoder family's, seamless-m4t-medium, on them too ----
     # -- 4n. the RWKV-6 family's, rwkv6-7b, on them after 4m ------------------
+    # -- 4o. jamba's, on them after 4n (a, b on a (data 1, model 4) mesh) ------
     plain = shard_plain_losses(torch)
     t0 = time.perf_counter()
     moe_plain = moe_shard_plain_losses(torch)
     moe_plain["s"] = time.perf_counter() - t0
     enc_plain = family_shard_plain_losses(torch, ENCDEC_SHARD)
     rw_plain = family_shard_plain_losses(torch, RWKV_SHARD)
+    jb_plain = family_shard_plain_losses(torch, JAMBA_SHARD)
     sharded = drive_shard_ranks(torch, smi, plain)
-    moe_ranks, enc_ranks, rw_ranks = (sharded.pop(k) for k in ("moe_ranks", "encdec_ranks",
-                                                               "rwkv_ranks"))
-    # 4l's, 4m's and 4n's shares of the spawn, by the ranks' own clocks
-    # (their one-process references ran before the spawn, in 4j's wall)
+    moe_ranks, enc_ranks, rw_ranks, jb_ranks = (
+        sharded.pop(k) for k in ("moe_ranks", "encdec_ranks", "rwkv_ranks", "jamba_ranks"))
+    # 4l's to 4o's shares of the spawn, by the ranks' own clocks (their
+    # one-process references ran before the spawn, in 4j's wall)
     t_end = time.perf_counter()
-    marks.append(("4l", t_end - max(m["phase_s"] + e["phase_s"] + n["phase_s"]
-                                     for m, e, n in zip(moe_ranks, enc_ranks, rw_ranks))))
-    marks.append(("4m", t_end - max(e["phase_s"] + n["phase_s"]
-                                     for e, n in zip(enc_ranks, rw_ranks))))
-    marks.append(("4n", t_end - max(n["phase_s"] for n in rw_ranks)))
+    later = [[r["phase_s"] for r in ranks] for ranks in (moe_ranks, enc_ranks, rw_ranks)]
+    later.append([j["phase_s"] + j["c"]["phase_s"] for j in jb_ranks])
+    for i, tag in enumerate(("4l", "4m", "4n", "4o")):
+        marks.append((tag, t_end - max(map(sum, zip(*later[i:])))))
     log_shard_ranks(sharded, smi)
     moe_sharded = moe_shard_outcome(moe_ranks, moe_plain, smi)
     log_moe_shard(moe_sharded, smi)
@@ -6109,11 +6458,15 @@ def main() -> int:
                      ENCDEC_SHARD)
     rw_sharded = family_shard_outcome(rw_ranks, rw_plain, smi, RWKV_SHARD)
     log_family_shard(rw_sharded, smi, RWKV_SHARD)
+    jb_sub = mamba_sublayer_outcome([j.pop("c") for j in jb_ranks], smi)
+    jb_sharded = family_shard_outcome(jb_ranks, jb_plain, smi, JAMBA_SHARD)
+    log_family_shard(jb_sharded, smi, JAMBA_SHARD)
+    log_mamba_sublayer(jb_sub, smi)
 
     marks.append(("4k", time.perf_counter()))
-    # -- 4k. the dry-run of 4j b's cell, held to 4j, and of 4n b's; the --------
-    # -- production mesh's ---------------------------------------------------
-    log_dryrun(drive_dryrun(smi, sharded, rw_sharded), smi)
+    # -- 4k. the dry-run of 4j b's cell, held to 4j, and of 4n b's and 4o b's;
+    # -- the production mesh's ------------------------------------------------
+    log_dryrun(drive_dryrun(smi, sharded, rw_sharded, jb_sharded), smi)
 
     marks.append(("5", time.perf_counter()))
     # -- 5. times -------------------------------------------------------------

@@ -30,25 +30,26 @@ whose ``data`` or ``model`` axis is larger than 1 raises
 ``NotImplementedError`` (ROADMAP §1, the q8 hop inside a sharded pod).
 
 ``xla_auto`` and ``totoro_tree`` on a mesh with any axis larger than 1
-give the sharded step (``_sharded_step``), for the dense, the MoE, the
-RWKV-6 and the encoder-decoder families (``sharded_family``: every layer
-GQA or MLA with a dense or an MoE FFN, ``first_dense`` layers or not;
-every layer RWKV-6 time and channel mixing; or an encoder-decoder, whose
-stacks are GQA self-attention, cross-attention and dense SwiGLU; jamba,
-whose pattern has Mamba layers, raises ``NotImplementedError``, ROADMAP
-§1).  Its state and batch are DTensors
-placed by ``launch/specs.build_cell``'s shardings (``specs.place``): the
+give the sharded step (``_sharded_step``), for every family: GQA or MLA
+layers with a dense or an MoE FFN, ``first_dense`` layers or not; RWKV-6
+time and channel mixing; jamba's pattern of attention and Mamba layers
+with dense and MoE FFNs; and the encoder-decoder, whose stacks are GQA
+self-attention, cross-attention and dense SwiGLU.  Its state and batch
+are DTensors placed by ``launch/specs.build_cell``'s shardings
+(``specs.place``): the
 parameters FSDP over ``("pod", "data")`` and TP over ``model`` under
 ``xla_auto``, replicated across pods and FSDP over ``data`` under
 ``totoro_tree``; the batch over ``("pod", "data")``.  The forward runs on
 DTensors with ``nn.constrain`` wired in where the reference calls it
-(``models/nn``, ``attention``, ``moe``, ``rwkv``, ``lm``, ``encdec``), so each
-collective is one of its redistributions: every weight gathered over its
-FSDP axes where it is used (``nn.gather_fsdp``), the attention core, the
-wkv chunk loop and the vocab-parallel loss on each rank's shards
-(``local_map``), an MoE layer's
-tokens routed by the rank that holds their group and moved to and from
-the experts over ``tp`` by all-to-alls over the batch axes.  Each
+(``models/nn``, ``attention``, ``moe``, ``rwkv``, ``ssm``, ``lm``,
+``encdec``), so each collective is one of its redistributions: every
+weight gathered over its FSDP axes where it is used (``nn.gather_fsdp``),
+the attention core, the wkv and the Mamba chunk loops and the
+vocab-parallel loss on each rank's shards (``local_map``), Mamba's
+``in_proj`` halves made alike over ``tp`` by an all-to-all of its stored
+shard, an MoE layer's tokens routed by the rank that holds their group
+and moved to and from the experts over ``tp`` by all-to-alls over the
+batch axes.  Each
 gradient comes back under its parameter's placements
 (``optim.placed_like``), and so the two aggregations' schedules differ
 as the paper's do: ``totoro_tree`` reduce-scatters a weight's gradient
@@ -297,31 +298,12 @@ def runs_sharded(plan, mesh) -> bool:
     return plan.aggregation != "totoro_tree_q8" and any(n > 1 for n in mesh.mesh.shape)
 
 
-def sharded_family(cfg) -> bool:
-    """Whether the sharded step runs ``cfg``: a decoder whose layers are
-    GQA or MLA with a dense or an MoE FFN, ``first_dense`` layers or not
-    (the dense and the MoE families), or RWKV-6 time and channel mixing
-    (``models/rwkv``), or an encoder-decoder (``models/encdec``: its
-    stacks are always GQA self-attention, cross-attention and a dense
-    SwiGLU).  A pattern with Mamba layers (jamba) is not run."""
-    if cfg.is_encoder_decoder:
-        return True
-    pattern = set(lm.layer_pattern(cfg))
-    return pattern == {("rwkv", "rwkv_cm")} or pattern <= {(m, f) for m in ("attn", "mla")
-                                                            for f in ("dense", "moe")}
-
-
 def _sharded_step(cfg, plan, opt, mesh):
     """The step over DTensors on ``mesh`` (module docstring): the state and
     the batch placed by ``launch/specs.build_cell``'s shardings, the
     gradients reduced to the parameters' placements, the new state under
     the old one's placements, the metrics replicated."""
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
-    if not sharded_family(cfg):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on a mesh of {sizes}: ROADMAP §1, the other families on "
-            f"sharded meshes")
-    axes = nn.mesh_activation_axes(sizes)
+    axes = nn.mesh_activation_axes(dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)))
 
     def train_step(state, batch):
         nn.set_activation_axes(**axes)

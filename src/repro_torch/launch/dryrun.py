@@ -27,9 +27,9 @@ step) and ``roofline`` (``compute_s``, ``memory_s``, ``collective_s``,
 ``bound``, ``model_flops``, ``useful_flops_ratio``).  The fake run's
 ``trace_s`` takes the place of ``lower_s`` and ``compile_s``; the
 ``xla_*_loop_undercounted`` keys and ``loops`` are gone (every loop is
-counted as it runs).  A cell that raises (a serving cell, another family,
-``totoro_tree_q8`` inside a sharded pod: each names its ROADMAP item) is
-a failure, listed under ``FAILURES``, and the command exits 1.
+counted as it runs).  A cell that raises (a serving cell, ``totoro_tree_q8``
+inside a sharded pod: each names its ROADMAP item) is a failure, listed
+under ``FAILURES``, and the command exits 1.
 """
 from __future__ import annotations
 

@@ -223,9 +223,10 @@ def lower_cell(cell: Cell, mesh) -> dict:
     ``alias`` is 0 and the peak is measured, not summed from the others.
 
     Serving cells raise ``NotImplementedError`` (ROADMAP §1, serving on a
-    sharded mesh), as the step builder does for the other families and for
-    ``totoro_tree_q8`` inside a sharded pod."""
+    sharded mesh), as the step builder does for ``totoro_tree_q8`` inside a
+    sharded pod."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor
 
     from . import hlo
 
@@ -233,6 +234,12 @@ def lower_cell(cell: Cell, mesh) -> dict:
         raise NotImplementedError(f"{cell.shape.name} ({cell.shape.kind}) on a mesh: ROADMAP §1, "
                                   f"serving on a sharded mesh")
     step = steps_mod.build_train_step(cell.cfg, cell.plan, mesh=mesh)
+    # a mesh of an earlier process group (an earlier cell's fake one)
+    # compares equal to ``mesh`` (DeviceMesh equality ignores its groups), so
+    # DTensor's sharding caches would hand back specs on its groups, gone
+    # with that process group (the C++ fast path's cache where torch has one)
+    DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding.cache.cache_clear()
+    getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", lambda: None)()
     counter = hlo.StepCounter(mesh)
     with FakeTensorMode():
         args = tuple(place(tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype), a), sh)

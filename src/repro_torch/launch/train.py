@@ -40,6 +40,7 @@ Step times are taken on the host clock after ``torch.cuda.synchronize()``.
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 
 import numpy as np
@@ -84,6 +85,22 @@ def make_batch(cfg, sc: StreamConfig, step: int, drop: np.ndarray | None, device
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in b.items()}
 
 
+def init_placed(model, gen: torch.Generator, cfg, shardings, *, device):
+    """``model.init_params`` placed under ``shardings`` (the parameters' of
+    a ``Cell``): a decoder's (``lm``) entry by entry as each is drawn, so a
+    rank holds its shards and at most one entry of the whole model (a full
+    jamba layer is 11 GB; four ranks that share one card cannot each hold
+    the 18.7 GB of two); an encoder-decoder's whole, then placed."""
+    from . import specs
+
+    def put(tree, path):
+        return specs.place(tree, functools.reduce(lambda t, k: t[k], path, shardings))
+
+    if model is lm:
+        return model.init_params(gen, cfg, device=device, place=put)
+    return specs.place(model.init_params(gen, cfg, device=device), shardings)
+
+
 def _whole(t: torch.Tensor) -> torch.Tensor:
     """A metric read on the host: a DTensor through ``full_tensor()``."""
     return t.full_tensor() if hasattr(t, "full_tensor") else t
@@ -108,16 +125,17 @@ def train(cfg, plan: RunPlan, *, steps: int, seq_len: int = 128, global_batch: i
     device = resolve_device(device)
     train_step = steps_mod.build_train_step(cfg, plan, mesh=mesh, num_pods=num_pods)
     model = encdec if cfg.is_encoder_decoder else lm
-    params = model.init_params(torch.Generator().manual_seed(0), cfg, device=device)
+    gen = torch.Generator().manual_seed(0)
     batch_sh = None
     if mesh is not None and steps_mod.runs_sharded(plan, mesh):
         from . import specs
 
         cell = specs.cell_for(cfg, ShapeSpec("train", "train", seq_len, global_batch), plan, mesh)
         state_sh, batch_sh = cell.in_shardings
-        params = specs.place(params, state_sh["params"])
+        params = init_placed(model, gen, cfg, state_sh["params"], device=device)
         state = specs.place(steps_mod.init_train_state(cfg, params), state_sh)
     else:
+        params = model.init_params(gen, cfg, device=device)
         podded = plan.aggregation == "totoro_tree_q8" and num_pods > 1 and mesh is None
         state = steps_mod.init_train_state(cfg, params, num_pods=num_pods, podded=podded)
     del params

@@ -52,8 +52,10 @@ block's or the sublayer's checkpoint.  Remat changes no value, only what
 is kept for the backward.
 
 On a mesh (DTensor parameters and batch, ``fl/steps``' sharded step for
-the dense and the MoE families) the reference's constraints are wired
-in: the
+every decoder family: GQA, MLA, RWKV-6 and jamba's mixed pattern of
+attention and Mamba layers with dense and MoE FFNs in one block) the
+reference's constraints are wired in, each mixer and FFN placing its own
+(``attention``, ``moe``, ``rwkv``, ``ssm``, ``nn.swiglu``): the
 embedding is a masked lookup of each rank's vocab shard (``local_map``;
 the table is ``P(TP, FSDP)``), reduced to ``("dp", None, None)``; each
 residual sum sits at a sequence-parallel boundary ``("dp", "sp", None)``
@@ -261,31 +263,46 @@ def _stack(trees: list) -> Any:
     return torch.stack(trees)
 
 
-def init_params(gen: torch.Generator, cfg, *, device="cpu") -> nn.Params:
+def init_params(gen: torch.Generator, cfg, *, device="cpu", place=None) -> nn.Params:
     """Random parameters from a CPU generator, drawn on the CPU and moved to
-    ``device`` one block at a time."""
+    ``device`` one layer at a time.
+
+    ``place(tree, path)``, where given, takes each entry of the tree as
+    soon as it is drawn (``path`` its keys: ``("embed",)``, ``("first",
+    i)``, ``("blocks", "pos0")``) and returns what the tree keeps: on a mesh
+    the rank's shards (``launch/train.init_placed``), so no rank holds more
+    than one entry of the whole model at a time.  Each layer draws from its
+    own generator, so drawing the stacked blocks one position after another
+    gives the values of drawing them block by block."""
+    put = place or (lambda tree, path: tree)
     pat = layer_pattern(cfg)
     nb = num_blocks(cfg)
     keys = nn.split_keys(gen, 4)
     params: dict[str, Any] = {
-        "embed": embed_init(keys[0], cfg.padded_vocab, cfg.d_model, cfg.pdtype).to(device),
-        "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.pdtype, device=device),
+        "embed": put(embed_init(keys[0], cfg.padded_vocab, cfg.d_model, cfg.pdtype).to(device),
+                     ("embed",)),
+        "final_norm": put(torch.zeros((cfg.d_model,), dtype=cfg.pdtype, device=device),
+                          ("final_norm",)),
     }
     if not cfg.tie_embeddings:
-        params["head"] = dense_init(keys[1], cfg.d_model, (cfg.padded_vocab,), cfg.pdtype).to(device)
+        params["head"] = put(dense_init(keys[1], cfg.d_model, (cfg.padded_vocab,),
+                                        cfg.pdtype).to(device), ("head",))
     if cfg.first_dense:
         params["first"] = [
-            tree_map(lambda t: t.to(device), init_layer(
-                fk, cfg, _first_mixer(cfg), "dense", d_ff=cfg.first_dense_d_ff or cfg.d_ff))
-            for fk in nn.split_keys(keys[2], cfg.first_dense)
+            put(tree_map(lambda t: t.to(device), init_layer(
+                fk, cfg, _first_mixer(cfg), "dense", d_ff=cfg.first_dense_d_ff or cfg.d_ff)),
+                ("first", i))
+            for i, fk in enumerate(nn.split_keys(keys[2], cfg.first_dense))
         ]
 
-    layers: list[list] = [[] for _ in pat]
-    for bkey in nn.split_keys(keys[3], nb):
-        for pos, ((mixer, ffn), lk) in enumerate(zip(pat, nn.split_keys(bkey, len(pat)))):
-            layers[pos].append(tree_map(lambda t: t.to(device), init_layer(lk, cfg, mixer, ffn)))
-    blocks = {f"pos{pos}": _stack(ls) for pos, ls in enumerate(layers)}
-    params["blocks"] = blocks
+    def stacked(pos, mixer, ffn):  # one block's leaves as views, no copy
+        layers = [tree_map(lambda t: t.to(device), init_layer(lk[pos], cfg, mixer, ffn))
+                  for lk in layer_keys]
+        return _stack(layers) if nb > 1 else tree_map(lambda t: t.unsqueeze(0), layers[0])
+
+    layer_keys = [nn.split_keys(bkey, len(pat)) for bkey in nn.split_keys(keys[3], nb)]
+    params["blocks"] = {f"pos{pos}": put(stacked(pos, mixer, ffn), ("blocks", f"pos{pos}"))
+                        for pos, (mixer, ffn) in enumerate(pat)}
     return params
 
 

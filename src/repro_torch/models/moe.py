@@ -188,7 +188,12 @@ def moe_forward(p, cfg, x: torch.Tensor):
     (E, C·G, d) under ``("tp", "dp", None)`` (C the outer dim); the expert
     stacks gathered over their FSDP axes; a second all-to-all brings the
     outputs back to groups for the combine, whose output is a partial sum
-    over ``tp`` for the caller to reduce, as the dense FFN's."""
+    over ``tp`` for the caller to reduce, as the dense FFN's.  Where ``dp``
+    does not divide C (jamba's 80 slots on 2x16x16's 32 ranks), the slots
+    cannot be split over ``dp`` and unsplit after the experts: each rank
+    keeps its own groups' tokens, flattened (E, G·C, d) with G the outer
+    dim, and no all-to-all moves them (the expert products are row by row,
+    so the values are the same)."""
     B, S, d = x.shape
     T_all = B * S
     gsz = min(cfg.moe_group_size, T_all)
@@ -208,15 +213,21 @@ def moe_forward(p, cfg, x: torch.Tensor):
     dispatch = nn.constrain(dispatch.to(x.dtype), experts)
 
     expert_in = _dispatch_tokens(dispatch, xg)
-    # EP x DP: experts over tp, expert tokens over dp (the all-to-all)
-    expert_in = nn.constrain(expert_in, ("tp", "dp", None, None)).reshape(E, C * G, d)
-    h = torch.bmm(expert_in, nn.gather_fsdp(p["wi"]).to(x.dtype))
-    g = torch.bmm(expert_in, nn.gather_fsdp(p["wg"]).to(x.dtype))
-    h = nn.constrain(h, ("tp", "dp", None))
-    g = nn.constrain(g, ("tp", "dp", None))
+    slots_over_dp = C % nn.axis_size("dp") == 0
+
+    def tokens(t):  # the reference's constraint on (E, C·G, ...), where the slots split
+        return nn.constrain(t, ("tp", "dp", None)) if slots_over_dp else t
+
+    if slots_over_dp:  # EP x DP: experts over tp, expert tokens over dp (the all-to-all)
+        expert_in = nn.constrain(expert_in, ("tp", "dp", None, None)).reshape(E, C * G, d)
+    else:  # each rank's own groups, G the outer dim
+        expert_in = expert_in.transpose(1, 2).reshape(E, G * C, d)
+    h = tokens(torch.bmm(expert_in, nn.gather_fsdp(p["wi"]).to(x.dtype)))
+    g = tokens(torch.bmm(expert_in, nn.gather_fsdp(p["wg"]).to(x.dtype)))
     h = F.silu(g) * h
-    expert_out = torch.bmm(h, nn.gather_fsdp(p["wo"]).to(x.dtype))
-    expert_out = nn.constrain(expert_out, ("tp", "dp", None)).reshape(E, C, G, d)
+    expert_out = tokens(torch.bmm(h, nn.gather_fsdp(p["wo"]).to(x.dtype)))
+    expert_out = (expert_out.reshape(E, C, G, d) if slots_over_dp
+                  else expert_out.reshape(E, G, C, d).transpose(1, 2))
     expert_out = nn.constrain(expert_out, ("tp", None, "dp", None))  # back to groups
     combine = nn.constrain(combine.to(x.dtype), experts)
     # on a mesh a partial sum over tp (each rank's experts), for the caller to reduce

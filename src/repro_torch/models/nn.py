@@ -320,6 +320,11 @@ def mesh_activation_axes(sizes: dict, *, podded: bool = False) -> dict:
     return dict(dp=dp, tp="model", sp="model", sizes=sizes)
 
 
+def tp_axis() -> str | None:
+    """The mesh axis name behind the logical ``tp`` (None without a mesh)."""
+    return _ACT_AXES["tp"]
+
+
 def axis_size(name: str) -> int:
     """The mesh size behind a logical axis name ("dp", "tp", "sp"): 1
     without a mesh."""
@@ -374,10 +379,19 @@ def _redistribute(x: DTensor, want: tuple) -> DTensor:
     ``Shard``, no collective) so that it carries only this rank's part.
     DTensor's own move is an all-to-all on a CUDA mesh but an all-gather
     and a slice on a CPU one; this is the same all-to-all on both, and on
-    the dry-run's fake process group."""
+    the dry-run's fake process group.  A mesh dim of one rank is relabelled
+    first, with no collective (on a (data 1, model 4) mesh the MoE dispatch
+    moved its groups over one rank through the host)."""
     from torch.distributed.tensor import Shard
 
     mesh, cur = x.device_mesh, list(x.placements)
+    if any(mesh.size(m) == 1 and c != w for m, (c, w) in enumerate(zip(cur, want))):
+        # a mesh dim of one rank moves nothing (DTensor's own redistribute
+        # skips it too): relabelled, with no collective
+        cur = [w if mesh.size(m) == 1 else c for m, (c, w) in enumerate(zip(cur, want))]
+        x = DTensor.from_local(x.to_local(), mesh, cur, shape=x.shape, stride=x.stride())
+        if tuple(cur) == tuple(want):
+            return x
     moves = [m for m, (c, w) in enumerate(zip(cur, want))
              if isinstance(c, Shard) and isinstance(w, Shard) and c.dim != w.dim]
     src = {cur[m].dim for m in moves}
@@ -476,6 +490,69 @@ def per_rank(fn, *args, out, grad=None):
                      in_placements=tuple(a.placements if isinstance(a, DTensor) else None
                                          for a in args),
                      in_grad_placements=grad(*args) if grad else None, device_mesh=mesh)(*args)
+
+
+def split_dims(t: DTensor, dim: int) -> set:
+    """The mesh dims on which DTensor ``t`` is sharded along its ``dim``."""
+    from torch.distributed.tensor import Shard
+
+    return {i for i, pl in enumerate(t.placements) if isinstance(pl, Shard) and pl.dim == dim}
+
+
+def partial_on(pls, dims) -> tuple:
+    """Placements ``pls`` with partial sums on the mesh dims ``dims``: the
+    gradient of an input that each rank used on its own share of a split
+    it does not carry."""
+    from torch.distributed.tensor import Partial
+
+    return tuple(Partial() if i in dims else pl for i, pl in enumerate(pls))
+
+
+class _GradPlaced(torch.autograd.Function):
+    """A DTensor as it is; its gradient redistributed to its own placements
+    (a partial sum reduced) on the way back."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g if tuple(g.placements) == ctx.placements else g.redistribute(g.device_mesh,
+                                                                              ctx.placements)
+
+
+def grad_placed(x: torch.Tensor) -> torch.Tensor:
+    """``x``; on a DTensor, its gradient reduced to ``x``'s placements before
+    the op that made ``x`` sees it.  Pieces of one tensor whose gradients
+    come back under different placements (a split's) then meet at one
+    placement, and DTensor has no choice of schedule to make (torch 2.11
+    and 2.13 chose differently)."""
+    return _GradPlaced.apply(x) if isinstance(x, DTensor) else x
+
+
+def channel_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in ``x``'s dtype, contracting ``x``'s last dim, the
+    channels; on DTensors each rank's channels against its rows of ``w``
+    (``per_rank``): a partial sum over the mesh dims that split the
+    channels, ``w``'s gradient a partial sum over those that split ``x``'s
+    batch."""
+    def out(x, w):
+        return (partial_on(x.placements, split_dims(x, x.ndim - 1)),)
+
+    def grad(x, w):
+        return (x.placements, partial_on(w.placements, split_dims(x, 0)))
+
+    return per_rank(lambda x, w: x @ w.to(x.dtype), x, w, out=out, grad=grad)
+
+
+def serving_on_a_mesh(x: torch.Tensor, mode: str) -> None:
+    """A recurrent mixer's prefill or decode on a DTensor raises, before it
+    reads a parameter (ROADMAP §1, serving on a sharded mesh)."""
+    if isinstance(x, DTensor) and mode != "train":
+        raise NotImplementedError(f"{mode} on a sharded mesh: ROADMAP §1, serving on a sharded "
+                                  f"mesh")
 
 
 def replicated(x: torch.Tensor) -> torch.Tensor:

@@ -64,7 +64,7 @@ from __future__ import annotations
 from functools import partial
 
 import torch
-from torch.distributed.tensor import Partial, Shard
+from torch.distributed.tensor import Shard
 
 from ..pytree import tree_map
 from . import nn
@@ -150,12 +150,6 @@ def _shifted(x, cache):
     return _shift(x, prev) if S > 1 else prev[:, None, :]
 
 
-def _serving_on_a_mesh(x, mode: str) -> None:
-    if isinstance(x, nn.DTensor) and mode != "train":
-        raise NotImplementedError(f"{mode} on a sharded mesh: ROADMAP §1, serving on a sharded "
-                                  f"mesh")
-
-
 def _wkv_chunk(r, k, v, lw, u, state):
     """One chunk of the wkv recurrence.
 
@@ -220,18 +214,6 @@ def _heads_wkv(r, k, v, lw, u, scale, bias, *, chunk, state=None):
     return nn.group_norm(out, scale, bias, groups=H), state
 
 
-def _split_dims(t, dim: int) -> set:
-    """The mesh dims on which DTensor ``t`` is sharded along its ``dim``."""
-    return {i for i, pl in enumerate(t.placements) if isinstance(pl, Shard) and pl.dim == dim}
-
-
-def _partial_on(pls, dims) -> tuple:
-    """Placements ``pls`` with partial sums on the mesh dims ``dims``: the
-    gradient of an input that each rank used on its own share of a split
-    it does not carry."""
-    return tuple(Partial() if i in dims else pl for i, pl in enumerate(pls))
-
-
 def _decay_lora(xw, a, b):
     """The Finch decay's LoRA in f32: ``tanh(xw A) B``."""
     return (torch.tanh(xw @ a) @ b).float()
@@ -250,9 +232,9 @@ def _placed_decay_lora(xw, a, b):
                       for px, pb in zip(x.placements, b.placements)),)
 
     def grad(x, a, b):
-        rows, cols = _split_dims(x, 0), _split_dims(b, 1)
-        return (_partial_on(x.placements, cols), _partial_on(a.placements, rows | cols),
-                _partial_on(b.placements, rows))
+        rows, cols = nn.split_dims(x, 0), nn.split_dims(b, 1)
+        return (nn.partial_on(x.placements, cols), nn.partial_on(a.placements, rows | cols),
+                nn.partial_on(b.placements, rows))
 
     return nn.per_rank(_decay_lora, xw, a, b, out=out, grad=grad)
 
@@ -278,8 +260,8 @@ def _placed_heads_wkv(r, k, v, lw, p, chunk: int, state0):
         return (r.placements, state)
 
     def grad(*args):  # each rank's own rows of the vectors' uses: partial sums over dp
-        rows = _split_dims(args[0], 0)
-        return tuple(a.placements if i < 4 else _partial_on(a.placements, rows)
+        rows = nn.split_dims(args[0], 0)
+        return tuple(a.placements if i < 4 else nn.partial_on(a.placements, rows)
                      for i, a in enumerate(args))
 
     return nn.per_rank(partial(_heads_wkv, chunk=chunk, state=state0), r, k, v, lw, *vecs,
@@ -294,7 +276,7 @@ def time_mix_forward(p, cfg, x, *, mode, cache=None):
     under the module docstring's placements; ``out`` is then a partial sum
     over ``tp``.
     """
-    _serving_on_a_mesh(x, mode)
+    nn.serving_on_a_mesh(x, mode)
     x = nn.constrain(x, ("dp", None, None))  # the sequence gathered, for the shift
     B, S, d = x.shape
     H = num_heads(cfg)
@@ -338,7 +320,7 @@ def channel_mix_forward(p, cfg, x, *, mode, cache=None):
     decode writes the token's shift into ``cache`` and returns it.  A
     DTensor ``x`` (train mode only) runs under the module docstring's
     placements; ``out`` is then sequence-parallel, ``("dp", "sp", None)``."""
-    _serving_on_a_mesh(x, mode)
+    nn.serving_on_a_mesh(x, mode)
     x = nn.constrain(x, ("dp", None, None))  # the sequence gathered, for the shift
     xs = _shifted(x, cache)
     xk = _mix(x, xs, p["mix_k"])

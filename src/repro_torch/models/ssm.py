@@ -37,11 +37,51 @@ tokens on the two are the same slice.
 ``mamba_specs`` is the sharding twin of ``init_mamba`` (the inner width
 over ``model``); the cache's specs come from ``mamba_cache_specs(cfg)``,
 beside ``mamba_cache_shape`` (the reference's returns both).
+
+On a mesh (a DTensor ``x_in``, train mode only: the sharded train step of
+``fl/steps``) the layer runs the same code, whose ``nn.constrain``,
+``nn.gather_fsdp`` and ``nn.per_rank`` calls are the identity on plain
+tensors, under these placements (T the ``tp`` axis's size, w = d_inner /
+T):
+
+- the input, the sequence-parallel residual ``("dp", "sp", None)``, is
+  gathered over the sequence once a sublayer, to ``("dp", None, None)``:
+  the causal conv needs the d_conv - 1 tokens before each sequence shard;
+- ``xz`` is ``x @ in_proj`` at ``("dp", None, "tp")`` (the reference's
+  constraint).  ``in_proj``'s columns are ``[x | z]`` and its spec
+  ``P(FSDP, TP)`` splits the concatenation, so ``tp`` rank t stores
+  columns [2 t w, 2 (t + 1) w): with T 2, rank 0 all of x and rank 1 all
+  of z.  Before the FSDP gather, ``_halves_alike`` moves the stored
+  shard's two column chunks by one all-to-all over ``tp`` (its gradient
+  back by another) so that rank t holds ``[x_t | z_t]``, channels [t w,
+  (t + 1) w) of both halves; ``xz`` then splits on each rank's own
+  columns.  The stored leaf, its spec and the checkpoint's bytes are the
+  reference's.  On the wire that is the rank's stored shard of
+  ``in_proj``, (d / FSDP) x 2 w in the parameter dtype, a layer forward
+  and its gradient backward: at jamba's full width on a 16 x 16 mesh 4 MB
+  each way, where moving ``xz`` would move B S 2 w activations;
+- the conv, its ``silu`` and the chunk loop run on each rank's channels
+  through ``nn.per_rank``, with the rank's slices of ``conv_w``,
+  ``conv_b``, ``dt_b``, ``A_log`` and ``D``, whose gradients are partial
+  sums over ``dp``;
+- ``x @ x_proj`` (``P(TP, None)``) is a partial sum over ``tp``, reduced to
+  ``("dp", None, None)`` before ``dt_w`` and the scan read ``dt_in``, B and
+  C; ``dt`` is ``("dp", None, "tp")`` (``dt_w`` is ``P(None, TP)``); B's
+  and C's gradients come back from the chunk loop as partial sums over
+  ``tp``;
+- ``(y * silu(z)) @ out_proj`` is a partial sum over ``tp``, for
+  ``lm._residual`` to reduce-scatter.
+
+Where ``tp`` does not divide d_inner, ``xz`` is gathered over ``tp`` and
+every rank runs every channel (the constraints that would split the
+channels resolve to None).  Prefill and decode on a mesh raise
+``NotImplementedError`` (ROADMAP §1, serving on a sharded mesh).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..pytree import tree_map
 from . import nn
@@ -103,20 +143,111 @@ def _causal_conv(x, w, b):
 
 def _x_dt_bc(p, cfg, x):
     """From the conv's activated output x (B, S, di): dt (B, S, di) f32 and
-    the B and C projections (B, S, d_state) f32."""
+    the B and C projections (B, S, d_state) f32.  On a mesh ``x @ x_proj``
+    is each rank's channels' partial sum (``nn.channel_product``), reduced
+    over ``tp`` before its three parts are read, each part's gradient
+    reduced on its own (``nn.grad_placed``); ``dt`` comes out
+    channel-sharded."""
     dr, ds = dt_rank(cfg), cfg.d_state
-    proj = x @ p["x_proj"].to(x.dtype)
-    dt_in, Bm, Cm = proj.split([dr, ds, ds], dim=-1)
-    dt = _softplus((dt_in @ p["dt_w"].to(x.dtype)).float() + p["dt_b"].float())
-    return dt, Bm.float(), Cm.float()
+    proj = nn.constrain(nn.channel_product(x, nn.gather_fsdp(p["x_proj"])), ("dp", None, None))
+    dt_in, Bm, Cm = (nn.grad_placed(t) for t in proj.split([dr, ds, ds], dim=-1))
+    dt_b = nn.constrain(p["dt_b"], ("tp",)).float()
+    dt = _softplus((dt_in @ nn.gather_fsdp(p["dt_w"]).to(x.dtype)).float() + dt_b)
+    return nn.constrain(dt, ("dp", None, "tp")), Bm.float(), Cm.float()
+
+
+def _chunks_swap(t, group, T: int, r: int, inverse: bool):
+    """One ``tp`` rank's part of ``_HalvesAlike``: ``t`` (rows, 2 w), this
+    rank's two column chunks, sent by one all-to-all to the ranks that
+    take them.  Forward: rank r holds chunks 2 r and 2 r + 1 of the 2 T
+    chunks of ``[x | z]`` and sends chunk c to rank c mod T; it receives x
+    chunk r from rank r // 2 and z chunk T + r from rank (T + r) // 2.
+    ``inverse`` moves them back."""
+    from torch.distributed import _functional_collectives as funcol
+
+    rows, w = t.shape[0], t.shape[1] // 2
+    held = [(2 * r) % T, (2 * r + 1) % T]  # the ranks of this rank's stored chunks
+    alike = [r // 2, (T + r) // 2]  # the ranks storing its x and z chunks
+    dests, srcs = (alike, held) if inverse else (held, alike)
+    pieces = t.reshape(rows, 2, w).transpose(0, 1)  # (2, rows, w)
+    send = torch.stack([pieces[j] for j in sorted(range(2), key=dests.__getitem__)])
+    n = rows * w
+    got = funcol.wait_tensor(funcol.all_to_all_single(
+        send.reshape(-1), [n if s in srcs else 0 for s in range(T)],
+        [n if d in dests else 0 for d in range(T)], group)).view(2, rows, w)
+    got = got[[sorted(srcs).index(s) for s in srcs]]  # by source rank -> piece order
+    return got.transpose(0, 1).reshape(rows, 2 * w)
+
+
+class _HalvesAlike(torch.autograd.Function):
+    """``in_proj`` (d, 2 d_inner) as a DTensor whose columns are rearranged
+    so that ``tp`` rank t holds ``[x_t | z_t]`` (module docstring), by
+    ``_chunks_swap`` of the column-sharded leaf (``tp`` divides d_inner, so
+    ``fit_spec`` keeps the column shard).  The other placements are kept;
+    the backward moves the gradient back the same way."""
+
+    @staticmethod
+    def forward(ctx, w, m: int):
+        mesh = w.device_mesh
+        T, r = mesh.size(m), mesh.get_local_rank(m)
+        ctx.args = (mesh, m, T, r, tuple(w.placements), w.shape, w.stride())
+        return _HalvesAlike.move(w.to_local(), *ctx.args, inverse=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, m, T, r, pls, shape, stride = ctx.args
+        if tuple(g.placements) != pls:
+            g = g.redistribute(mesh, pls)
+        return _HalvesAlike.move(g.to_local(), *ctx.args, inverse=True), None
+
+    @staticmethod
+    def move(local, mesh, m, T, r, pls, shape, stride, *, inverse):
+        local = _chunks_swap(local, mesh.get_group(m), T, r, inverse)
+        return DTensor.from_local(local, mesh, pls, shape=shape, stride=stride)
+
+
+def _in_proj(w, di: int):
+    """``in_proj`` as the layer uses it, and whether its halves were made
+    alike: a plain tensor as it is; a DTensor through ``_HalvesAlike``
+    where ``tp`` (T > 1) divides d_inner, gathered over its FSDP axes."""
+    if not isinstance(w, DTensor):
+        return w, False
+    m = w.device_mesh.mesh_dim_names.index(nn.tp_axis())
+    T = w.device_mesh.size(m)
+    alike = di % T == 0
+    if alike and T > 1:
+        w = _HalvesAlike.apply(w, m)
+    return nn.gather_fsdp(w), alike
+
+
+def _split_halves(xz):
+    """x and z of ``xz``: on a mesh, of each rank's own columns (``[x_t |
+    z_t]`` after ``_HalvesAlike``, or the whole halves where ``xz`` is
+    replicated over ``tp``)."""
+    return nn.per_rank(lambda t: t.chunk(2, dim=-1), xz,
+                       out=lambda t: (t.placements, t.placements))
+
+
+def _rows_partial(x, *params):
+    """``nn.per_rank``'s gradient rule for a per-channel op on ``x`` (B, S,
+    ...) and its channels' parameters: ``x``'s as placed, each parameter's a
+    partial sum over the mesh dims that split ``x``'s batch."""
+    rows = nn.split_dims(x, 0)
+    return (x.placements,) + tuple(nn.partial_on(q.placements, rows) for q in params)
+
+
+def _conv_silu(x_raw, w, b):
+    return nn.silu(_causal_conv(x_raw, w.to(x_raw.dtype), b.to(x_raw.dtype)))
 
 
 def _ssm_inputs(p, cfg, xz):
     """From in_proj's output: (x_raw, x_conv, z, dt, A, Bm, Cm)."""
-    x_raw, z = xz.chunk(2, dim=-1)
-    x = nn.silu(_causal_conv(x_raw, p["conv_w"].to(x_raw.dtype), p["conv_b"].to(x_raw.dtype)))
+    x_raw, z = _split_halves(xz)
+    w, b = nn.constrain(p["conv_w"], (None, "tp")), nn.constrain(p["conv_b"], ("tp",))
+    x = nn.per_rank(_conv_silu, x_raw, w, b, out=lambda x, *_: (x.placements,),
+                    grad=_rows_partial)
     dt, Bm, Cm = _x_dt_bc(p, cfg, x)
-    A = -torch.exp(p["A_log"])  # (di, ds), negative
+    A = -torch.exp(nn.constrain(p["A_log"], ("tp", None)))  # (di, ds), negative
     return x_raw, x, z, dt, A, Bm, Cm
 
 
@@ -184,6 +315,29 @@ def selective_scan(dt, A, Bm, Cm, x, D, h0, chunk: int):
     return torch.cat(ys, dim=1), h
 
 
+def _placed_scan(dt, A, Bm, Cm, x, D, *, chunk: int, h0=None):
+    """``selective_scan`` from ``h0`` or zeros, on plain tensors or on each
+    rank's channels of DTensors (``nn.per_rank``): dt and x ``("dp", None, "tp")``, B and C whole over
+    ``tp``, whose gradients are then partial sums over it; the parameters'
+    gradients partial sums over ``dp``."""
+    def out(dt, *_):
+        B, S, di = dt.shape
+        return (dt.placements, nn.layout(dt.device_mesh, ("dp", "tp", None), (B, di, Bm.shape[2])))
+
+    def grad(dt, A, Bm, Cm, x, D):
+        rows, cols = nn.split_dims(dt, 0), nn.split_dims(dt, 2)
+        return (dt.placements, nn.partial_on(A.placements, rows),
+                nn.partial_on(Bm.placements, cols), nn.partial_on(Cm.placements, cols),
+                x.placements, nn.partial_on(D.placements, rows))
+
+    def fn(dt, A, Bm, Cm, x, D):  # one rank's channels: dt, x (B, S, di') f32
+        h = h0 if h0 is not None else torch.zeros((x.shape[0], x.shape[2], Bm.shape[2]),
+                                                  dtype=torch.float32, device=x.device)
+        return selective_scan(dt, A, Bm, Cm, x, D, h, chunk)
+
+    return nn.per_rank(fn, dt, A, Bm, Cm, x, D, out=out, grad=grad)
+
+
 def _ssm_step(a, bu, h):
     """The one-token state update: h' = a h + b u, all (B, di, ds) f32."""
     return a * h + bu
@@ -192,10 +346,15 @@ def _ssm_step(a, bu, h):
 def mamba_forward(p, cfg, x_in, *, mode, cache=None):
     """x_in: (B, S, d).  cache: {'conv': (B, d_conv - 1, di), 'h': (B, di,
     ds) f32}.  Returns (out, new_cache): None in train mode; decode writes
-    the conv history and the state into ``cache`` and returns it."""
+    the conv history and the state into ``cache`` and returns it.  A
+    DTensor ``x_in`` (train mode only) runs under the module docstring's
+    placements; ``out`` is then a partial sum over ``tp``."""
+    nn.serving_on_a_mesh(x_in, mode)
+    x_in = nn.constrain(x_in, ("dp", None, None))  # the sequence gathered, for the conv
     B, S, d = x_in.shape
     di, ds, dc = d_inner(cfg), cfg.d_state, cfg.d_conv
-    xz = x_in @ p["in_proj"].to(x_in.dtype)
+    w_in, alike = _in_proj(p["in_proj"], di)
+    xz = nn.constrain(x_in @ w_in.to(x_in.dtype), ("dp", None, "tp" if alike else None))
 
     if mode == "decode":
         x, z = xz.chunk(2, dim=-1)
@@ -215,11 +374,11 @@ def mamba_forward(p, cfg, x_in, *, mode, cache=None):
         return out, cache
 
     x_raw, x, z, dt, A, Bm, Cm = _ssm_inputs(p, cfg, xz)
-    h0 = (cache["h"] if cache is not None and mode == "prefill"
-          else torch.zeros((B, di, ds), dtype=torch.float32, device=x_in.device))
-    y, h_last = selective_scan(dt, A, Bm, Cm, x.float(), p["D"], h0, nn.chunk_len(cfg, S))
+    h0 = cache["h"] if cache is not None and mode == "prefill" else None
+    y, h_last = _placed_scan(dt, A, Bm, Cm, x.float(), nn.constrain(p["D"], ("tp",)),
+                             chunk=nn.chunk_len(cfg, S), h0=h0)
     y = y.to(x_in.dtype) * nn.silu(z)
-    out = y @ p["out_proj"].to(x_in.dtype)
+    out = y @ nn.gather_fsdp(p["out_proj"]).to(x_in.dtype)  # on a mesh a partial sum over tp
     if mode != "prefill":
         return out, None
     # the last d_conv - 1 inputs of the zero-padded sequence the conv saw

@@ -41,9 +41,9 @@ import dryrun_vs_reference as vs_ref  # noqa: E402
 pytestmark = pytest.mark.xdist_group("test_torch_dryrun")
 
 LAYERS = 2  # tinyllama-1.1b at full width, cut to two layers on the test meshes
-# the family the sharded step does not run yet (Mamba layers), at the depth
-# of its one pattern block
-JAMBA, JAMBA_LAYERS = "jamba-1.5-large-398b", 8
+# jamba, the last family the sharded step took (Mamba layers), at the depth
+# of its one pattern block and a short sequence
+JAMBA, JAMBA_LAYERS, JAMBA_SEQ = "jamba-1.5-large-398b", 8, 64
 # XLA's output_size_in_bytes also counts the output tuple's table, 8 bytes a
 # leaf (the state's and the two metrics)
 TUPLE_BYTES_A_LEAF = 8
@@ -261,24 +261,35 @@ def test_model_parallel_flops_add_the_repeated_kv_products(sizes):
     (False, "train_4k", "xla_auto", "the other families on sharded meshes"),
 ])
 def test_cells_that_are_not_ported_fail_naming_their_roadmap_item(mp, shape, agg, item):
-    other = item.startswith("the other")  # jamba: one pattern block of 8 layers
-    arch = JAMBA if other else "tinyllama-1.1b"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §1, {item}"):
-        dryrun.run_cell(arch, shape, multi_pod=mp, aggregation=agg, quiet=True,
-                        cfg_overrides={"num_layers": JAMBA_LAYERS if other else LAYERS},
-                        mesh_shape=(2, 2, 2) if mp else (2, 4))
+    """Serving cells and the q8 hop inside a sharded pod raise naming their
+    ROADMAP items.  The other families' item is done: jamba's cell, one
+    pattern block of 8 layers at full width (attention, Mamba, MoE), S
+    JAMBA_SEQ and one microbatch (its accum 4 doubles the trace's time),
+    runs on (data 2, model 4) and moves ``in_proj``'s halves by all-to-all
+    over ``model``."""
+    other = item.startswith("the other")
+    kw = dict(multi_pod=mp, aggregation=agg, quiet=True, mesh_shape=(2, 2, 2) if mp else (2, 4))
+    if other:
+        rec = dryrun.run_cell(JAMBA, shape, cfg_overrides={"num_layers": JAMBA_LAYERS},
+                              seq_len=JAMBA_SEQ, grad_accum=1, **kw)
+        assert (rec["mesh"], rec["layers"], rec["grad_accum"]) == ("2x4", JAMBA_LAYERS, 1)
+        assert rec["collectives"]["by_op_axis"]["all_to_all_single/model"]["count"] > 0
+        assert rec["memory"]["peak_bytes_per_dev"] > rec["memory"]["argument_bytes_per_dev"] > 0
+    else:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP §1, {item}"):
+            dryrun.run_cell("tinyllama-1.1b", shape, cfg_overrides={"num_layers": LAYERS}, **kw)
     assert not dist.is_initialized()
 
 
 def test_command_line_lists_failures_and_exits_1(capsys):
     with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", JAMBA, "--shape", "train_4k", "--mesh-shape",
+        dryrun.main(["--arch", JAMBA, "--shape", "decode_32k", "--mesh-shape",
                      "2x4", "--layers", str(JAMBA_LAYERS)])
     assert e.value.code == 1
     out = capsys.readouterr().out
     fails = json.loads(out[out.index("FAILURES:") + len("FAILURES:"):])
     assert [f["mesh"] for f in fails] == ["2x4"]
-    assert "ROADMAP §1, the other families on sharded meshes" in fails[0]["error"]
+    assert "ROADMAP §1, serving on a sharded mesh" in fails[0]["error"]
 
 
 def test_layers_cuts_both_stacks_of_an_encoder_decoder(tmp_path):

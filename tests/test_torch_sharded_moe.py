@@ -192,7 +192,9 @@ def test_dryrun_collectives_are_the_ranks_call_for_call(runs, cid):
     """``specs.lower_cell`` of the case's cell on a fake process group (the
     dry-run's trace): its collectives of one step, repeated for each step,
     are rank 0's ``CollectiveLog`` calls (op, mesh axis, bytes, in order),
-    the expert all-to-alls over ``data`` among them."""
+    the expert all-to-alls over ``data`` among them where ``data`` has more
+    than one rank (over one rank the shard's move is a relabelling,
+    ``nn._redistribute``)."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     arch, shape, agg, remat, accum = CASES[IDS.index(cid)]
@@ -206,7 +208,8 @@ def test_dryrun_collectives_are_the_ranks_call_for_call(runs, cid):
         dist.destroy_process_group()
     got = runs[0][cid]["collectives"]
     assert [tuple(c) for c in calls] * STEPS == [tuple(c) for c in got]
-    assert any(op == "all_to_all_single" and axis == "data" for op, axis, _ in calls)
+    moved = any(op == "all_to_all_single" and axis == "data" for op, axis, _ in calls)
+    assert moved == (dict(zip(AXES[len(shape)], shape))["data"] > 1)
 
 
 def test_moe_layers_reach_the_expert_all_to_all_in_forward_and_backward(runs):
@@ -224,23 +227,21 @@ def test_moe_layers_reach_the_expert_all_to_all_in_forward_and_backward(runs):
 
 
 def test_families_that_remain_raise_on_a_sharded_mesh():
-    """The sharded step now takes both MoE configs, the encoder-decoder
-    and RWKV-6; jamba (Mamba layers) still raises naming its ROADMAP
-    item."""
+    """None remains: the sharded step takes both MoE configs, the
+    encoder-decoder, RWKV-6 and jamba (whose MoE layers run this file's
+    dispatch beside its Mamba layers), reduced and full, under both
+    aggregations."""
     from repro_torch import configs
     from repro_torch.config import RunPlan
     from repro_torch.fl import steps
 
-    for arch in (DS, MS, "seamless-m4t-medium", "rwkv6-7b"):
-        assert steps.sharded_family(configs.get_reduced(arch))
-        assert steps.sharded_family(configs.get_config(arch))
-    assert not steps.sharded_family(configs.get_config("jamba-1.5-large-398b"))
+    assert not hasattr(steps, "sharded_family")
     try:
         mesh = dense._fake_mesh((1, 2, 2))
-        for arch in (DS, MS):
-            for agg in ("xla_auto", "totoro_tree"):
-                assert steps.build_train_step(configs.get_reduced(arch),
-                                              RunPlan(aggregation=agg), mesh=mesh)
+        for arch in (DS, MS, "seamless-m4t-medium", "rwkv6-7b", "jamba-1.5-large-398b"):
+            for get in (configs.get_reduced, configs.get_config):
+                for agg in ("xla_auto", "totoro_tree"):
+                    assert steps.build_train_step(get(arch), RunPlan(aggregation=agg), mesh=mesh)
     finally:
         dist.destroy_process_group()
 

@@ -273,18 +273,15 @@ def test_serving_on_a_mesh_raises(mode):
 
 
 def test_rwkv_builds_on_a_sharded_mesh_and_jamba_still_raises():
-    """rwkv6-7b (reduced and full) is a sharded family now; jamba, whose
-    pattern has Mamba layers, still raises naming its ROADMAP item."""
-    for get in (configs.get_reduced, configs.get_config):
-        assert steps.sharded_family(get(RW))
-        assert not steps.sharded_family(get("jamba-1.5-large-398b"))
+    """rwkv6-7b and jamba, the two recurrent families (reduced and full),
+    build the sharded step under both aggregations; jamba no longer raises
+    (``test_torch_sharded_jamba`` runs it)."""
     try:
         mesh = dense._fake_mesh((1, 2, 2))
-        for agg in ("xla_auto", "totoro_tree"):
-            plan = RunPlan(aggregation=agg)
-            assert steps.build_train_step(configs.get_reduced(RW), plan, mesh=mesh)
-            with pytest.raises(NotImplementedError, match="the other families on sharded meshes"):
-                steps.build_train_step(configs.get_reduced("jamba-1.5-large-398b"), plan,
-                                       mesh=mesh)
+        for get in (configs.get_reduced, configs.get_config):
+            for agg in ("xla_auto", "totoro_tree"):
+                plan = RunPlan(aggregation=agg)
+                assert steps.build_train_step(get(RW), plan, mesh=mesh)
+                assert steps.build_train_step(get("jamba-1.5-large-398b"), plan, mesh=mesh)
     finally:
         dist.destroy_process_group()

@@ -228,8 +228,10 @@ for cid, arch, shape, agg, remat, accum, over in cases:
                                                 in_sh[1]))
             losses.append(float(m["loss"]))
             auxes.append(float(m["aux"]))
-            if len(losses) == 1:  # AdamW's m after the first step: 0.1 g
-                first_m = flat(state["opt"]["m"], "first_m/") if "m" in state["opt"] else {}
+            if len(losses) == 1:  # AdamW's m after the first step: 0.1 g; adafactor's v:
+                # g^2 + 1e-30 on a leaf it does not factor
+                first_m = (flat(state["opt"]["m"], "first_m/") if "m" in state["opt"]
+                           else flat(state["opt"]["v"], "first_v/"))
     np.savez(f"{tmp}/{cid}_jax.npz", losses=np.asarray(losses), auxes=np.asarray(auxes),
              **flat(state), **first_m)
 """ % {"steps": STEPS}
@@ -240,13 +242,13 @@ def _jax_inputs(tmp: Path, ids=IDS, cases_in=CASES, overrides=None) -> None:
     batches, as numpy for the reference: an encoder-decoder's ``enc`` /
     ``dec`` stacks and its ``embeds`` / ``tokens`` / ``labels`` batch
     too.  ``overrides``: config fields set on every case's reduced config,
-    on both sides."""
+    on both sides, or a list of them, one a case."""
     from repro_torch.convert import params_to_numpy
     from repro_torch.models import encdec, lm
 
-    over = dict(overrides or {})
     cases = []
-    for cid, (arch, shape, agg, remat, accum) in zip(ids, cases_in):
+    for i, (cid, (arch, shape, agg, remat, accum)) in enumerate(zip(ids, cases_in)):
+        over = dict((overrides[i] if isinstance(overrides, list) else overrides) or {})
         cfg = _cfg(arch, remat).replace(**over)
         model = encdec if cfg.is_encoder_decoder else lm
         params = model.init_params(torch.Generator().manual_seed(0), cfg)
@@ -275,7 +277,9 @@ def assert_state_matches(got: dict, plain: dict, want: dict, *,
     first-step gradients lie under ``tiny_grad``; ``qualify_plain``: to
     the single-process run's under the same qualification too (the
     sharded step sums a gradient of ~1e-9 in another order than one
-    process)."""
+    process).  Adafactor's first update of a leaf it does not factor is
+    ``g / sqrt(g^2 + 1e-30)``, a sign, and its weights take the same
+    qualification; their first-step gradients come from JAX's v."""
     paths = key_paths(got["state"])
     assert paths == key_paths(plain["state"])
     np.testing.assert_allclose(got["losses"], want["losses"], **TIGHT)
@@ -283,14 +287,18 @@ def assert_state_matches(got: dict, plain: dict, want: dict, *,
     for path, a, b in zip(paths, leaves(got["state"]), leaves(plain["state"])):
         assert a.dtype == b.dtype and a.shape == b.shape, path
         a, b, w = a.float().numpy(), b.float().numpy(), want[path].astype(np.float32)
-        adamw_weight = path.startswith(("params/", "opt/master/"))
-        if not (adamw_weight and qualify_plain):
+        leaf = path.split("/", 1)[1].removeprefix("master/")
+        g1 = None  # the first-step gradient of a weight whose first update is normalised
+        if path.startswith(("params/", "opt/master/")) and f"first_m/{leaf}" in want:
+            g1 = np.abs(want[f"first_m/{leaf}"]) / 0.1
+        elif path.startswith("params/") and f"first_v/{leaf}/v" in want:
+            g1 = np.sqrt(want[f"first_v/{leaf}/v"])
+        if not (g1 is not None and qualify_plain):
             np.testing.assert_allclose(a, b, **TIGHT, err_msg=path)
-        if adamw_weight:
+        if g1 is not None:
             # AdamW's weights: fp-tight to JAX wherever the single-process
             # step is (ROADMAP §3, AdamW's first update), which is off at a
             # few elements of tiny first-step gradient only
-            g1 = np.abs(want[f"first_m/{path.split('/', 1)[1].removeprefix('master/')}"]) / 0.1
             off = ~np.isclose(b, w, **TIGHT)
             offs = [off]
             if qualify_plain:  # each comparison off at such elements alone
@@ -424,12 +432,17 @@ def _fake_mesh(shape, axes=("pod", "data", "model")):
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b"])
 def test_other_families_on_a_sharded_mesh_raise(arch):
+    """No family is left outside the sharded step: jamba, the last, builds
+    it under both aggregations, and raises only where every family does,
+    the q8 hop inside a sharded pod (ROADMAP §1)."""
     try:
         mesh = _fake_mesh((1, 2, 2))
         for agg in ("xla_auto", "totoro_tree"):
-            with pytest.raises(NotImplementedError, match="the other families on sharded meshes"):
-                steps.build_train_step(configs.get_reduced(arch), RunPlan(aggregation=agg),
-                                       mesh=mesh)
+            assert steps.build_train_step(configs.get_reduced(arch), RunPlan(aggregation=agg),
+                                          mesh=mesh)
+        with pytest.raises(NotImplementedError, match="the q8 hop inside a sharded pod"):
+            steps.build_train_step(configs.get_reduced(arch), RunPlan(aggregation="totoro_tree_q8"),
+                                   mesh=mesh)
     finally:
         dist.destroy_process_group()
 
